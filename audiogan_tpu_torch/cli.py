@@ -1,13 +1,18 @@
-"""CLI of the port: sample / export / serve the WaveGAN generator.
+"""CLI of the port: train the WaveGAN GAN; sample / export / serve its
+generator.
 
 Usage:
+    python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 --steps 10 \
+        --workdir /tmp/run
     python -m audiogan_tpu_torch.cli sample --preset wgan_gp_b64 \\
         --init-seed 0 --num 8 --seed 0 --out_dir /tmp/wavs
     python -m audiogan_tpu_torch.cli export --preset wgan_gp_b64 \\
         --weights state.pt --num 64 --out_dir /tmp/art
     python -m audiogan_tpu_torch.cli serve --artifact /tmp/art --port 8765
 
-Weights come from ``--weights`` (a state dict saved with torch.save, e.g.
+``train`` takes --steps WGAN-GP steps from a fresh seeded init on the
+synthetic SC09 fixture (or --data_dir), printing one JSON line of metrics
+per log_every steps. Weights for the others come from ``--weights`` (a state dict saved with torch.save, e.g.
 converted with convert.params_from_jax) or from ``--init-seed`` (random
 glorot init). Everything runs on the card unless ``--device cpu``.
 """
@@ -70,6 +75,17 @@ def main(argv: list[str] | None = None) -> int:
                    help="serving batch of the artifact")
     x.add_argument("--out_dir", required=True)
 
+    t = sub.add_parser("train", help="train from a fresh init")
+    t.add_argument("--preset", default="tiny_sc09", choices=sorted(PRESETS))
+    _add_device_flag(t)
+    t.add_argument("--steps", type=int, required=True)
+    t.add_argument("--workdir", required=True)
+    t.add_argument("--data_dir", default=None,
+                   help="wav tree or packed corpus (default: synthetic)")
+    t.add_argument("--batch_size", type=int, default=None)
+    t.add_argument("--log_every", type=int, default=None)
+    t.add_argument("--seed", type=int, default=None)
+
     v = sub.add_parser("serve", help="HTTP inference server")
     v.add_argument("--artifact", required=True,
                    help="artifact dir written by `export`")
@@ -79,6 +95,22 @@ def main(argv: list[str] | None = None) -> int:
 
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+
+    if args.cmd == "train":
+        import dataclasses
+
+        from audiogan_tpu_torch.train.loop import train
+        cfg = get_preset(args.preset)
+        tr = {k: v for k, v in (("batch_size", args.batch_size),
+                                ("log_every", args.log_every),
+                                ("seed", args.seed)) if v is not None}
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
+        if args.data_dir is not None:
+            cfg = cfg.replace(data=dataclasses.replace(
+                cfg.data, data_dir=args.data_dir))
+        train(cfg.validate(), args.workdir, args.steps, device=device,
+              log=lambda line: print(line, flush=True))
+        return 0
 
     if args.cmd == "sample":
         import numpy as np

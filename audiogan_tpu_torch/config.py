@@ -2,9 +2,9 @@
 
 The fields, their defaults and the JSON form are those of
 ``audiogan_tpu/config.py``, so a ``config.json`` or an exported
-``meta.json`` written by either package loads in the other. The port
-serves the WaveGAN generator only; training fields are carried so the
-JSON round-trips, and are read by later parts of the port.
+``meta.json`` written by either package loads in the other. Fields of
+parts not ported yet (the GRU generator, the STFT critic, resampling,
+meshes, the JAX kernel tiers) are carried so the JSON round-trips.
 
 Presets: ``tiny_sc09`` (CPU-sized) and ``wgan_gp_b64`` (the flagship).
 """

@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 
 from audiogan_tpu_torch.config import Config
-from audiogan_tpu_torch.models.wavegan import WaveGANGenerator
+from audiogan_tpu_torch.models.wavegan import (WaveGANDiscriminator,
+                                                WaveGANGenerator)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -26,3 +27,23 @@ def build_generator(cfg: Config, device=None) -> WaveGANGenerator:
         strides=m.strides, num_classes=d.num_classes,
         embed_dim=m.embed_dim, max_channels=m.max_channels,
         dtype=DTYPES[cfg.train.dtype], device=device)
+
+
+def build_discriminator(cfg: Config, device=None) -> WaveGANDiscriminator:
+    """The WaveGAN critic with uninitialised f32 parameters on ``device``.
+    Every phase-shuffle site is unfused (fused_shuffle_sites=0, the
+    setting of every preset)."""
+    m, d = cfg.model, cfg.data
+    if m.use_stft_critic:
+        raise NotImplementedError(
+            "the STFT critic is not ported to audiogan_tpu_torch yet")
+    if m.fused_shuffle_sites != 0:
+        raise NotImplementedError(
+            "fused phase-shuffle sites (kernels/sconv.py) are not ported to "
+            "audiogan_tpu_torch yet; use fused_shuffle_sites=0")
+    return WaveGANDiscriminator(
+        clip_len=d.clip_len, model_dim=m.model_dim,
+        kernel_size=m.kernel_size, strides=m.strides,
+        phase_shuffle_rad=m.phase_shuffle, num_classes=d.num_classes,
+        max_channels=m.max_channels, dtype=DTYPES[cfg.train.dtype],
+        device=device)

@@ -1,1 +1,1 @@
-"""Sampling (the training step is not ported yet)."""
+"""Training (state, WGAN-GP step, loop) and sampling."""

@@ -1,0 +1,173 @@
+"""The WGAN-GP training step, the port of audiogan_tpu/train/step.py.
+
+One step: n_critic critic updates, each on a fresh real view (ingested on
+the device through the fused ingest kernel), with the fakes from a G
+forward under no_grad, the real and fake scores (one 2B call when
+train.fused_d_views, else two B calls), the gradient penalty's double
+backprop and one Adam update; then one generator update through the
+critic just updated. It runs eagerly; every conv of it, forward and
+backward, is a kernel launch on the card.
+
+Randomness: per critic micro-step i the crop offsets, z, the penalty's
+eps, the fake labels and the phase-shuffle shifts (2B from one draw when
+fused, as d_scores_real_fake does; B more for x-hat), then z, labels and
+shifts for the G update, all from utils.prng generators of (seed, step,
+role). ``draws=`` replaces that stream (tests inject the reference's).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from audiogan_tpu_torch.config import Config
+from audiogan_tpu_torch.device import resolve_device
+from audiogan_tpu_torch.losses import (gradient_penalty, wgan_d_loss,
+                                       wgan_g_loss)
+from audiogan_tpu_torch.ops.framing import crop_offsets
+from audiogan_tpu_torch.ops.ingest import ingest_batch
+from audiogan_tpu_torch.ops.phase_shuffle import draw_shifts
+from audiogan_tpu_torch.train.state import TrainState
+from audiogan_tpu_torch.utils import prng
+
+def d_scores_real_fake(d, real, fake, lab_r, lab_f, shifts, fused: bool):
+    """Critic scores on the real and fake views of one micro-step.
+    fused: ONE 2B-batch call with shifts["both"] [sites, 2B]; else two
+    B-batch calls with shifts["real"] and shifts["fake"]."""
+    if not fused:
+        return (d(real, lab_r, shifts["real"]),
+                d(fake, lab_f, shifts["fake"]))
+    b = real.shape[0]
+    lab = None if lab_r is None else torch.cat([lab_r, lab_f])
+    scores = d(torch.cat([real, fake]), lab, shifts["both"])
+    return scores[:b], scores[b:]
+
+
+def draw_step(cfg: Config, seed: int, step: int, batch: int,
+              device) -> dict:
+    """The port's own draws for one step (see the module docstring)."""
+    m, d = cfg.model, cfg.data
+    sites = len(m.strides) - 1 if m.phase_shuffle else 0
+    rad = m.phase_shuffle
+    max_off = max(d.store_len - d.clip_len, 0)
+
+    def labels(gen):
+        if not d.num_classes:
+            return None
+        return torch.randint(0, d.num_classes, (batch,), generator=gen,
+                             device=device)
+
+    critic = []
+    for i in range(cfg.loss.n_critic):
+        gen = prng.generator(seed, step, f"critic/{i}", device)
+        dr = {"offsets": crop_offsets(gen, batch, max_off, device),
+              "z": torch.randn(batch, m.latent_dim, generator=gen,
+                               device=device),
+              "eps": torch.rand(batch, generator=gen, device=device),
+              "labels": labels(gen)}
+        if cfg.train.fused_d_views:
+            dr["shifts"] = {"both": draw_shifts(gen, sites, 2 * batch, rad,
+                                                device)}
+        else:
+            dr["shifts"] = {
+                "real": draw_shifts(gen, sites, batch, rad, device),
+                "fake": draw_shifts(gen, sites, batch, rad, device)}
+        dr["shifts"]["gp"] = draw_shifts(gen, sites, batch, rad, device)
+        critic.append(dr)
+    gen = prng.generator(seed, step, "generator", device)
+    g = {"z": torch.randn(batch, m.latent_dim, generator=gen, device=device),
+         "labels": labels(gen),
+         "shifts": draw_shifts(gen, sites, batch, rad, device)}
+    return {"critic": critic, "generator": g}
+
+
+def build_train_step(cfg: Config, device=None) -> Callable:
+    """step_fn(state, raw [n_critic, B, store_len] int16, labels
+    [n_critic, B], draws=None) -> metrics (0-d tensors on the device);
+    updates ``state`` in place. Runs on the card unless ``device`` says
+    otherwise."""
+    dev = resolve_device(device)
+    if cfg.loss.stft_loss_weight > 0:
+        raise NotImplementedError(
+            "the STFT spectral-matching loss is not ported to "
+            "audiogan_tpu_torch yet")
+    if cfg.loss.gp_batch_chunks > 1:
+        raise NotImplementedError(
+            "gp_batch_chunks > 1 is not ported to audiogan_tpu_torch yet")
+    n_critic = cfg.loss.n_critic
+    gp_lambda = cfg.loss.gp_lambda
+    drift = cfg.loss.drift_epsilon
+    conditional = cfg.data.num_classes > 0
+    fused = cfg.train.fused_d_views
+
+    def on_dev(t):
+        return None if t is None else t.to(dev)
+
+    def d_micro_step(state: TrainState, raw, labels_real, dr):
+        d = state.d
+        real = ingest_batch(raw, cfg.data,
+                            offsets=on_dev(dr["offsets"]))[..., None]
+        lab_f = on_dev(dr["labels"]) if conditional else None
+        lab_r = labels_real.long() if conditional else None
+        with torch.no_grad():
+            fake = state.g(on_dev(dr["z"]), lab_f)
+        shifts = {k: on_dev(v) for k, v in dr["shifts"].items()}
+        real_s, fake_s = d_scores_real_fake(d, real, fake, lab_r, lab_f,
+                                            shifts, fused)
+        gp, gnorm = gradient_penalty(
+            lambda x: d(x, lab_r, shifts["gp"]), real, fake,
+            on_dev(dr["eps"]))
+        loss = wgan_d_loss(real_s, fake_s) + gp_lambda * gp
+        if drift:
+            loss = loss + drift * real_s.square().mean()
+        w_dist = real_s.mean() - fake_s.mean()
+        state.opt_d.zero_grad(set_to_none=True)
+        # inputs=: the engine then skips the grads nobody reads (x-hat's)
+        loss.backward(inputs=list(d.parameters()))
+        state.opt_d.step()
+        return {"d_loss": loss.detach(), "w_dist": w_dist.detach(),
+                "gp": gp.detach(), "gp_grad_norm": gnorm.detach()}
+
+    def g_update(state: TrainState, dr) -> torch.Tensor:
+        lab = on_dev(dr["labels"]) if conditional else None
+        fake = state.g(on_dev(dr["z"]), lab)
+        loss = wgan_g_loss(state.d(fake, lab, on_dev(dr["shifts"])))
+        state.opt_g.zero_grad(set_to_none=True)
+        # the critic's weight gradients are not computed (kernels/autograd)
+        loss.backward(inputs=list(state.g.parameters()))
+        state.opt_g.step()
+        return loss.detach()
+
+    def step_fn(state: TrainState, raw: torch.Tensor, labels: torch.Tensor,
+                draws: dict | None = None) -> dict[str, torch.Tensor]:
+        raw, labels = raw.to(dev), labels.to(dev)
+        if draws is None:
+            draws = draw_step(cfg, state.seed, state.step, raw.shape[1], dev)
+        d_metrics = [d_micro_step(state, raw[i], labels[i],
+                                  draws["critic"][i])
+                     for i in range(n_critic)]
+        g_loss = g_update(state, draws["generator"])
+        metrics = dict(d_metrics[-1])
+        metrics["d_loss_mean"] = torch.stack(
+            [m["d_loss"] for m in d_metrics]).mean()
+        metrics["g_loss"] = g_loss
+        state.step += 1
+        return metrics
+
+    return step_fn
+
+
+def wrap_device_corpus(inner: Callable) -> Callable:
+    """(state, corpus_clips [N, store_len] int16 resident on the device,
+    idx [n_critic, B], labels [n_critic, B], draws=None) -> metrics: the
+    step gathers its raw views from the resident corpus by index, so the
+    host ships only indices per step (step.py:82-142)."""
+
+    def step_fn(state, corpus_clips, idx, labels, draws=None):
+        idx = idx.to(corpus_clips.device, torch.long)
+        raw = corpus_clips[idx.reshape(-1)].reshape(
+            *idx.shape, corpus_clips.shape[1])
+        return inner(state, raw, labels, draws)
+
+    return step_fn

@@ -7,16 +7,32 @@ Phases, each printing one JSON line with its own ``seconds``; any failure
 raises and the script exits non-zero:
 
 1. env      the card's name and power limit (nvidia-smi).
-2. build    the convt1d kernel from a clean build directory (plain nvcc).
-3. compare  the kernel against its plain PyTorch form at the five
-            wgan_gp_b64 generator layers, batch 64, in f32 and bf16.
+2. build    the three kernels (convt1d, conv1d, ingest) from a clean build
+            directory, one plain nvcc each, all started together; ptxas
+            registers and spills.
+3. compare  each kernel against its plain PyTorch form, f32 and bf16:
+            convt1d at the five wgan_gp_b64 generator layers (batch 64) and
+            at the critic's backward geometries (the dx of every critic
+            conv, batch 2B = 128); conv1d at the five critic layers (2B)
+            and at the generator's backward geometries (batch 64); ingest
+            at [64, 16384] with store = clip and with store 20000 and
+            random offsets.
 4. serve    the wgan_gp_b64 generator at full width (random weights from
             init seed 0, bf16) exported, loaded and served over HTTP on
-            127.0.0.1; a few requests, the kernel's launch count per request,
+            127.0.0.1; a few requests, convt1d's launches per request,
             the served audio against a CPU reference on two clips.
-5. timing   per layer: kernel, plain form and one library call
-            (F.conv_transpose1d, a yardstick the port never calls) beside the
-            card's bound; the sampler's clips/s at batch 64.
+5. parity   one f32 wgan_gp_b64 training step at full width, batch 2, on
+            the card (kernels) and on the CPU (plain forms), from one state
+            and the same draws: metrics, parameters and Adam moments.
+6. train    the flagship through the user's entry point (train.loop.train,
+            what `cli train` runs): B=64, bf16, n_critic 5, fused views,
+            resident synthetic corpus; 2 warm-up steps then 5 timed ones,
+            finite losses, steps/s, launches per step of each kernel,
+            peak device memory; one more step under torch.profiler for
+            the device time by kernel.
+7. timing   per geometry: kernel, plain form and, where one exists, one
+            library call (F.conv_transpose1d / F.conv1d, yardsticks the port
+            never calls) beside the card's bound; the sampler's clips/s.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -26,6 +42,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import dataclasses
 import io
 import json
@@ -43,13 +60,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+ROOT = Path(__file__).resolve().parent
 BATCH = 64
 SMALL = 8                     # a request for a prefix of the batch
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor rate
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 F32_REL_TOL = 1e-4            # same sums in another order
 BF16_REL_TOL = 2e-2           # bf16 keeps 8 bits: one rounding of the output
-BUILD_LIMIT_S = 120.0
+INGEST_ABS_TOL = 1e-5         # log1pf / division on the card vs torch, |y|<=1
+PARITY_REL_TOL = 1e-3         # a full step's metrics, and its gradients and
+                              # Adam moments (relative L2 over each net),
+                              # card vs CPU
+# Adam normalizes each element: where a gradient is rounding noise (a sum
+# that cancels to ~0), the card and the CPU may step it by up to lr in
+# opposite directions. So a parameter may differ by up to 2.5 lr (lr 1e-4);
+# the share of elements off by more than 1e-6 is reported.
+PARITY_PARAM_TOL = 2.5e-4
+PARITY_PARAM_FINE = 1e-6
+BUILD_LIMIT_S = 180.0
+KERNELS = ("convt1d", "conv1d", "ingest")
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -71,8 +101,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flagship_layers(cfg) -> list[dict]:
-    """The generator's conv-transpose layers as the main path runs them."""
+# -- geometries ---------------------------------------------------------------
+
+def generator_layers(cfg, batch: int) -> list[dict]:
+    """The generator's conv-transpose layers as its forward runs them."""
     from audiogan_tpu_torch.models.wavegan import _gen_channels
     m = cfg.model
     t = cfg.data.clip_len // m.total_stride
@@ -80,56 +112,228 @@ def flagship_layers(cfg) -> list[dict]:
     layers = []
     chs = _gen_channels(m.model_dim, len(m.strides), m.max_channels)
     for i, (s, c_out) in enumerate(zip(m.strides, chs)):
-        layers.append(dict(layer=i, t_in=t, cin=c_in, cout=c_out,
-                           k=m.kernel_size, s=s, pad_lo=(m.kernel_size - 1) // 2,
-                           out_len=t * s,
+        layers.append(dict(name=f"G{i} fwd", b=batch, t_in=t, cin=c_in,
+                           cout=c_out, k=m.kernel_size, s=s,
+                           pad_lo=(m.kernel_size - 1) // 2, out_len=t * s,
                            act="relu" if i < len(chs) - 1 else "tanh"))
         t, c_in = t * s, c_out
     return layers
 
 
-def work(L: dict, itemsize: int) -> tuple[int, int]:
-    """(flops, bytes) the layer needs: multiply-adds over the taps that land
-    inside the input (edges excluded), each input read and output written
-    once."""
+def critic_layers(cfg, batch: int) -> list[dict]:
+    """The critic's SAME conv1d layers as its forward runs them."""
+    from audiogan_tpu_torch.kernels.conv import _same_pads
+    from audiogan_tpu_torch.models.wavegan import _disc_channels
+    m = cfg.model
+    t, c_in = cfg.data.clip_len, 1
+    layers = []
+    chs = _disc_channels(m.model_dim, len(m.strides), m.max_channels)
+    for i, (s, c_out) in enumerate(zip(m.strides, chs)):
+        t_out, lo, hi = _same_pads(t, m.kernel_size, s)
+        layers.append(dict(name=f"D{i} fwd", b=batch, t_in=t, cin=c_in,
+                           cout=c_out, k=m.kernel_size, s=s, lo=lo, hi=hi,
+                           act="leaky_relu"))
+        t, c_in = t_out, c_out
+    return layers
+
+
+def critic_dx_layers(cfg, batch: int) -> list[dict]:
+    """dx of each critic conv: convT of the flipped taps with pad_lo =
+    K-1-lo and out_len = t_in (kernels/autograd.py), no bias, no act."""
+    out = []
+    for L in critic_layers(cfg, batch):
+        t_out = (L["t_in"] + L["lo"] + L["hi"] - L["k"]) // L["s"] + 1
+        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
+                        t_in=t_out, cin=L["cout"], cout=L["cin"], k=L["k"],
+                        s=L["s"], pad_lo=L["k"] - 1 - L["lo"],
+                        out_len=L["t_in"], act="none"))
+    return out
+
+
+def generator_dx_layers(cfg, batch: int) -> list[dict]:
+    """dx of each generator convT: conv1d of the flipped taps with lo =
+    K-1-pad_lo, hi = max((T-1)*s + K - lo - out_len, 0)."""
+    out = []
+    for L in generator_layers(cfg, batch):
+        lo = L["k"] - 1 - L["pad_lo"]
+        hi = max((L["t_in"] - 1) * L["s"] + L["k"] - lo - L["out_len"], 0)
+        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
+                        t_in=L["out_len"], cin=L["cout"], cout=L["cin"],
+                        k=L["k"], s=L["s"], lo=lo, hi=hi, act="none"))
+    return out
+
+
+def convt_work(L: dict, itemsize: int) -> tuple[int, int]:
+    """(flops, bytes) a convT needs: multiply-adds over the taps that land
+    inside the input, each input read and output written once."""
     from audiogan_tpu_torch.kernels.conv import _convt_phase_range
     q_min, q_taps = _convt_phase_range(L["k"], L["s"], L["pad_lo"])
     m_out = -(-L["out_len"] // L["s"])
+    m = np.arange(m_out)
     pairs = 0
     for rho in range(L["s"]):
-        rows = [m for m in range(m_out) if m * L["s"] + rho < L["out_len"]]
+        rows = m[m * L["s"] + rho < L["out_len"]]
         for tau in range(q_taps):
             j = L["pad_lo"] - rho + (q_min + tau) * L["s"]
             if 0 <= j < L["k"]:
-                pairs += sum(0 <= m + q_min + tau < L["t_in"] for m in rows)
-    flops = 2 * BATCH * pairs * L["cin"] * L["cout"]
-    nbytes = itemsize * (BATCH * L["t_in"] * L["cin"]
+                src = rows + q_min + tau
+                pairs += int(((src >= 0) & (src < L["t_in"])).sum())
+    flops = 2 * L["b"] * pairs * L["cin"] * L["cout"]
+    nbytes = itemsize * (L["b"] * L["t_in"] * L["cin"]
                          + L["k"] * L["cin"] * L["cout"] + L["cout"]
-                         + BATCH * L["out_len"] * L["cout"])
+                         + L["b"] * L["out_len"] * L["cout"])
     return flops, nbytes
 
 
-def layer_inputs(L: dict, dtype, dev, seed: int):
+def conv1d_work(L: dict, itemsize: int) -> tuple[int, int]:
+    """(flops, bytes) a conv1d needs, taps in the padding excluded."""
+    t_out = (L["t_in"] + L["lo"] + L["hi"] - L["k"]) // L["s"] + 1
+    src = (np.arange(t_out)[:, None] * L["s"] + np.arange(L["k"])[None, :]
+           - L["lo"])
+    pairs = int(((src >= 0) & (src < L["t_in"])).sum())
+    flops = 2 * L["b"] * pairs * L["cin"] * L["cout"]
+    nbytes = itemsize * (L["b"] * L["t_in"] * L["cin"]
+                         + L["k"] * L["cin"] * L["cout"] + L["cout"]
+                         + L["b"] * t_out * L["cout"])
+    return flops, nbytes
+
+
+def bound(flops: int, nbytes: int) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def conv_inputs(L: dict, dtype, dev, seed: int):
     gen = torch.Generator(dev).manual_seed(seed)
-    x = torch.relu(torch.randn(BATCH, L["t_in"], L["cin"], generator=gen,
-                               device=dev))
+    x = torch.randn(L["b"], L["t_in"], L["cin"], generator=gen, device=dev)
+    if L["act"] == "relu":
+        x = torch.relu(x)
     lim = (6.0 / (L["k"] * (L["cin"] + L["cout"]))) ** 0.5
     w = (torch.rand(L["k"], L["cin"], L["cout"], generator=gen, device=dev)
          * 2 - 1) * lim * 4
     b = torch.randn(L["cout"], generator=gen, device=dev) * 0.1
+    if L["act"] == "none":
+        b = torch.zeros_like(b)
     return x.to(dtype), w.to(dtype), b.to(dtype)
 
 
-def library_call(L: dict, x, w, b):
+def convt_args(L):
+    return (L["s"], L["pad_lo"], L["out_len"], L["act"], 0.2)
+
+
+def conv1d_args(L):
+    return (L["s"], L["lo"], L["hi"], L["act"], 0.2)
+
+
+def convt_library(L: dict, x, w, b):
     """F.conv_transpose1d computing the same convT: taps flipped, padding
-    moved, NCW layout prepared outside the timed call."""
+    moved (plus a view that drops a surplus last row), NCW layout
+    prepared outside the timed call."""
     p = L["k"] - 1 - L["pad_lo"]
-    out_pad = L["out_len"] - ((L["t_in"] - 1) * L["s"] - 2 * p + L["k"])
+    full = (L["t_in"] - 1) * L["s"] - 2 * p + L["k"]
+    out_pad = max(L["out_len"] - full, 0)
     xn = x.transpose(1, 2).contiguous()
     wt = w.flip(0).permute(1, 2, 0).contiguous()      # [Cin, Cout, K]
-    return lambda: F.conv_transpose1d(xn, wt, b, stride=L["s"], padding=p,
-                                      output_padding=out_pad)
+    return lambda: F.conv_transpose1d(
+        xn, wt, b, stride=L["s"], padding=p,
+        output_padding=out_pad)[..., :L["out_len"]]
 
+
+def conv1d_library(L: dict, x, w, b):
+    """F.conv1d on the explicitly padded NCW input (padding outside the
+    timed call)."""
+    xn = F.pad(x.transpose(1, 2), (L["lo"], L["hi"])).contiguous()
+    wt = w.permute(2, 1, 0).contiguous()                # [Cout, Cin, K]
+    return lambda: F.conv1d(xn, wt, b, stride=L["s"])
+
+
+FAMILIES = {
+    # name -> (kernel, plain, args, work, library)
+    "convt1d": ("conv_transpose1d_ba", "conv_transpose1d_ba_plain",
+                convt_args, convt_work, convt_library),
+    "conv1d": ("conv1d_ba", "conv1d_ba_plain", conv1d_args, conv1d_work,
+               conv1d_library),
+}
+
+
+def compare_conv(family: str, layers: list[dict], dev) -> dict:
+    """Kernel vs plain form (and the library form vs plain, f32) at each
+    geometry, f32 and bf16; returns {(name, dtype): max abs err}."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    kname, pname, args_of, _, library = FAMILIES[family]
+    kernel, plain = getattr(kconv, kname), getattr(kconv, pname)
+    errs = {}
+    for dtype, dname, tol in ((torch.float32, "f32", F32_REL_TOL),
+                              (torch.bfloat16, "bf16", BF16_REL_TOL)):
+        for i, L in enumerate(layers):
+            x, w, b = conv_inputs(L, dtype, dev, seed=i)
+            got = kernel(x, w, b, *args_of(L))
+            want = plain(x.float(), w.float(), b.float(), *args_of(L))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"{family} {L['name']} {dname}: "
+                                     f"{got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want).abs().max().item()
+            peak = want.abs().max().item()
+            errs[(L["name"], dname)] = err
+            print(json.dumps({"compare": family, "dtype": dname,
+                              "geometry": L["name"], "x": list(x.shape),
+                              "cout": L["cout"], "max_abs_err": err,
+                              "max_rel_err": err / peak, "max_abs_y": peak,
+                              "tol_rel": tol}), flush=True)
+            if not err <= tol * peak:
+                raise AssertionError(f"{family} {L['name']} {dname}: max err "
+                                     f"{err} > {tol} * {peak}")
+            if dtype == torch.float32:
+                lib = library(L, x, w, b)().transpose(1, 2)
+                lib = kconv._apply_act(lib, L["act"], 0.2)
+                lib_err = (lib - want).abs().max().item()
+                if not lib_err <= F32_REL_TOL * peak:
+                    raise AssertionError(f"library form of {family} "
+                                         f"disagrees at {L['name']}: "
+                                         f"{lib_err}")
+    return errs
+
+
+def ingest_cases(dev) -> list[dict]:
+    """The flagship's ingest (store = clip, every offset 0) and a slack
+    geometry with random offsets."""
+    cases = []
+    for name, store, seed in (("flagship store=clip", 16384, 0),
+                              ("slack store=20000", 20000, 1)):
+        gen = torch.Generator(dev).manual_seed(seed)
+        raw = (torch.randn(BATCH, store, generator=gen, device=dev) * 6000
+               ).clamp(-32768, 32767).to(torch.int16)
+        offs = torch.randint(0, store - 16384 + 1, (BATCH,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        cases.append(dict(name=name, raw=raw, offs=offs, clip=16384))
+    return cases
+
+
+def compare_ingest(cases: list[dict], dev) -> dict:
+    from audiogan_tpu_torch.kernels import ingest as king
+    errs = {}
+    for c in cases:
+        for mode in ("peak", "rms"):
+            got = king.ingest_fused(c["raw"], c["offs"], c["clip"], mode)
+            want = king.ingest_fused_plain(c["raw"], c["offs"], c["clip"],
+                                           mode)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            errs[(c["name"], mode)] = err
+            print(json.dumps({"compare": "ingest", "geometry": c["name"],
+                              "mode": mode, "raw": list(c["raw"].shape),
+                              "max_abs_err": err,
+                              "tol_abs": INGEST_ABS_TOL}), flush=True)
+            if got.dtype != torch.float32 or not err <= INGEST_ABS_TOL:
+                raise AssertionError(f"ingest {c['name']} {mode}: {err}")
+    return errs
+
+
+# -- serving --------------------------------------------------------------------
 
 def http_json(url: str, body: dict | None = None) -> tuple[int, dict]:
     data = None if body is None else json.dumps(body).encode()
@@ -151,95 +355,15 @@ def decode_wav(b64: str) -> tuple[int, np.ndarray]:
     return rate, pcm
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from audiogan_tpu_torch.config import get_preset
-    from audiogan_tpu_torch.kernels import _build
+def serve_phase(cfg, dev, n_layers: int):
     from audiogan_tpu_torch.kernels import conv as kconv
     from audiogan_tpu_torch.models import build_generator
     from audiogan_tpu_torch.models.init import init_params
     from audiogan_tpu_torch.serve import (export_sampler, load_sampler,
                                           make_server)
     from audiogan_tpu_torch.train.sample import generate
-
-    # the plain oracle in full f32: cuDNN's TF32 default would blur it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     kernel = kconv.conv_transpose1d_ba
-
-    # 1. env ---------------------------------------------------------------
-    t0 = time.time()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    phase("env", t0, device=kind, nvidia_smi=card, torch=torch.__version__,
-          cuda=torch.version.cuda, count=torch.cuda.device_count())
-
-    # 2. build -------------------------------------------------------------
-    t0 = time.time()
-    shutil.rmtree(_build.library_path("convt1d").parent, ignore_errors=True)
-    lib_path = _build.build("convt1d")
-    _build.load("convt1d")
-    build_s = time.time() - t0
-    log = (lib_path.parent / "convt1d.log").read_text().splitlines()
-    ptxas = [ln.strip() for ln in log
-             if "registers" in ln or "spill" in ln][:12]
-    phase("build", t0, library=str(lib_path), ptxas=ptxas)
-    if build_s > BUILD_LIMIT_S:
-        raise RuntimeError(f"kernel build took {build_s:.1f} s "
-                           f"(limit {BUILD_LIMIT_S} s)")
-
-    # 3. kernel vs plain at the flagship geometries -------------------------
-    t0 = time.time()
-    cfg = get_preset("wgan_gp_b64")
-    layers = flagship_layers(cfg)
-    errs = {}
-    for dtype, name, tol in ((torch.float32, "f32", F32_REL_TOL),
-                             (torch.bfloat16, "bf16", BF16_REL_TOL)):
-        for L in layers:
-            x, w, b = layer_inputs(L, dtype, dev, seed=L["layer"])
-            args = (L["s"], L["pad_lo"], L["out_len"], L["act"], 0.2)
-            got = kernel(x, w, b, *args)
-            want = kconv.conv_transpose1d_ba_plain(
-                x.float(), w.float(), b.float(), *args)
-            torch.cuda.synchronize()
-            if got.dtype != dtype or got.shape != want.shape:
-                raise AssertionError(f"layer {L['layer']} {name}: "
-                                     f"{got.dtype} {tuple(got.shape)}")
-            err = (got.float() - want).abs().max().item()
-            peak = want.abs().max().item()
-            errs[(L["layer"], name)] = err
-            print(json.dumps({"compare": name, "layer": L["layer"],
-                              "shape": [BATCH, L["t_in"], L["cin"],
-                                        L["cout"]],
-                              "max_abs_err": err, "max_rel_err": err / peak,
-                              "max_abs_y": peak, "tol_rel": tol}),
-                  flush=True)
-            if not err <= tol * peak:
-                raise AssertionError(f"layer {L['layer']} {name}: "
-                                     f"max err {err} > {tol} * {peak}")
-            # the library yardstick computes the same function
-            lib = library_call(L, x.float(), w.float(), b.float())()
-            lib = kconv._apply_act(lib.transpose(1, 2), L["act"], 0.2)
-            lib_err = (lib - want).abs().max().item()
-            if not lib_err <= F32_REL_TOL * peak:
-                raise AssertionError(f"library form disagrees at layer "
-                                     f"{L['layer']}: {lib_err}")
-    phase("compare", t0, layers=len(layers), dtypes=["f32", "bf16"],
-          max_abs_err_f32=max(v for (_, n), v in errs.items() if n == "f32"),
-          max_abs_err_bf16=max(v for (_, n), v in errs.items()
-                               if n == "bf16"))
-
-    # 4. serve the flagship generator ----------------------------------------
-    t0 = time.time()
-    art = Path(__file__).resolve().parent / "build" / "chip_smoke_artifact"
+    art = ROOT / "build" / "chip_smoke_artifact"
     shutil.rmtree(art, ignore_errors=True)
     g = init_params(build_generator(cfg, device=dev), seed=0)
     params = g.state_dict()
@@ -279,10 +403,10 @@ def main() -> int:
         raise AssertionError("the small request is not a prefix")
     if r2[1]["wavs"] == r8[1]["wavs"]:
         raise AssertionError("different seeds gave the same bytes")
-    if launches != len(layers) * n_generate:
+    if launches != n_layers * n_generate:
         raise AssertionError(f"convt1d launched {launches} times for "
                              f"{n_generate} requests, want "
-                             f"{len(layers)} per request")
+                             f"{n_layers} per request")
     pcm = []
     for b64 in r64[1]["wavs"]:
         rate, p = decode_wav(b64)
@@ -317,32 +441,351 @@ def main() -> int:
         if not err <= tol * peak:
             raise AssertionError(f"served {dname} G vs CPU reference: "
                                  f"{err} > {tol} * {peak}")
-    phase("serve", t0, requests=7, generate_requests=n_generate,
-          launches=launches, launches_per_request=launches / n_generate,
-          clip_len=cfg.data.clip_len, sample_rate=cfg.data.sample_rate,
-          reference=ref_checks)
+    return sampler, dict(requests=7, generate_requests=n_generate,
+                         launches=launches,
+                         launches_per_request=launches / n_generate,
+                         clip_len=cfg.data.clip_len,
+                         sample_rate=cfg.data.sample_rate,
+                         reference=ref_checks)
 
-    # 5. timing ---------------------------------------------------------------
-    t0 = time.time()
-    per_layer = []
-    for L in layers:
-        x, w, b = layer_inputs(L, torch.bfloat16, dev, seed=L["layer"])
-        args = (L["s"], L["pad_lo"], L["out_len"], L["act"], 0.2)
+
+# -- training -------------------------------------------------------------------
+
+def random_raw(cfg, n_views: int, batch: int, seed: int):
+    rng = np.random.default_rng(seed)
+    raw = (rng.standard_normal((n_views, batch, cfg.data.store_len)) * 6000
+           ).clip(-32768, 32767).astype(np.int16)
+    return torch.from_numpy(raw), torch.zeros(n_views, batch,
+                                              dtype=torch.long)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def parity_phase(cfg, dev, batch: int) -> dict:
+    """One f32 step on the card and on the CPU from the same state (taken
+    after one warm step on the card, so Adam's second moment is non-zero
+    and the update is smooth in the gradient) and the same draws."""
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step, draw_step
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, dtype="float32", batch_size=batch))
+    cpu = torch.device("cpu")
+    n_views = cfg.loss.n_critic
+    card = create_train_state(cfg, device=dev)
+    step_card = build_train_step(cfg, dev)
+    raw0, lab0 = random_raw(cfg, n_views, batch, seed=10)
+    step_card(card, raw0, lab0)
+    host = create_train_state(cfg, device=cpu)
+    for src, dst in ((card.g, host.g), (card.d, host.d)):
+        dst.load_state_dict({k: v.cpu() for k, v in src.state_dict().items()})
+    for (src, smod), (dst, dmod) in (((card.opt_g, card.g),
+                                      (host.opt_g, host.g)),
+                                     ((card.opt_d, card.d),
+                                      (host.opt_d, host.d))):
+        for ps, pd in zip(smod.parameters(), dmod.parameters()):
+            dst.state[pd] = {k: v.detach().cpu().clone()
+                             for k, v in src.state[ps].items()}
+    host.step = card.step
+    draws = draw_step(cfg, card.seed, card.step, batch, cpu)
+    raw1, lab1 = random_raw(cfg, n_views, batch, seed=11)
+    t_card = time.time()
+    m_card = step_card(card, raw1, lab1, draws=draws)
+    m_card = {k: float(v) for k, v in m_card.items()}
+    t_card = time.time() - t_card
+    t_host = time.time()
+    m_host = build_train_step(cfg, cpu)(host, raw1, lab1, draws=draws)
+    m_host = {k: float(v) for k, v in m_host.items()}
+    t_host = time.time() - t_host
+    metric_err = {k: abs(m_card[k] - m_host[k]) for k in m_host}
+    # the gradients of this step (G's, and D's from its last micro-step)
+    # and both Adam moments: relative L2 error over each net, and the worst
+    # tensor by max error relative to its own largest element (a small
+    # tensor whose sums cancel, such as a bias, shows rounding there); the
+    # parameters in absolute terms
+    grads, moments, params, moved = {}, {}, {}, {}
+    for name, (oa, ma), (ob, mb) in (("G", (card.opt_g, card.g),
+                                      (host.opt_g, host.g)),
+                                     ("D", (card.opt_d, card.d),
+                                      (host.opt_d, host.d))):
+        sq = {"grad": [0.0, 0.0], "exp_avg": [0.0, 0.0],
+              "exp_avg_sq": [0.0, 0.0]}
+        worst_tensor = (0.0, None)
+        p_abs, worst_at = 0.0, None
+        n_moved = n_all = 0
+        for (pname, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+            pairs = {"grad": (pa.grad.cpu(), pb.grad)}
+            for key in ("exp_avg", "exp_avg_sq"):
+                pairs[key] = (oa.state[pa][key].cpu(), ob.state[pb][key])
+            for key, (va, vb) in pairs.items():
+                sq[key][0] += float((va - vb).double().square().sum())
+                sq[key][1] += float(vb.double().square().sum())
+            r = rel_err(*pairs["grad"])
+            if r > worst_tensor[0]:
+                worst_tensor = (r, pname)
+            d = (pa.detach().cpu() - pb.detach()).abs()
+            if d.max().item() > p_abs:
+                i = int(d.argmax())
+                p_abs = d.max().item()
+                worst_at = {"tensor": pname, "grad_there": pb.grad.flatten()[i]
+                            .item(), "tensor_max_abs_grad":
+                            pb.grad.abs().max().item()}
+            n_moved += int((d > PARITY_PARAM_FINE).sum())
+            n_all += d.numel()
+        rel = {k: (v[0] / max(v[1], 1e-300)) ** 0.5 for k, v in sq.items()}
+        grads[name] = {"rel_l2": rel["grad"],
+                       "worst_tensor_max_rel": worst_tensor[0],
+                       "worst_tensor": worst_tensor[1]}
+        moments[name] = {"exp_avg": rel["exp_avg"],
+                         "exp_avg_sq": rel["exp_avg_sq"]}
+        params[name] = {"max_abs_err": p_abs, "at": worst_at}
+        moved[name] = n_moved / n_all
+    report = dict(metric_abs_err=metric_err, grad_err=grads,
+                  adam_moment_rel_l2=moments, params=params,
+                  fraction_params_moved_over_1e_6=moved)
+    print(json.dumps({"parity_report": report}), flush=True)
+    for k, e in metric_err.items():
+        if not (np.isfinite(m_card[k])
+                and e <= PARITY_REL_TOL * max(abs(m_host[k]), 1e-3)):
+            raise AssertionError(f"parity {k}: card {m_card[k]} vs CPU "
+                                 f"{m_host[k]}")
+    for name in grads:
+        if not (grads[name]["rel_l2"] <= PARITY_REL_TOL
+                and max(moments[name].values()) <= PARITY_REL_TOL
+                and params[name]["max_abs_err"] <= PARITY_PARAM_TOL):
+            raise AssertionError(f"parity: {name} differs: {report}")
+    return dict(batch=batch, dtype="float32", metrics_card=m_card,
+                metrics_cpu=m_host, **report, tol_rel=PARITY_REL_TOL,
+                tol_param_abs=PARITY_PARAM_TOL,
+                card_step_s=t_card, cpu_step_s=t_host)
+
+
+def train_phase(cfg, dev, counters) -> dict:
+    """The flagship through train.loop.train: counts zeroed just before,
+    read just after."""
+    from audiogan_tpu_torch.train.loop import train
+    workdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    lines = []
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    state, last = train(cfg, workdir, n_steps, device=dev,
+                        log=lambda s: lines.append(json.loads(s)))
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    profile = profile_step(cfg, dev, state)
+    steps = [ln for ln in lines if "step" in ln]
+    if len(steps) != n_steps:
+        raise AssertionError(f"{len(steps)} metric lines for {n_steps} steps")
+    for ln in steps:
+        bad = [k for k, v in ln.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite {bad} at step {ln['step']}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched in training")
+        if n % n_steps:
+            raise AssertionError(f"{name}: {n} launches in {n_steps} steps")
+    timed_s = steps[-1]["seconds"] - steps[TRAIN_WARMUP - 1]["seconds"]
+    return dict(preset=cfg.name, batch=cfg.train.batch_size,
+                dtype=cfg.train.dtype, n_critic=cfg.loss.n_critic,
+                fused_d_views=cfg.train.fused_d_views, steps=n_steps,
+                warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_TIMED,
+                timed_seconds=timed_s, steps_per_s=TRAIN_TIMED / timed_s,
+                launches=launches,
+                launches_per_step={k: v // n_steps
+                                   for k, v in launches.items()},
+                peak_memory_gib=peak / 2**30, first=steps[0], last=last,
+                profile=profile,
+                init=[ln for ln in lines if "init" in ln][0]["init"])
+
+
+def profile_step(cfg, dev, state) -> dict:
+    """One more training step under torch.profiler: the device time of the
+    step by kernel (device events only: an op's own entry repeats the time
+    of the kernels it launched), against the step's wall time, which the
+    profiler itself lengthens."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from audiogan_tpu_torch.train.step import build_train_step
+    step = build_train_step(cfg, dev)
+    raw, labels = random_raw(cfg, cfg.loss.n_critic, cfg.train.batch_size,
+                             12)
+    raw, labels = raw.to(dev), labels.to(dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, raw, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": max(1.0 - device_ms / wall_ms, 0.0),
+            "top": [{"name": k[:140], "ms": v, "share": v / device_ms}
+                    for k, v in top]}
+
+
+# -- timing ---------------------------------------------------------------------
+
+def time_conv(family: str, layers: list[dict], dev, errs: dict) -> list:
+    from audiogan_tpu_torch.kernels import conv as kconv
+    kname, pname, args_of, work, library = FAMILIES[family]
+    kernel, plain = getattr(kconv, kname), getattr(kconv, pname)
+    rows = []
+    for i, L in enumerate(layers):
+        x, w, b = conv_inputs(L, torch.bfloat16, dev, seed=i)
+        args = args_of(L)
         flops, nbytes = work(L, 2)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        per_layer.append({
-            "layer": L["layer"],
-            "shape": [BATCH, L["t_in"], L["cin"], L["cout"]],
-            "ms": cuda_ms(lambda: kernel(x, w, b, *args)),
-            "plain_ms": cuda_ms(
-                lambda: kconv.conv_transpose1d_ba_plain(x, w, b, *args)),
-            "library_ms": cuda_ms(library_call(L, x, w, b)),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = cuda_ms(lambda: kernel(x, w, b, *args))
+        rows.append({
+            "geometry": L["name"], "x": list(x.shape), "cout": L["cout"],
+            "ms": ms, "tflops_per_s": flops / ms / 1e9,
+            "plain_ms": cuda_ms(lambda: plain(x, w, b, *args)),
+            "library_ms": cuda_ms(library(L, x, w, b)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes,
-            "max_abs_err": errs[(L["layer"], "bf16")],
+            "max_abs_err": errs[(L["name"], "bf16")],
         })
-        print(json.dumps({"timing": per_layer[-1]}), flush=True)
+        print(json.dumps({"timing": family, **rows[-1]}), flush=True)
+    return rows
+
+
+def time_ingest(cases: list[dict], errs: dict) -> list:
+    from audiogan_tpu_torch.kernels import ingest as king
+    rows = []
+    for c in cases:
+        nbytes = c["raw"].shape[0] * (c["clip"] * (2 + 4) + 4)
+        bound_ms, bound_by = bound(0, nbytes)
+        args = (c["raw"], c["offs"], c["clip"], "peak")
+        ms = cuda_ms(lambda: king.ingest_fused(*args))
+        rows.append({
+            "geometry": c["name"], "raw": list(c["raw"].shape),
+            "ms": ms, "share_of_hbm_rate": bound_ms / ms,
+            "plain_ms": cuda_ms(lambda: king.ingest_fused_plain(*args)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "max_abs_err": errs[(c["name"], "peak")],
+        })
+        print(json.dumps({"timing": "ingest", **rows[-1]}), flush=True)
+    return rows
+
+
+def kernel_entry(name, source, replaces, function, launches, rows, per,
+                 card, **extra) -> dict:
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
+                                                  "bound_ms")}
+    libs = [r["library_ms"] for r in rows]
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "replaces_function": function,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": ("operations" if by_ops >= total["bound_ms"] / 2
+                         else "bytes"),
+            "library_ms": None if None in libs else sum(libs),
+            "per": per, "card": card, **extra, "geometries": rows}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.kernels import _build
+    from audiogan_tpu_torch.kernels import conv as kconv
+    from audiogan_tpu_torch.kernels import ingest as king
+
+    # the plain oracle in full f32: cuDNN's TF32 default would blur it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    counters = {"convt1d": kconv.conv_transpose1d_ba,
+                "conv1d": kconv.conv1d_ba, "ingest": king.ingest_fused}
+
+    # 1. env ---------------------------------------------------------------
+    t0 = time.time()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    phase("env", t0, device=kind, nvidia_smi=card, torch=torch.__version__,
+          cuda=torch.version.cuda, count=torch.cuda.device_count())
+
+    # 2. build: one nvcc per source, all started together -------------------
+    t0 = time.time()
+    for name in KERNELS:
+        shutil.rmtree(_build.library_path(name).parent, ignore_errors=True)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name in KERNELS:
+        _build.load(name)
+    build_s = time.time() - t0
+    ptxas = {}
+    for name, lib_path in paths.items():
+        log = (lib_path.parent / f"{name}.log").read_text().splitlines()
+        ptxas[name] = [ln.strip() for ln in log
+                       if "registers" in ln or "spill" in ln][:16]
+    phase("build", t0, libraries={k: str(v) for k, v in paths.items()},
+          ptxas=ptxas)
+    if build_s > BUILD_LIMIT_S:
+        raise RuntimeError(f"kernel build took {build_s:.1f} s "
+                           f"(limit {BUILD_LIMIT_S} s)")
+
+    # 3. every kernel vs its plain form ---------------------------------------
+    t0 = time.time()
+    cfg = get_preset("wgan_gp_b64")
+    g_fwd = generator_layers(cfg, BATCH)
+    d_dx = critic_dx_layers(cfg, 2 * BATCH)
+    d_fwd = critic_layers(cfg, 2 * BATCH)
+    g_dx = generator_dx_layers(cfg, BATCH)
+    errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx, dev),
+            "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev)}
+    cases = ingest_cases(dev)
+    errs["ingest"] = compare_ingest(cases, dev)
+    phase("compare", t0, geometries={k: len(v) // 2 if k != "ingest"
+                                     else len(v) for k, v in errs.items()},
+          max_abs_err={k: max(v.values()) for k, v in errs.items()})
+
+    # 4. serve the flagship generator ----------------------------------------
+    t0 = time.time()
+    sampler, served = serve_phase(cfg, dev, len(g_fwd))
+    phase("serve", t0, **served)
+
+    # 5. one full-width f32 step, card vs CPU --------------------------------
+    t0 = time.time()
+    phase("parity", t0, **parity_phase(cfg, dev, batch=2))
+
+    # 6. the flagship trains ---------------------------------------------------
+    t0 = time.time()
+    trained = train_phase(cfg, dev, counters)
+    phase("train", t0, card=card, **trained)
+
+    # 7. timing ---------------------------------------------------------------
+    t0 = time.time()
+    rows = {"convt1d": time_conv("convt1d", g_fwd + d_dx, dev,
+                                 errs["convt1d"]),
+            "conv1d": time_conv("conv1d", d_fwd + g_dx, dev, errs["conv1d"]),
+            "ingest": time_ingest(cases, errs["ingest"])}
     iters = 10
     sampler.generate(0)
     torch.cuda.synchronize()
@@ -354,30 +797,36 @@ def main() -> int:
     phase("timing", t0, sampler_batch=BATCH, sampler_ms=per_batch * 1e3,
           clips_per_s=clips_s,
           audio_s_per_s=clips_s * cfg.data.clip_len / cfg.data.sample_rate,
-          card=card)
+          train_steps_per_s=trained["steps_per_s"], card=card)
 
-    total = {key: sum(p[key] for p in per_layer)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_ops = sum(p["bound_ms"] for p in per_layer
-                 if p["bound_by"] == "operations")
-    print(json.dumps({"kernels": [{
-        "name": "convt1d",
-        "route": "cuda",
-        "source": "audiogan_tpu_torch/csrc/convt1d.cu",
-        "replaces": "audiogan_tpu/kernels/conv.py:397",
-        "replaces_function": "_convt_pallas (body _rowconv_kernel)",
-        "launches": launches,
-        "max_abs_err": max(p["max_abs_err"] for p in per_layer),
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": ("operations" if by_ops >= total["bound_ms"] / 2
-                     else "bytes"),
-        "library_ms": total["library_ms"],
-        "per": "one generator forward at batch 64, bf16 (sum of 5 layers)",
-        "card": card,
-        "layers": per_layer,
-    }]}), flush=True)
+    per_step = trained["launches_per_step"]
+    kernels = [
+        kernel_entry(
+            "convt1d", "audiogan_tpu_torch/csrc/convt1d.cu",
+            "audiogan_tpu/kernels/conv.py:397",
+            "_convt_pallas (body _rowconv_kernel)",
+            trained["launches"]["convt1d"], rows["convt1d"],
+            "sum over G's 5 layers forward (B=64) and the dx of D's 5 "
+            "layers (2B=128), bf16", card,
+            launches_per_train_step=per_step["convt1d"],
+            launches_serve=served["launches"]),
+        kernel_entry(
+            "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
+            "audiogan_tpu/kernels/conv.py:285",
+            "_conv1d_pallas (body _rowconv_kernel)",
+            trained["launches"]["conv1d"], rows["conv1d"],
+            "sum over D's 5 layers forward (2B=128) and the dx of G's 5 "
+            "layers (B=64), bf16", card,
+            launches_per_train_step=per_step["conv1d"]),
+        kernel_entry(
+            "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
+            "audiogan_tpu/kernels/ingest.py:124", "ingest_fused (body _kernel)",
+            trained["launches"]["ingest"], rows["ingest"][:1],
+            "one flagship ingest, int16 [64, 16384] -> f32 (store = clip)",
+            card, launches_per_train_step=per_step["ingest"],
+            slack=rows["ingest"][1]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

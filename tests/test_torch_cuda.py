@@ -1,4 +1,6 @@
-"""The convt1d CUDA kernel against its plain form, on the card.
+"""The CUDA kernels (convt1d, conv1d, ingest) against their plain forms,
+on the card, and the autograd Functions' first- and second-order
+gradients through the kernels against the same Functions on the CPU.
 
 Marked ``cuda``: each test skips where there is no CUDA device. These import
 torch and the port only, so they also run on a machine without JAX:
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from audiogan_tpu_torch.kernels import conv as tconv
+from audiogan_tpu_torch.kernels import ingest as tingest
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +83,107 @@ def test_kernel_rejects_mixed_devices(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tconv.conv_transpose1d_ba(x.transpose(0, 1).contiguous()
                                   .transpose(0, 1), w, b, 4)
+
+
+# (k, stride, t_in, cin, cout, pad_lo, pad_hi): each of the conv1d
+# kernel's three tile shapes (Cin < 8; short rows with several batch
+# elements per block; the rest), ragged t and Cout tiles, strides 2-4,
+# pads below SAME (autodiff's dx of a convT) and pad_lo >= stride
+CONV1D_GEOMS = [
+    (25, 4, 1000, 1, 64, 10, 11),       # Cin < 8: one-channel chunks
+    (25, 4, 64, 96, 130, 10, 11),       # t_out 16: 4 elements per block
+    (25, 4, 80, 40, 33, 10, 11),        # t_out 20: 3 elements per block
+    (25, 4, 300, 24, 70, 12, 9),        # ragged t and Cout tiles
+    (9, 2, 70, 17, 20, 4, 0),
+    (9, 3, 50, 8, 40, 4, 4),
+    (5, 1, 40, 9, 7, 2, 2),
+    (25, 4, 41, 3, 5, 14, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "leaky_relu", "tanh"])
+@pytest.mark.parametrize("geom", CONV1D_GEOMS, ids=str)
+def test_conv1d_kernel_matches_plain(cuda_device, geom, act, dtype):
+    k, s, t_in, cin, cout, lo, hi = geom
+    x, w, b = _inputs((k, s, t_in, cin, cout, None, None), dtype,
+                      cuda_device, seed=1)
+    before = tconv.conv1d_ba.launches
+    got = tconv.conv1d_ba(x, w, b, s, lo, hi, act, 0.3)
+    torch.cuda.synchronize()
+    assert tconv.conv1d_ba.launches == before + 1
+    want = tconv.conv1d_ba_plain(x.float(), w.float(), b.float(), s, lo, hi,
+                                 act, 0.3)
+    assert got.dtype == dtype and got.shape == want.shape
+    # f32: the same sums in another order; bf16: one rounding of the output
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("mu", [255.0, 0.0])
+@pytest.mark.parametrize("mode", ["peak", "rms", "none"])
+@pytest.mark.parametrize("store,clip", [(16384, 16384), (20000, 16384),
+                                        (1000, 1280), (1300, 1024)])
+def test_ingest_kernel_matches_plain(cuda_device, store, clip, mode, mu):
+    gen = torch.Generator(cuda_device).manual_seed(store)
+    raw = (torch.randn(5, store, generator=gen, device=cuda_device) * 7000
+           ).clamp(-32768, 32767).to(torch.int16)
+    offs = torch.randint(0, max(store - clip, 0) + 1, (5,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    before = tingest.ingest_fused.launches
+    got = tingest.ingest_fused(raw, offs, clip, mode, 0.999, mu)
+    torch.cuda.synchronize()
+    assert tingest.ingest_fused.launches == before + 1
+    want = tingest.ingest_fused_plain(raw, offs, clip, mode, 0.999, mu)
+    assert got.dtype == torch.float32 and got.shape == (5, clip)
+    # |y| <= 1; log1pf and one division on the card against torch
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def _tiny_cfg():
+    from audiogan_tpu_torch.config import Config, DataCfg, ModelCfg
+    return Config(data=DataCfg(clip_len=1024, store_len=1280),
+                  model=ModelCfg(model_dim=4, kernel_size=25,
+                                 strides=(4, 4, 4), max_channels=32,
+                                 phase_shuffle=2)).validate()
+
+
+def test_second_order_through_kernels_matches_cpu(cuda_device):
+    """The penalty's double backprop and the generator's backward through
+    the kernels (every conv, dx and d/dct a launch) against the same
+    Functions on the CPU (plain forms), same weights, f32: gradients within
+    1e-4 relative L2 over each tensor."""
+    from audiogan_tpu_torch.losses import gradient_penalty, wgan_g_loss
+    from audiogan_tpu_torch.models import (build_discriminator,
+                                           build_generator)
+    from audiogan_tpu_torch.models.init import init_params
+    cfg = _tiny_cfg()
+    cpu = torch.device("cpu")
+    g = init_params(build_generator(cfg, device=cpu), 0)
+    d = init_params(build_discriminator(cfg, device=cpu), 1)
+    nets = {"cpu": (g, d)}
+    g2, d2 = (build_generator(cfg, device=cuda_device),
+              build_discriminator(cfg, device=cuda_device))
+    g2.load_state_dict(g.state_dict())
+    d2.load_state_dict(d.state_dict())
+    nets["cuda"] = (g2, d2)
+    gen = torch.Generator().manual_seed(0)
+    real = torch.rand(3, 1024, 1, generator=gen) * 2 - 1
+    z = torch.randn(3, cfg.model.latent_dim, generator=gen)
+    eps = torch.rand(3, generator=gen)
+    shifts = torch.randint(-2, 3, (2, 3), generator=gen)
+    grads = {}
+    for name, (g, d) in nets.items():
+        dev = next(g.parameters()).device
+        fake = g(z.to(dev))
+        gp, _ = gradient_penalty(lambda v: d(v, None, shifts.to(dev)),
+                                 real.to(dev), fake.detach(), eps.to(dev))
+        loss = gp + wgan_g_loss(d(fake, None, shifts.to(dev)))
+        params = list(g.parameters()) + list(d.parameters())
+        grads[name] = torch.autograd.grad(loss, params)
+    assert tconv.conv1d_ba.launches > 0
+    assert tconv.conv_transpose1d_ba.launches > 0
+    for gc, gg in zip(grads["cpu"], grads["cuda"]):
+        err = (gg.cpu() - gc).norm().item()
+        assert err <= 1e-4 * max(gc.norm().item(), 1e-12), err

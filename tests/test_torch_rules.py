@@ -84,3 +84,58 @@ def test_build_output_is_ignored():
     lines = (ROOT / ".gitignore").read_text().split()
     assert "build/" in lines
     assert "chiprun_out/" in lines
+
+
+def test_training_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from audiogan_tpu_torch.cli import main
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.train.loop import train
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    cfg = get_preset("tiny_sc09")
+    for call in (lambda: build_train_step(cfg),
+                 lambda: create_train_state(cfg),
+                 lambda: train(cfg, tmp_path, 1),
+                 lambda: main(["train", "--steps", "1",
+                               "--workdir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "config.json").exists()
+
+
+def _graph_names(t):
+    seen, stack, names = set(), [t.grad_fn], set()
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.add(type(node).__name__)
+        stack.extend(n for n, _ in node.next_functions)
+    return names
+
+
+def test_generator_and_critic_outputs_carry_autograd_history():
+    """G's and D's convs go through the autograd Functions on every
+    device, so their outputs have a grad_fn and their weights gradients
+    (the plain form alone would differentiate on the CPU only)."""
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.models import (build_discriminator,
+                                           build_generator)
+    from audiogan_tpu_torch.models.init import init_params
+    cfg = get_preset("tiny_sc09")
+    g = init_params(build_generator(cfg, device="cpu"), 0)
+    d = init_params(build_discriminator(cfg, device="cpu"), 1)
+    y = g(torch.randn(2, cfg.model.latent_dim))
+    assert y.grad_fn is not None
+    assert "ConvTBABackward" in _graph_names(y)
+    s = d(y, None, torch.zeros(len(cfg.model.strides) - 1, 2,
+                               dtype=torch.long))
+    assert "Conv1dBABackward" in _graph_names(s)
+    assert "PShufBackward" in _graph_names(s)
+    s.sum().backward()
+    assert g.convt_0_kernel.grad is not None
+    assert g.convt_0_kernel.grad.abs().sum() > 0
+    assert d.conv_0_kernel.grad.abs().sum() > 0
