@@ -1,20 +1,30 @@
-"""CLI of the port: train the WaveGAN GAN; sample / export / serve its
+"""CLI of the port: train a preset's GAN (the WaveGAN or the GRU
+generator against the WaveGAN critic); sample / export / serve its
 generator.
 
 Usage:
-    python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 --steps 10 \
+    python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 --steps 10 \\
         --workdir /tmp/run
+    python -m audiogan_tpu_torch.cli train --preset cond_gru_sc09 \\
+        --steps 10 --workdir /tmp/gru
+    python -m audiogan_tpu_torch.cli sample --preset cond_gru_sc09 \\
+        --init-seed 0 --seed 0 --labels 0,1,2 --out_dir /tmp/wavs
     python -m audiogan_tpu_torch.cli sample --preset wgan_gp_b64 \\
         --init-seed 0 --num 8 --seed 0 --out_dir /tmp/wavs
     python -m audiogan_tpu_torch.cli export --preset wgan_gp_b64 \\
         --weights state.pt --num 64 --out_dir /tmp/art
     python -m audiogan_tpu_torch.cli serve --artifact /tmp/art --port 8765
+    python -m audiogan_tpu_torch.cli serve --preset cond_gru_sc09 \\
+        --init-seed 0 --num 64 --port 8766
 
 ``train`` takes --steps WGAN-GP steps from a fresh seeded init on the
 synthetic SC09 fixture (or --data_dir), printing one JSON line of metrics
-per log_every steps. Weights for the others come from ``--weights`` (a state dict saved with torch.save, e.g.
-converted with convert.params_from_jax) or from ``--init-seed`` (random
-glorot init). Everything runs on the card unless ``--device cpu``.
+per log_every steps. Weights for the others come from ``--weights`` (a
+state dict saved with torch.save, e.g. converted with
+convert.params_from_jax) or from ``--init-seed`` (random init, as flax
+initializes). A conditional preset takes ``--labels`` in ``sample`` and
+``"labels"`` in a ``/generate`` request. Everything runs on the card
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -87,8 +97,17 @@ def main(argv: list[str] | None = None) -> int:
     t.add_argument("--seed", type=int, default=None)
 
     v = sub.add_parser("serve", help="HTTP inference server")
-    v.add_argument("--artifact", required=True,
+    v.add_argument("--artifact", default=None,
                    help="artifact dir written by `export`")
+    v.add_argument("--preset", default=None, choices=sorted(PRESETS),
+                   help="instead of --artifact: export this preset's G in "
+                        "memory (--weights or --init-seed), then serve")
+    v.add_argument("--weights", default=None,
+                   help="generator state dict (torch.save), with --preset")
+    v.add_argument("--init-seed", type=int, default=None,
+                   help="random init from this seed, with --preset")
+    v.add_argument("--num", type=int, default=8,
+                   help="serving batch when exporting from --preset")
     _add_device_flag(v)
     v.add_argument("--host", default="127.0.0.1")
     v.add_argument("--port", type=int, default=8765)
@@ -138,8 +157,27 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.cmd == "serve":
-        from audiogan_tpu_torch.serve import load_sampler, make_server
-        sampler = load_sampler(args.artifact, device)
+        import shutil
+        import tempfile
+
+        from audiogan_tpu_torch.serve import (export_sampler, load_sampler,
+                                              make_server)
+        if (args.artifact is None) == (args.preset is None):
+            raise SystemExit("serve needs exactly one of --artifact or "
+                             "--preset")
+        art, tmp = args.artifact, None
+        if args.preset:
+            if (args.weights is None) == (args.init_seed is None):
+                raise SystemExit("serve --preset needs exactly one of "
+                                 "--weights or --init-seed")
+            cfg, params = _load_model(args, device)
+            tmp = tempfile.mkdtemp(prefix="audiogan_torch_export_")
+            art = export_sampler(cfg, params, args.num, tmp)
+        try:
+            sampler = load_sampler(art, device)
+        finally:
+            if tmp:
+                shutil.rmtree(tmp, ignore_errors=True)
         srv = make_server(sampler, host=args.host, port=args.port)
         host, port = srv.server_address[:2]
         print(f"[serve] {sampler.meta.get('model')} on http://{host}:{port} "

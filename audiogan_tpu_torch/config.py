@@ -3,10 +3,12 @@
 The fields, their defaults and the JSON form are those of
 ``audiogan_tpu/config.py``, so a ``config.json`` or an exported
 ``meta.json`` written by either package loads in the other. Fields of
-parts not ported yet (the GRU generator, the STFT critic, resampling,
-meshes, the JAX kernel tiers) are carried so the JSON round-trips.
+parts not ported yet (the STFT critic, resampling, meshes, the JAX
+kernel tiers) are carried so the JSON round-trips, and ``validate``
+rejects what the reference's ``validate`` rejects.
 
-Presets: ``tiny_sc09`` (CPU-sized) and ``wgan_gp_b64`` (the flagship).
+Presets: ``tiny_sc09`` (CPU-sized), ``wgan_gp_b64`` (the flagship) and
+``cond_gru_sc09`` (the class-conditional GRU generator).
 """
 
 from __future__ import annotations
@@ -35,6 +37,12 @@ class DataCfg:
     device_corpus: bool = False
     device_corpus_shard: str = "auto"
     index_chunk: int = 512
+
+    @property
+    def resampled_len(self) -> int:
+        """Length of a store_len clip after source->model rate conversion."""
+        up, down = _ratio(self.sample_rate, self.source_rate)
+        return -(-self.store_len * up // down)  # ceil
 
 
 @dataclass(frozen=True)
@@ -107,6 +115,7 @@ class MeshCfg:
 
 
 DTYPES = ("float32", "bfloat16")
+KERNEL_TIERS = ("xla", "pallas", "auto")
 
 
 @dataclass(frozen=True)
@@ -119,8 +128,9 @@ class Config:
     mesh: MeshCfg = field(default_factory=MeshCfg)
 
     def validate(self) -> "Config":
-        """Checks the fields the generator and the sampler read."""
-        d, m = self.data, self.model
+        """Rejects what audiogan_tpu/config.py's validate rejects, and a
+        generator or dtype the port does not know."""
+        d, m, t, mesh = self.data, self.model, self.train, self.mesh
         if m.generator not in ("wavegan", "gru"):
             raise ValueError(f"model.generator={m.generator!r} "
                              "not in wavegan|gru")
@@ -128,14 +138,90 @@ class Config:
             raise ValueError(
                 f"clip_len={d.clip_len} not divisible by total stride "
                 f"{m.total_stride} (strides={m.strides})")
+        if m.generator == "gru" and d.clip_len % m.gru_frame_size != 0:
+            raise ValueError(f"clip_len={d.clip_len} not divisible by "
+                             f"gru_frame_size={m.gru_frame_size}")
         if min(m.strides) < 1 or m.kernel_size < 1:
             raise ValueError("strides and kernel_size must be >= 1")
         if d.num_classes < 0:
             raise ValueError("data.num_classes must be >= 0")
-        if self.train.dtype not in DTYPES:
-            raise ValueError(f"train.dtype={self.train.dtype!r} "
+        if t.dtype not in DTYPES:
+            raise ValueError(f"train.dtype={t.dtype!r} "
                              f"not in {'|'.join(DTYPES)}")
+        if d.resampled_len < d.clip_len:
+            raise ValueError(
+                f"resampled corpus clips ({d.resampled_len}) shorter than "
+                f"clip_len ({d.clip_len}); increase store_len")
+        if t.batch_size % mesh.dp != 0:
+            raise ValueError("batch_size must be divisible by mesh.dp")
+        for f in ("kernels", "kernels_g", "kernels_d", "kernels_ingest"):
+            allowed = KERNEL_TIERS if f == "kernels" else ("",) + KERNEL_TIERS
+            if getattr(t, f) not in allowed:
+                raise ValueError(f"train.{f}={getattr(t, f)!r} "
+                                 "not in xla|pallas|auto")
+        if m.fused_shuffle_sites < -1:
+            raise ValueError("model.fused_shuffle_sites must be >= -1")
+        if m.shuffle_impl not in ("", "gather", "select", "prim"):
+            raise ValueError(f"model.shuffle_impl={m.shuffle_impl!r} "
+                             "not in gather|select|prim")
+        if d.device_corpus_shard not in ("auto", "replicate", "shard"):
+            raise ValueError(
+                f"data.device_corpus_shard={d.device_corpus_shard!r} "
+                "not in auto|replicate|shard")
+        if d.index_chunk < 0:
+            raise ValueError("data.index_chunk must be >= 0")
+        if t.wgrad_form not in ("", "einsum", "conv"):
+            raise ValueError(f"train.wgrad_form={t.wgrad_form!r} "
+                             "not in einsum|conv")
+        self._validate_mesh()
         return self
+
+    def _validate_mesh(self) -> None:
+        """The cp/tp geometry checks of audiogan_tpu/config.py:242-292."""
+        d, m, mesh = self.data, self.model, self.mesh
+        if d.clip_len % mesh.cp != 0:
+            raise ValueError("clip_len must be divisible by mesh.cp")
+        if mesh.tp > 1:
+            if mesh.cp > 1:
+                raise ValueError("tp>1 with cp>1 is not supported")
+            if m.use_stft_critic:
+                raise ValueError(
+                    "tp covers the wave critic only (no STFT critic)")
+            chs = [min(m.model_dim * 2 ** i, m.max_channels)
+                   for i in range(len(m.strides))]
+            bad = [c for c in chs if c % mesh.tp]
+            if bad:
+                raise ValueError(
+                    f"critic channels {chs} must each be divisible by "
+                    f"tp={mesh.tp} (violated by {bad})")
+        if mesh.cp == 1:
+            return
+        if m.use_stft_critic:
+            _, hop, _ = m.stft_resolutions[0]
+            # 4 = the STFT critic's stride-2 layers
+            if (d.clip_len % (mesh.cp * hop)
+                    or (d.clip_len // hop) % (mesh.cp * 2 ** 4)):
+                raise ValueError(
+                    "cp dual-STFT needs hop-aligned shards and a frame axis "
+                    f"divisible by cp*16: clip_len={d.clip_len}, hop={hop}, "
+                    f"cp={mesh.cp}")
+        if self.loss.stft_loss_weight > 0:
+            t_loc = d.clip_len // mesh.cp
+            for n_fft, hop, win in m.stft_resolutions:
+                if t_loc % hop or (win - hop) > t_loc:
+                    raise ValueError(
+                        "cp spectral-matching loss needs hop-aligned shards "
+                        f"and a (win-hop) halo within one shard: shard len "
+                        f"{t_loc}, resolution ({n_fft},{hop},{win})")
+        if m.generator == "wavegan":
+            base = d.clip_len // m.total_stride
+            if base % mesh.cp != 0:
+                raise ValueError(f"generator base length {base} must be "
+                                 f"divisible by cp={mesh.cp}")
+        elif (d.clip_len // m.gru_frame_size) % mesh.cp != 0:
+            raise ValueError(
+                f"gru frame count {d.clip_len // m.gru_frame_size} must be "
+                f"divisible by cp={mesh.cp}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
@@ -154,6 +240,11 @@ class Config:
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def _ratio(target: int, source: int) -> tuple[int, int]:
+    g = math.gcd(target, source)
+    return target // g, source // g
 
 
 def _build(cls, raw: dict):
@@ -191,9 +282,26 @@ def wgan_gp_b64() -> Config:
     ).validate()
 
 
+def cond_gru_sc09() -> Config:
+    """Class-conditional GRU (frame-level RNN) generator: 256 frames of
+    64 samples, hidden 512, three k=25/s=4 upsampling layers; the critic
+    is the flagship's with a label projection."""
+    return Config(
+        name="cond_gru_sc09",
+        data=DataCfg(num_classes=10, device_corpus=True),
+        model=ModelCfg(generator="gru", model_dim=64,
+                       gru_frame_size=64, gru_hidden=512,
+                       fused_shuffle_sites=0, shuffle_impl="prim"),
+        loss=LossCfg(n_critic=5),
+        train=TrainCfg(batch_size=64, kernels="auto", wgrad_form="conv",
+                       dtype="bfloat16", fused_d_views=True),
+    ).validate()
+
+
 PRESETS = {
     "tiny_sc09": tiny_sc09,
     "wgan_gp_b64": wgan_gp_b64,
+    "cond_gru_sc09": cond_gru_sc09,
 }
 
 

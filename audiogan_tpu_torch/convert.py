@@ -1,9 +1,14 @@
 """Carry weights and optimizer state from the JAX package into the port.
 
 ``params_from_jax`` takes flax generator or critic params flattened to
-``{"project/kernel": array, ..., "convt_0_kernel": array, ...}`` or
-``{"conv_0_kernel": array, ..., "head/kernel": array}`` (with or without a
-leading ``params/``) and returns the port's state dict. The two
+``{"project/kernel": array, ..., "convt_0_kernel": array, ...}`` (the
+WaveGAN G), ``{"init_state/kernel": array, "cond_proj/kernel": array,
+"gru_w_i": array, "gru_w_h": array, "gru_b_i": array, "ar_proj": array,
+"frame_out": array, ..., "up_0_kernel": array, ...}`` (the GRU G, whose
+recurrent weights are stored pre-transposed, [in, 3H] and [H, 3H] in
+(r, z, n) gate order, as the port keeps them) or ``{"conv_0_kernel":
+array, ..., "head/kernel": array}`` (the critic), with or without a
+leading ``params/``, and returns the port's state dict. The two
 packages share layouts ([K, C_in, C_out] conv kernels, [in, out] dense
 kernels), so the values pass through unchanged and only the names move
 from ``/`` to ``.``. The port never reads an orbax checkpoint: the caller

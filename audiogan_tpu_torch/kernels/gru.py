@@ -1,0 +1,279 @@
+"""The GRU generator's frame recurrence: the CUDA kernels, their plain
+forms and the autograd Function.
+
+Port of audiogan_tpu/kernels/gru.py. ``csrc/gru_scan.cu`` replaces
+``_gru_scan_impl`` (K4, the whole scan, optionally emitting ``h_seq``) and
+``_gru_scan_bwd`` (K5, its reverse-sweep backward). Per frame t:
+
+    x_t    = [feat_{t-1} @ w_ar, cond]          (feat_{-1} = 0)
+    h_t    = GRUCell(x_t, h_{t-1})              (ops/gru.py, gates r, z, n)
+    feat_t = tanh(h_t @ w_out + b_out)
+
+with the TPU kernel's numerics, which in bf16 differ from a scan of the
+cell in the compute dtype: the weights are widened to f32 at each use, h
+and feat are carried in f32 (the autoregressive input is the f32 feat),
+and feat_t and h_t are rounded to the input dtype only where they are
+written out. The backward recomputes each frame from the stored, rounded
+residuals (h_{t-1}, feat_{t-1}) and returns each gradient in the dtype of
+its primal. ``gru_scan_plain`` and ``gru_scan_bwd_plain`` are those
+numerics step by step in torch: the CPU path and the kernels' oracles.
+
+Layouts: h0 [B,H], cond [B,F], w_i [2F,3H], w_h [H,3H], b_i [3H],
+b_h [3H], w_ar [F,F], w_out [H,F], b_out [F] -> feats [B, n_frames, F];
+h_seq [n_frames, B, H].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from audiogan_tpu_torch.kernels import _build
+from audiogan_tpu_torch.ops.gru import gru_cell, gru_gates
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ARG_NAMES = ("h0", "cond", "w_i", "w_h", "b_i", "b_h", "w_ar", "w_out",
+             "b_out")
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _dims(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out):
+    """(B, H, F) after checking every shape against h0 and w_ar."""
+    if h0.dim() != 2 or w_ar.dim() != 2:
+        raise ValueError(f"want h0 [B,H] and w_ar [F,F]; got "
+                         f"{tuple(h0.shape)}, {tuple(w_ar.shape)}")
+    b, hid = h0.shape
+    feat = w_ar.shape[0]
+    want = {"h0": (b, hid), "cond": (b, feat), "w_i": (2 * feat, 3 * hid),
+            "w_h": (hid, 3 * hid), "b_i": (3 * hid,), "b_h": (3 * hid,),
+            "w_ar": (feat, feat), "w_out": (hid, feat), "b_out": (feat,)}
+    for name, t in zip(ARG_NAMES, (h0, cond, w_i, w_h, b_i, b_h, w_ar,
+                                   w_out, b_out)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} is {tuple(t.shape)}, want {want[name]}")
+    return b, hid, feat
+
+
+def gru_scan_plain(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+                   n_frames: int, with_h: bool = False):
+    """The scan in plain torch with the kernel's numerics: f32 (float64
+    stays float64, for gradcheck) carries and products, h0.dtype output.
+    -> feats [B, n_frames, F], and h_seq [n_frames, B, H] if with_h."""
+    acc = _acc_dtype(h0)
+    wi, wh, bi, bh, war, wout, bout = (t.to(acc) for t in (
+        w_i, w_h, b_i, b_h, w_ar, w_out, b_out))
+    c = cond.to(acc)
+    h = h0.to(acc)
+    feat = torch.zeros(h0.shape[0], w_ar.shape[0], dtype=acc,
+                       device=h0.device)
+    feats, hs = [], []
+    for _ in range(n_frames):
+        x = torch.cat([feat @ war, c], dim=-1)
+        h = gru_cell(x, h, wi, wh, bi, bh)
+        feat = torch.tanh(h @ wout + bout)
+        feats.append(feat.to(h0.dtype))
+        hs.append(h.to(h0.dtype))
+    out = torch.stack(feats, dim=1)
+    return (out, torch.stack(hs)) if with_h else out
+
+
+def _prev_residuals(h0, feats, h_seq):
+    """(feat_{t-1}, h_{t-1}) for every frame, frame-major: zeros then
+    feats[:, :-1]; h0 then h_seq[:-1] (kernels/gru.py:426-429)."""
+    f_nbf = feats.transpose(0, 1)
+    prev_f = torch.cat([torch.zeros_like(f_nbf[:1]), f_nbf[:-1]])
+    prev_h = torch.cat([h0[None], h_seq[:-1]])
+    return prev_f.contiguous(), prev_h.contiguous()
+
+
+def gru_scan_bwd_plain(g, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+                       feats, h_seq):
+    """K5's function in plain torch: the reverse sweep of
+    _gru_scan_bwd_kernel frame by frame. g [B, n_frames, F] is the
+    cotangent of feats; feats and h_seq are K4's outputs. -> (dh0, dcond,
+    dw_i, dw_h, db_i, db_h, dw_ar, dw_out, db_out), each in its primal's
+    dtype."""
+    primals = (h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out)
+    acc = _acc_dtype(h0)
+    wi, wh, bi, bh, war, wout, bout = (t.to(acc) for t in (
+        w_i, w_h, b_i, b_h, w_ar, w_out, b_out))
+    c = cond.to(acc)
+    prev_f, prev_h = _prev_residuals(h0, feats, h_seq)
+    feat_dim = w_ar.shape[0]
+    dh = torch.zeros(h0.shape, dtype=acc, device=h0.device)
+    dfc = torch.zeros(cond.shape, dtype=acc, device=h0.device)
+    dwi, dwh, dbi, dbh, dwar, dwout, dbout, dcond = (
+        torch.zeros(t.shape, dtype=acc, device=h0.device)
+        for t in (w_i, w_h, b_i, b_h, w_ar, w_out, b_out, cond))
+    for t in reversed(range(g.shape[1])):
+        pf, ph = prev_f[t].to(acc), prev_h[t].to(acc)
+        x = torch.cat([pf @ war, c], dim=-1)
+        r, z, n, h_n = gru_gates(x, ph, wi, wh, bi, bh)
+        h = (1.0 - z) * n + z * ph
+        feat_t = torch.tanh(h @ wout + bout)
+        dfeat = g[:, t].to(acc) + dfc
+        dfp = dfeat * (1.0 - feat_t * feat_t)
+        dwout += h.T @ dfp
+        dbout += dfp.sum(0)
+        dh = dh + dfp @ wout.T
+        dz = dh * (ph - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dr = dn * h_n * r * (1.0 - r)
+        dgi = torch.cat([dr, dz, dn], dim=-1)
+        dgh = torch.cat([dr, dz, dn * r], dim=-1)
+        dx = dgi @ wi.T
+        dh_prev = dgh @ wh.T + dh * z
+        dwi += x.T @ dgi
+        dwh += ph.T @ dgh
+        dbi += dgi.sum(0)
+        dbh += dgh.sum(0)
+        dar = dx[:, :feat_dim]
+        dcond += dx[:, feat_dim:]
+        dwar += pf.T @ dar
+        dfc = dar @ war.T
+        dh = dh_prev
+    grads = (dh, dcond, dwi, dwh, dbi, dbh, dwar, dwout, dbout)
+    return tuple(d.to(p.dtype) for d, p in zip(grads, primals))
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """csrc/gru_scan.cu, built at first use, with its C signatures."""
+    lib = _build.load("gru_scan")
+    lib.gru_scan_fwd_workspace.argtypes = [ctypes.c_int] * 3
+    lib.gru_scan_fwd_workspace.restype = ctypes.c_size_t
+    lib.gru_scan_bwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.gru_scan_bwd_workspace.restype = ctypes.c_size_t
+    lib.gru_scan_fwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                                 + [ctypes.c_void_p])
+    lib.gru_scan_fwd.restype = ctypes.c_int
+    lib.gru_scan_bwd.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
+                                 + [ctypes.c_void_p])
+    lib.gru_scan_bwd.restype = ctypes.c_int
+    lib.gru_scan_error_string.argtypes = [ctypes.c_int]
+    lib.gru_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_kernel_args(name: str, tensors) -> None:
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {first.device}")
+    if first.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got "
+                        f"{first.dtype}")
+    for t in tensors:
+        if t.device != first.device or t.dtype != first.dtype:
+            raise TypeError(f"{name}: a {t.dtype} tensor on {t.device} "
+                            f"beside {first.dtype} on {first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _raise_if(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.gru_scan_error_string(err).decode())
+
+
+def gru_scan_fwd(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+                 n_frames: int, with_h: bool = False):
+    """The scan -> feats [B, n_frames, F] (and h_seq [n_frames, B, H] if
+    with_h), in h0.dtype. A CPU tensor takes the plain form. A CUDA
+    tensor launches K4 (every input f32 or every input bf16) or raises;
+    it never falls back. Records no autograd history (see gru_scan)."""
+    args = (h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out)
+    b, hid, feat = _dims(*args)
+    if n_frames < 1:
+        raise ValueError(f"n_frames={n_frames}")
+    if h0.device.type == "cpu":
+        return gru_scan_plain(*args, n_frames, with_h)
+    _check_kernel_args("gru_scan", args)
+    dev, dt = h0.device, h0.dtype
+    out = torch.empty((b, n_frames, feat), dtype=dt, device=dev)
+    h_seq = (torch.empty((n_frames, b, hid), dtype=dt, device=dev)
+             if with_h else None)
+    lib = _lib()
+    ws = torch.empty(lib.gru_scan_fwd_workspace(b, hid, feat),
+                     dtype=torch.float32, device=dev)
+    err = lib.gru_scan_fwd(
+        *(t.data_ptr() for t in args), out.data_ptr(),
+        h_seq.data_ptr() if with_h else None, ws.data_ptr(), b, hid, feat,
+        n_frames, _DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(lib, err, "gru_scan")
+    gru_scan_fwd.launches += 1
+    return (out, h_seq) if with_h else out
+
+
+gru_scan_fwd.launches = 0
+
+
+def gru_scan_bwd(g, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+                 feats, h_seq):
+    """K5: the nine gradients of the scan from the cotangent g
+    [B, n_frames, F] and K4's feats and h_seq, each in its primal's dtype.
+    A CPU tensor takes the plain form; a CUDA tensor launches K5 or
+    raises."""
+    args = (h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out)
+    b, hid, feat = _dims(*args)
+    n_frames = feats.shape[1]
+    want = {"g": (b, n_frames, feat), "feats": (b, n_frames, feat),
+            "h_seq": (n_frames, b, hid)}
+    for name, t in (("g", g), ("feats", feats), ("h_seq", h_seq)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} is {tuple(t.shape)}, want {want[name]}")
+    if h0.device.type == "cpu":
+        return gru_scan_bwd_plain(g, *args, feats, h_seq)
+    _check_kernel_args("gru_scan_bwd", (g, *args, feats, h_seq))
+    prev_f, prev_h = _prev_residuals(h0, feats, h_seq)
+    grads = tuple(torch.empty_like(t) for t in args)
+    lib = _lib()
+    ws = torch.empty(lib.gru_scan_bwd_workspace(b, hid, feat, n_frames),
+                     dtype=torch.float32, device=h0.device)
+    err = lib.gru_scan_bwd(
+        g.data_ptr(), prev_f.data_ptr(), prev_h.data_ptr(),
+        *(t.data_ptr() for t in args[1:]), *(d.data_ptr() for d in grads),
+        ws.data_ptr(), b, hid, feat, n_frames, _DTYPES[h0.dtype],
+        torch.cuda.current_stream(h0.device).cuda_stream)
+    _raise_if(lib, err, "gru_scan_bwd")
+    gru_scan_bwd.launches += 1
+    return grads
+
+
+gru_scan_bwd.launches = 0
+
+
+class GruScan(torch.autograd.Function):
+    """The scan with its K5 backward (first order: the generator is
+    differentiated once, kernels/gru.py's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+                n_frames):
+        args = tuple(t.contiguous() for t in (h0, cond, w_i, w_h, b_i, b_h,
+                                              w_ar, w_out, b_out))
+        out, h_seq = gru_scan_fwd(*args, n_frames, with_h=True)
+        ctx.save_for_backward(*args, out, h_seq)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        *args, out, h_seq = ctx.saved_tensors
+        return (*gru_scan_bwd(g.contiguous(), *args, out, h_seq), None)
+
+
+def gru_scan(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+             n_frames: int) -> torch.Tensor:
+    """The model's entry: feats [B, n_frames, F]. When a gradient is
+    wanted the forward emits h_seq for K5; otherwise (the critic's fakes
+    under no_grad, serving) it runs K4 without it."""
+    args = (h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return GruScan.apply(*args, n_frames)
+    return gru_scan_fwd(*args, n_frames)

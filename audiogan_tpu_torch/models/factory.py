@@ -5,22 +5,26 @@ from __future__ import annotations
 import torch
 
 from audiogan_tpu_torch.config import Config
+from audiogan_tpu_torch.models.gru import GRUGenerator
 from audiogan_tpu_torch.models.wavegan import (WaveGANDiscriminator,
                                                 WaveGANGenerator)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_generator(cfg: Config, device=None) -> WaveGANGenerator:
+def build_generator(cfg: Config,
+                    device=None) -> WaveGANGenerator | GRUGenerator:
     """The generator with uninitialised f32 parameters on ``device``
     (fill them with models.init.init_params or load a state dict)."""
+    cfg.validate()
     m, d = cfg.model, cfg.data
     if m.generator == "gru":
-        raise NotImplementedError(
-            "the GRU generator is not ported to audiogan_tpu_torch yet; "
-            "use audiogan_tpu for cond_gru_sc09")
-    if m.generator != "wavegan":
-        raise ValueError(f"unknown generator {m.generator!r}")
+        return GRUGenerator(
+            clip_len=d.clip_len, latent_dim=m.latent_dim,
+            model_dim=m.model_dim, hidden=m.gru_hidden,
+            frame_size=m.gru_frame_size, kernel_size=m.kernel_size,
+            num_classes=d.num_classes, embed_dim=m.embed_dim,
+            dtype=DTYPES[cfg.train.dtype], device=device)
     return WaveGANGenerator(
         clip_len=d.clip_len, latent_dim=m.latent_dim,
         model_dim=m.model_dim, kernel_size=m.kernel_size,
@@ -33,6 +37,7 @@ def build_discriminator(cfg: Config, device=None) -> WaveGANDiscriminator:
     """The WaveGAN critic with uninitialised f32 parameters on ``device``.
     Every phase-shuffle site is unfused (fused_shuffle_sites=0, the
     setting of every preset)."""
+    cfg.validate()
     m, d = cfg.model, cfg.data
     if m.use_stft_critic:
         raise NotImplementedError(

@@ -17,6 +17,7 @@ import torch
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.device import resolve_device
 from audiogan_tpu_torch.models import build_discriminator, build_generator
+from audiogan_tpu_torch.models.gru import GRUGenerator
 from audiogan_tpu_torch.models.init import init_params
 from audiogan_tpu_torch.models.wavegan import (WaveGANDiscriminator,
                                                WaveGANGenerator)
@@ -28,7 +29,7 @@ ADAM_EPS = 1e-8
 @dataclass
 class TrainState:
     step: int
-    g: WaveGANGenerator
+    g: WaveGANGenerator | GRUGenerator
     d: WaveGANDiscriminator
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
@@ -47,7 +48,7 @@ def make_optimizers(cfg: Config, g: torch.nn.Module, d: torch.nn.Module
 
 def create_train_state(cfg: Config, seed: int | None = None,
                        device=None) -> TrainState:
-    """Both nets (seeded glorot init, zero biases) and both optimizers on
+    """Both nets (seeded flax-style init) and both optimizers on
     ``device`` (the card unless the caller asks for another)."""
     dev = resolve_device(device)
     seed = cfg.train.seed if seed is None else seed

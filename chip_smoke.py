@@ -3,36 +3,41 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line with its own ``seconds``; any failure
-raises and the script exits non-zero:
+Two paths, each driven through the user's entry points: the flagship
+WaveGAN (wgan_gp_b64) and the class-conditional GRU generator
+(cond_gru_sc09). Phases, each printing one JSON line with its own
+``seconds``; any failure raises and the script exits non-zero:
 
 1. env      the card's name and power limit (nvidia-smi).
-2. build    the three kernels (convt1d, conv1d, ingest) from a clean build
-            directory, one plain nvcc each, all started together; ptxas
-            registers and spills.
+2. build    the four sources (convt1d, conv1d, ingest, gru_scan) from a
+            clean build directory, one plain nvcc each, all started
+            together; ptxas registers and spills.
 3. compare  each kernel against its plain PyTorch form, f32 and bf16:
             convt1d at the five wgan_gp_b64 generator layers (batch 64) and
             at the critic's backward geometries (the dx of every critic
             conv, batch 2B = 128); conv1d at the five critic layers (2B)
             and at the generator's backward geometries (batch 64); ingest
             at [64, 16384] with store = clip and with store 20000 and
-            random offsets.
-4. serve    the wgan_gp_b64 generator at full width (random weights from
-            init seed 0, bf16) exported, loaded and served over HTTP on
-            127.0.0.1; a few requests, convt1d's launches per request,
-            the served audio against a CPU reference on two clips.
-5. parity   one f32 wgan_gp_b64 training step at full width, batch 2, on
-            the card (kernels) and on the CPU (plain forms), from one state
-            and the same draws: metrics, parameters and Adam moments.
-6. train    the flagship through the user's entry point (train.loop.train,
-            what `cli train` runs): B=64, bf16, n_critic 5, fused views,
-            resident synthetic corpus; 2 warm-up steps then 5 timed ones,
-            finite losses, steps/s, launches per step of each kernel,
-            peak device memory; one more step under torch.profiler for
-            the device time by kernel.
+            random offsets; the GRU scan (K4, with and without h_seq) and
+            its backward (K5) at cond_gru_sc09's widths, batch 64 (the GRU
+            G's three convT layers and the critic are flagship geometries).
+4. serve    each generator at full width (random weights from init seed 0,
+            bf16) exported, loaded and served over HTTP on 127.0.0.1; a
+            few requests (with labels for the GRU), each kernel's launches
+            per request, the served audio against a CPU reference.
+5. parity   one f32 training step of each preset at full width, batch 2,
+            on the card (kernels) and on the CPU (plain forms), from one
+            state and the same draws: metrics, parameters, Adam moments.
+6. train    each preset through train.loop.train (what `cli train` runs):
+            B=64, bf16, n_critic 5, fused views, resident synthetic corpus;
+            warm-up steps then timed ones, finite losses, steps/s, launches
+            per step of each kernel (counts zeroed just before each path,
+            read just after), peak device memory; one more step under
+            torch.profiler for the device time by kernel.
 7. timing   per geometry: kernel, plain form and, where one exists, one
             library call (F.conv_transpose1d / F.conv1d, yardsticks the port
-            never calls) beside the card's bound; the sampler's clips/s.
+            never calls) beside the card's bound; the GRU scan's CUDA
+            launches per call; each sampler's clips/s.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -77,8 +82,13 @@ PARITY_REL_TOL = 1e-3         # a full step's metrics, and its gradients and
 # the share of elements off by more than 1e-6 is reported.
 PARITY_PARAM_TOL = 2.5e-4
 PARITY_PARAM_FINE = 1e-6
+# the served GRU G on the card vs the CPU in bf16: the scan carries f32
+# and rounds only what it writes, but h0 and cond_proj come from bf16
+# dense layers (cuBLAS vs the CPU), and three convT layers each round
+SERVE_BF16_REL_TOL = 5e-2
+GRU_BWD_REL_L2 = 1e-3         # K5: every gradient sums over 16384 rows
 BUILD_LIMIT_S = 180.0
-KERNELS = ("convt1d", "conv1d", "ingest")
+SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
@@ -333,6 +343,164 @@ def compare_ingest(cases: list[dict], dev) -> dict:
     return errs
 
 
+# -- the GRU scan ---------------------------------------------------------------
+
+def gru_dims(cfg) -> tuple[int, int, int, int]:
+    """(B, H, F, n_frames) of the GRU generator's scan at batch BATCH."""
+    m = cfg.model
+    return (BATCH, m.gru_hidden, min(4 * m.model_dim, 512),
+            cfg.data.clip_len // m.gru_frame_size)
+
+
+def gru_inputs(cfg, dtype, dev, seed: int = 0) -> list:
+    """The scan's nine inputs at the model's scales: h0 = tanh(.),
+    glorot-uniform weights, an orthogonal w_h, small random biases."""
+    b, hid, feat, _ = gru_dims(cfg)
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def glorot(n_in, n_out):
+        lim = (6.0 / (n_in + n_out)) ** 0.5
+        return (torch.rand(n_in, n_out, generator=gen, device=dev) * 2
+                - 1) * lim
+
+    def small(n):
+        return torch.randn(n, generator=gen, device=dev) * 0.1
+    w_h = torch.linalg.qr(torch.randn(3 * hid, hid, generator=gen,
+                                      device=dev))[0].T
+    args = [torch.tanh(torch.randn(b, hid, generator=gen, device=dev)),
+            torch.randn(b, feat, generator=gen, device=dev) * 0.5,
+            glorot(2 * feat, 3 * hid), w_h, small(3 * hid), small(3 * hid),
+            glorot(feat, feat), glorot(hid, feat), small(feat)]
+    return [a.to(dtype).contiguous() for a in args]
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return float(2.0 ** (np.floor(np.log2(max(x, 1e-30))) - 7))
+
+
+def compare_gru(cfg, dev) -> dict:
+    """K4 (without and with h_seq) and K5 against their plain forms on the
+    same inputs, f32 and bf16. K4: f32 within F32_REL_TOL of the peak,
+    bf16 within one bf16 ulp of it (the same f32 values before the one
+    rounding of the output); K5: every gradient within GRU_BWD_REL_L2
+    relative L2."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    b, _, feat, n = gru_dims(cfg)
+    errs = {}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args = gru_inputs(cfg, dtype, dev)
+        for with_h in (False, True):
+            got = kgru.gru_scan_fwd(*args, n, with_h=with_h)
+            want = kgru.gru_scan_plain(*args, n, with_h=with_h)
+            torch.cuda.synchronize()
+            outs = (zip(("feats", "h_seq"), got, want) if with_h
+                    else [("feats", got, want)])
+            for out, g, w in outs:
+                err = (g.float() - w.float()).abs().max().item()
+                peak = w.float().abs().max().item()
+                tol = (F32_REL_TOL * peak if dtype == torch.float32
+                       else bf16_ulp(peak))
+                print(json.dumps({"compare": "gru_scan", "dtype": dname,
+                                  "with_h_seq": with_h, "output": out,
+                                  "shape": list(g.shape),
+                                  "max_abs_err": err, "max_abs_y": peak,
+                                  "tol_abs": tol}), flush=True)
+                if g.dtype != dtype or not err <= tol:
+                    raise AssertionError(f"gru_scan {dname} {out}: {err} > "
+                                         f"{tol}")
+                key = ("gru_scan", dname)
+                errs[key] = max(errs.get(key, 0.0), err)
+        out, h_seq = kgru.gru_scan_fwd(*args, n, with_h=True)
+        gen = torch.Generator(dev).manual_seed(1)
+        ct = torch.randn(b, n, feat, generator=gen, device=dev).to(dtype)
+        got = kgru.gru_scan_bwd(ct, *args, out, h_seq)
+        want = kgru.gru_scan_bwd_plain(ct, *args, out, h_seq)
+        torch.cuda.synchronize()
+        rel, abs_err = {}, 0.0
+        for name, a, g, w in zip(kgru.ARG_NAMES, args, got, want):
+            if g.dtype != a.dtype or g.shape != a.shape:
+                raise AssertionError(f"gru_scan_bwd d{name}: {g.dtype} "
+                                     f"{tuple(g.shape)}")
+            d = (g.float() - w.float())
+            rel[name] = (d.norm() / w.float().norm().clamp_min(1e-30)).item()
+            abs_err = max(abs_err, d.abs().max().item())
+        print(json.dumps({"compare": "gru_scan_bwd", "dtype": dname,
+                          "rel_l2": rel, "max_abs_err": abs_err,
+                          "tol_rel_l2": GRU_BWD_REL_L2}), flush=True)
+        bad = {k: v for k, v in rel.items() if not v <= GRU_BWD_REL_L2}
+        if bad:
+            raise AssertionError(f"gru_scan_bwd {dname}: {bad}")
+        errs[("gru_scan_bwd", dname)] = abs_err
+        errs[("gru_scan_bwd_rel_l2", dname)] = max(rel.values())
+    return errs
+
+
+def gru_work(cfg, itemsize: int, backward: bool) -> tuple[int, int]:
+    """(flops, bytes) of one scan without h_seq (K4) or of its backward
+    (K5): the flops of audiogan_tpu/kernels/gru.py's CostEstimate; each
+    input read once and each output written once."""
+    b, hid, feat, n = gru_dims(cfg)
+    per_frame = b * (feat * feat + 3 * hid * (2 * feat + hid) + hid * feat)
+    inputs = (b * hid + b * feat + 2 * feat * 3 * hid + hid * 3 * hid
+              + 2 * 3 * hid + feat * feat + hid * feat + feat)
+    feats, h_seq = b * n * feat, n * b * hid
+    if not backward:
+        return 2 * n * per_frame, itemsize * (inputs + feats)
+    # in: g, feats, h_seq and the inputs; out: a gradient per input
+    return 6 * n * per_frame, itemsize * (2 * feats + h_seq + 2 * inputs)
+
+
+def device_launches(fn) -> int:
+    """The CUDA kernels and memsets one call of fn puts on the device, as
+    torch.profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def time_gru(cfg, dev, errs: dict) -> dict:
+    """K4 (without h_seq; with it beside) and K5 at B=64, bf16."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    b, hid, feat, n = gru_dims(cfg)
+    args = gru_inputs(cfg, torch.bfloat16, dev)
+    out, h_seq = kgru.gru_scan_fwd(*args, n, with_h=True)
+    gen = torch.Generator(dev).manual_seed(1)
+    ct = torch.randn(b, n, feat, generator=gen, device=dev).bfloat16()
+    calls = {
+        "gru_scan": (lambda: kgru.gru_scan_fwd(*args, n),
+                     lambda: kgru.gru_scan_plain(*args, n), False),
+        "gru_scan_bwd": (lambda: kgru.gru_scan_bwd(ct, *args, out, h_seq),
+                         lambda: kgru.gru_scan_bwd_plain(ct, *args, out,
+                                                         h_seq), True),
+    }
+    rows = {}
+    for name, (kernel, plain, backward) in calls.items():
+        flops, nbytes = gru_work(cfg, 2, backward)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = cuda_ms(kernel, iters=5, warmup=1)
+        rows[name] = {
+            "geometry": f"B={b} H={hid} F={feat} frames={n}",
+            "ms": ms, "tflops_per_s": flops / ms / 1e9,
+            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": errs[(name, "bf16")],
+            "cuda_launches_per_call": device_launches(kernel)}
+    rows["gru_scan"]["ms_with_h_seq"] = cuda_ms(
+        lambda: kgru.gru_scan_fwd(*args, n, with_h=True), iters=5, warmup=1)
+    rows["gru_scan_bwd"]["max_rel_l2_bf16"] = errs[("gru_scan_bwd_rel_l2",
+                                                     "bf16")]
+    for name, row in rows.items():
+        print(json.dumps({"timing": name, **row}), flush=True)
+    return rows
+
+
 # -- serving --------------------------------------------------------------------
 
 def http_json(url: str, body: dict | None = None) -> tuple[int, dict]:
@@ -355,15 +523,16 @@ def decode_wav(b64: str) -> tuple[int, np.ndarray]:
     return rate, pcm
 
 
-def serve_phase(cfg, dev, n_layers: int):
-    from audiogan_tpu_torch.kernels import conv as kconv
+def serve_phase(cfg, dev, counters: dict, per_request: dict):
+    """cfg's generator exported, loaded and served over HTTP; the requests
+    carry labels when cfg is conditional. per_request: the launches each
+    batch must make of each kernel; the other counters must stay 0."""
     from audiogan_tpu_torch.models import build_generator
     from audiogan_tpu_torch.models.init import init_params
     from audiogan_tpu_torch.serve import (export_sampler, load_sampler,
                                           make_server)
     from audiogan_tpu_torch.train.sample import generate
-    kernel = kconv.conv_transpose1d_ba
-    art = ROOT / "build" / "chip_smoke_artifact"
+    art = ROOT / "build" / f"chip_smoke_artifact_{cfg.name}"
     shutil.rmtree(art, ignore_errors=True)
     g = init_params(build_generator(cfg, device=dev), seed=0)
     params = g.state_dict()
@@ -373,26 +542,40 @@ def serve_phase(cfg, dev, n_layers: int):
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     url = "http://%s:%d" % srv.server_address[:2]
+    n_cls = cfg.data.num_classes
+    labels = [i % n_cls for i in range(BATCH)] if n_cls else None
+    other = [(i + 1) % n_cls for i in range(SMALL)] if n_cls else None
+
+    def generate_req(seed, num, lab=labels):
+        body = {"seed": seed, "num": num}
+        if lab is not None:
+            body["labels"] = lab[:num]
+        return http_json(f"{url}/generate", body)
     try:
-        kernel.launches = 0
+        for c in counters.values():
+            c.launches = 0
         code, health = http_json(f"{url}/healthz")
-        r8 = http_json(f"{url}/generate", {"seed": 1, "num": SMALL})
-        r64 = http_json(f"{url}/generate", {"seed": 1, "num": BATCH})
-        r64b = http_json(f"{url}/generate", {"seed": 1, "num": BATCH})
-        r2 = http_json(f"{url}/generate", {"seed": 2, "num": SMALL})
+        r8 = generate_req(1, SMALL)
+        r64 = generate_req(1, BATCH)
+        r64b = generate_req(1, BATCH)
+        r2 = generate_req(2, SMALL)
+        answered = [r8, r64, r64b, r2]
+        if n_cls:
+            r_lab = generate_req(1, SMALL, other)
+            answered.append(r_lab)
         bad = [http_json(f"{url}/generate", {"seed": 1, "num": n})[0]
                for n in (0, BATCH + 1)]
-        launches = kernel.launches
+        launches = {name: c.launches for name, c in counters.items()}
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
     if thread.is_alive():
         raise RuntimeError("server thread did not stop")
-    n_generate = 4
+    n_generate = len(answered)
     if code != 200 or health["num"] != BATCH or health["status"] != "ok":
         raise AssertionError(f"healthz: {code} {health}")
-    for c, body in (r8, r64, r64b, r2):
+    for c, body in answered:
         if c != 200:
             raise AssertionError(f"generate: {c} {body}")
     if bad != [400, 400]:
@@ -403,10 +586,13 @@ def serve_phase(cfg, dev, n_layers: int):
         raise AssertionError("the small request is not a prefix")
     if r2[1]["wavs"] == r8[1]["wavs"]:
         raise AssertionError("different seeds gave the same bytes")
-    if launches != n_layers * n_generate:
-        raise AssertionError(f"convt1d launched {launches} times for "
-                             f"{n_generate} requests, want "
-                             f"{n_layers} per request")
+    if n_cls and r_lab[1]["wavs"] == r8[1]["wavs"]:
+        raise AssertionError("different labels gave the same bytes")
+    for name, n in launches.items():
+        want = per_request.get(name, 0) * n_generate
+        if n != want:
+            raise AssertionError(f"{name} launched {n} times for "
+                                 f"{n_generate} requests, want {want}")
     pcm = []
     for b64 in r64[1]["wavs"]:
         rate, p = decode_wav(b64)
@@ -414,26 +600,27 @@ def serve_phase(cfg, dev, n_layers: int):
             raise AssertionError(f"wav {rate} Hz, {p.shape}")
         pcm.append(p)
     pcm = np.stack(pcm)
-    waves = sampler.generate(1)
+    lab = np.array(labels) if n_cls else None
+    waves = sampler.generate(1, lab)
     if not np.isfinite(waves).all() or not pcm.any():
         raise AssertionError("non-finite or silent output")
     want16 = np.round(np.clip(waves, -1, 1) * 32767).astype(np.int16)
     if not np.array_equal(pcm, want16):
         raise AssertionError("served wav bytes differ from the sampler")
-    # the card's output against the port on the CPU (plain form), same z
+    # the card's output against the port on the CPU (plain forms), same z
     z = torch.randn(BATCH, cfg.model.latent_dim,
                     generator=torch.Generator(dev).manual_seed(1),
                     device=dev)[:2].cpu()
+    lab2 = None if lab is None else lab[:2]
     cpu_params = {k: v.cpu() for k, v in params.items()}
     ref_checks = {}
     cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
                                                   dtype="float32"))
-    # bf16: five layers each round their output to 8 bits, in another
-    # order on the card than on the CPU
-    for dname, c, tol in (("bf16", cfg, 5e-2), ("f32", cfg32, F32_REL_TOL)):
+    for dname, c, tol in (("bf16", cfg, SERVE_BF16_REL_TOL),
+                          ("f32", cfg32, F32_REL_TOL)):
         on_card = (waves[:2] if dname == "bf16" else
-                   generate(c, params, 2, 1, device=dev, z=z))
-        ref = generate(c, cpu_params, 2, 1, device="cpu", z=z)
+                   generate(c, params, 2, 1, lab2, device=dev, z=z))
+        ref = generate(c, cpu_params, 2, 1, lab2, device="cpu", z=z)
         err = float(np.abs(on_card - ref).max())
         peak = float(np.abs(ref).max())
         ref_checks[dname] = {"max_abs_err": err, "max_abs_ref": peak,
@@ -441,12 +628,13 @@ def serve_phase(cfg, dev, n_layers: int):
         if not err <= tol * peak:
             raise AssertionError(f"served {dname} G vs CPU reference: "
                                  f"{err} > {tol} * {peak}")
-    return sampler, dict(requests=7, generate_requests=n_generate,
-                         launches=launches,
-                         launches_per_request=launches / n_generate,
+    return sampler, dict(preset=cfg.name, requests=n_generate + 3,
+                         generate_requests=n_generate, launches=launches,
+                         launches_per_request={
+                             k: v / n_generate for k, v in launches.items()},
                          clip_len=cfg.data.clip_len,
                          sample_rate=cfg.data.sample_rate,
-                         reference=ref_checks)
+                         labels=bool(n_cls), reference=ref_checks)
 
 
 # -- training -------------------------------------------------------------------
@@ -561,11 +749,12 @@ def parity_phase(cfg, dev, batch: int) -> dict:
                 card_step_s=t_card, cpu_step_s=t_host)
 
 
-def train_phase(cfg, dev, counters) -> dict:
-    """The flagship through train.loop.train: counts zeroed just before,
-    read just after."""
+def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
+    """cfg through train.loop.train: counts zeroed just before, read just
+    after. Every counter must have launched, a whole number of times per
+    step; per_step names exact counts."""
     from audiogan_tpu_torch.train.loop import train
-    workdir = ROOT / "build" / "chip_smoke_train"
+    workdir = ROOT / "build" / f"chip_smoke_train_{cfg.name}"
     shutil.rmtree(workdir, ignore_errors=True)
     lines = []
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
@@ -590,6 +779,10 @@ def train_phase(cfg, dev, counters) -> dict:
             raise AssertionError(f"{name} was not launched in training")
         if n % n_steps:
             raise AssertionError(f"{name}: {n} launches in {n_steps} steps")
+    for name, want in per_step.items():
+        if launches[name] != want * n_steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{n_steps} steps, want {want} per step")
     timed_s = steps[-1]["seconds"] - steps[TRAIN_WARMUP - 1]["seconds"]
     return dict(preset=cfg.name, batch=cfg.train.batch_size,
                 dtype=cfg.train.dtype, n_critic=cfg.loss.n_critic,
@@ -703,6 +896,23 @@ def kernel_entry(name, source, replaces, function, launches, rows, per,
             "per": per, "card": card, **extra, "geometries": rows}
 
 
+def sampler_rate(sampler, cfg, iters: int = 10) -> dict:
+    """Host clock around `iters` seeded batches, each ending in a copy to
+    the host (generate returns numpy)."""
+    lab = (np.arange(BATCH) % cfg.data.num_classes
+           if cfg.data.num_classes else None)
+    sampler.generate(0, lab)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    for i in range(iters):
+        sampler.generate(i, lab)
+    per_batch = (time.perf_counter() - ts) / iters
+    clips_s = BATCH / per_batch
+    return {"batch": BATCH, "ms": per_batch * 1e3, "clips_per_s": clips_s,
+            "audio_s_per_s": clips_s * cfg.data.clip_len
+            / cfg.data.sample_rate}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -710,6 +920,7 @@ def main() -> int:
     from audiogan_tpu_torch.config import get_preset
     from audiogan_tpu_torch.kernels import _build
     from audiogan_tpu_torch.kernels import conv as kconv
+    from audiogan_tpu_torch.kernels import gru as kgru
     from audiogan_tpu_torch.kernels import ingest as king
 
     # the plain oracle in full f32: cuDNN's TF32 default would blur it
@@ -717,7 +928,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     counters = {"convt1d": kconv.conv_transpose1d_ba,
-                "conv1d": kconv.conv1d_ba, "ingest": king.ingest_fused}
+                "conv1d": kconv.conv1d_ba, "ingest": king.ingest_fused,
+                "gru_scan": kgru.gru_scan_fwd,
+                "gru_scan_bwd": kgru.gru_scan_bwd}
+    wave_kernels = {k: counters[k] for k in ("convt1d", "conv1d", "ingest")}
 
     # 1. env ---------------------------------------------------------------
     t0 = time.time()
@@ -733,18 +947,18 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together -------------------
     t0 = time.time()
-    for name in KERNELS:
+    for name in SOURCES:
         shutil.rmtree(_build.library_path(name).parent, ignore_errors=True)
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        paths = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    for name in KERNELS:
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    for name in SOURCES:
         _build.load(name)
     build_s = time.time() - t0
     ptxas = {}
     for name, lib_path in paths.items():
         log = (lib_path.parent / f"{name}.log").read_text().splitlines()
         ptxas[name] = [ln.strip() for ln in log
-                       if "registers" in ln or "spill" in ln][:16]
+                       if "registers" in ln or "spill" in ln][:20]
     phase("build", t0, libraries={k: str(v) for k, v in paths.items()},
           ptxas=ptxas)
     if build_s > BUILD_LIMIT_S:
@@ -754,6 +968,7 @@ def main() -> int:
     # 3. every kernel vs its plain form ---------------------------------------
     t0 = time.time()
     cfg = get_preset("wgan_gp_b64")
+    gcfg = get_preset("cond_gru_sc09")
     g_fwd = generator_layers(cfg, BATCH)
     d_dx = critic_dx_layers(cfg, 2 * BATCH)
     d_fwd = critic_layers(cfg, 2 * BATCH)
@@ -762,44 +977,56 @@ def main() -> int:
             "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev)}
     cases = ingest_cases(dev)
     errs["ingest"] = compare_ingest(cases, dev)
+    errs["gru"] = compare_gru(gcfg, dev)
     phase("compare", t0, geometries={k: len(v) // 2 if k != "ingest"
-                                     else len(v) for k, v in errs.items()},
-          max_abs_err={k: max(v.values()) for k, v in errs.items()})
+                                     else len(v) for k, v in errs.items()
+                                     if k != "gru"},
+          max_abs_err={k: max(v.values()) for k, v in errs.items()
+                       if k != "gru"},
+          gru={" ".join(k): v for k, v in errs["gru"].items()})
 
-    # 4. serve the flagship generator ----------------------------------------
+    # 4. serve both generators -------------------------------------------------
     t0 = time.time()
-    sampler, served = serve_phase(cfg, dev, len(g_fwd))
+    sampler, served = serve_phase(cfg, dev, counters,
+                                  {"convt1d": len(g_fwd)})
     phase("serve", t0, **served)
-
-    # 5. one full-width f32 step, card vs CPU --------------------------------
     t0 = time.time()
-    phase("parity", t0, **parity_phase(cfg, dev, batch=2))
+    gsampler, gserved = serve_phase(gcfg, dev, counters,
+                                    {"gru_scan": 1, "convt1d": 3})
+    phase("serve", t0, **gserved)
 
-    # 6. the flagship trains ---------------------------------------------------
+    # 5. one full-width f32 step of each preset, card vs CPU ---------------
+    for c in (cfg, gcfg):
+        t0 = time.time()
+        phase("parity", t0, preset=c.name, **parity_phase(c, dev, batch=2))
+
+    # 6. both presets train ----------------------------------------------------
     t0 = time.time()
-    trained = train_phase(cfg, dev, counters)
+    trained = train_phase(cfg, dev, wave_kernels, {})
     phase("train", t0, card=card, **trained)
+    t0 = time.time()
+    gtrained = train_phase(gcfg, dev, counters,
+                           {"gru_scan": 1 + gcfg.loss.n_critic,
+                            "gru_scan_bwd": 1})
+    phase("train", t0, card=card, **gtrained)
 
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()
     rows = {"convt1d": time_conv("convt1d", g_fwd + d_dx, dev,
                                  errs["convt1d"]),
             "conv1d": time_conv("conv1d", d_fwd + g_dx, dev, errs["conv1d"]),
-            "ingest": time_ingest(cases, errs["ingest"])}
-    iters = 10
-    sampler.generate(0)
-    torch.cuda.synchronize()
-    ts = time.perf_counter()
-    for i in range(iters):
-        sampler.generate(i)
-    per_batch = (time.perf_counter() - ts) / iters
-    clips_s = BATCH / per_batch
-    phase("timing", t0, sampler_batch=BATCH, sampler_ms=per_batch * 1e3,
-          clips_per_s=clips_s,
-          audio_s_per_s=clips_s * cfg.data.clip_len / cfg.data.sample_rate,
-          train_steps_per_s=trained["steps_per_s"], card=card)
+            "ingest": time_ingest(cases, errs["ingest"]),
+            **time_gru(gcfg, dev, errs["gru"])}
+    samplers = {cfg.name: sampler_rate(sampler, cfg),
+                gcfg.name: sampler_rate(gsampler, gcfg)}
+    phase("timing", t0, samplers=samplers,
+          train_steps_per_s={cfg.name: trained["steps_per_s"],
+                             gcfg.name: gtrained["steps_per_s"]}, card=card)
 
     per_step = trained["launches_per_step"]
+    gper_step = gtrained["launches_per_step"]
+    gru_per = ("one scan of cond_gru_sc09's G (B=64, H=512, F=256, 256 "
+               "frames), bf16")
     kernels = [
         kernel_entry(
             "convt1d", "audiogan_tpu_torch/csrc/convt1d.cu",
@@ -809,7 +1036,9 @@ def main() -> int:
             "sum over G's 5 layers forward (B=64) and the dx of D's 5 "
             "layers (2B=128), bf16", card,
             launches_per_train_step=per_step["convt1d"],
-            launches_serve=served["launches"]),
+            launches_per_train_step_gru=gper_step["convt1d"],
+            launches_serve=served["launches"]["convt1d"],
+            launches_serve_gru=gserved["launches"]["convt1d"]),
         kernel_entry(
             "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
             "audiogan_tpu/kernels/conv.py:285",
@@ -817,14 +1046,31 @@ def main() -> int:
             trained["launches"]["conv1d"], rows["conv1d"],
             "sum over D's 5 layers forward (2B=128) and the dx of G's 5 "
             "layers (B=64), bf16", card,
-            launches_per_train_step=per_step["conv1d"]),
+            launches_per_train_step=per_step["conv1d"],
+            launches_per_train_step_gru=gper_step["conv1d"]),
         kernel_entry(
             "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
             "audiogan_tpu/kernels/ingest.py:124", "ingest_fused (body _kernel)",
             trained["launches"]["ingest"], rows["ingest"][:1],
             "one flagship ingest, int16 [64, 16384] -> f32 (store = clip)",
             card, launches_per_train_step=per_step["ingest"],
+            launches_per_train_step_gru=gper_step["ingest"],
             slack=rows["ingest"][1]),
+        kernel_entry(
+            "gru_scan", "audiogan_tpu_torch/csrc/gru_scan.cu",
+            "audiogan_tpu/kernels/gru.py:213",
+            "_gru_scan_impl (bodies _gru_scan_kernel, _gru_scan_kernel_h)",
+            gtrained["launches"]["gru_scan"], [rows["gru_scan"]],
+            gru_per + ", without h_seq", card,
+            launches_per_train_step=gper_step["gru_scan"],
+            launches_serve=gserved["launches"]["gru_scan"]),
+        kernel_entry(
+            "gru_scan_bwd", "audiogan_tpu_torch/csrc/gru_scan.cu",
+            "audiogan_tpu/kernels/gru.py:397",
+            "_gru_scan_bwd (body _gru_scan_bwd_kernel)",
+            gtrained["launches"]["gru_scan_bwd"], [rows["gru_scan_bwd"]],
+            gru_per + ": the nine gradients", card,
+            launches_per_train_step=gper_step["gru_scan_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""The CUDA kernels (convt1d, conv1d, ingest) against their plain forms,
-on the card, and the autograd Functions' first- and second-order
-gradients through the kernels against the same Functions on the CPU.
+"""The CUDA kernels (convt1d, conv1d, ingest, gru_scan and gru_scan_bwd)
+against their plain forms, on the card, and the autograd Functions'
+first- and second-order gradients through the kernels, and the GRU
+generator's forward and backward, against the same code on the CPU.
 
 Marked ``cuda``: each test skips where there is no CUDA device. These import
 torch and the port only, so they also run on a machine without JAX:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from audiogan_tpu_torch.kernels import conv as tconv
+from audiogan_tpu_torch.kernels import gru as tgru
 from audiogan_tpu_torch.kernels import ingest as tingest
 
 pytestmark = pytest.mark.cuda
@@ -187,3 +189,111 @@ def test_second_order_through_kernels_matches_cpu(cuda_device):
     for gc, gg in zip(grads["cpu"], grads["cuda"]):
         err = (gg.cpu() - gc).norm().item()
         assert err <= 1e-4 * max(gc.norm().item(), 1e-12), err
+
+
+# (B, H, F, n_frames): ragged against every gemm tile (32, 64, 128), a
+# batch that fills 64-row tiles, and one frame
+GRU_SCANS = [(3, 20, 12, 7), (64, 64, 32, 16), (5, 33, 17, 9), (2, 8, 4, 1),
+             (130, 24, 8, 3)]
+
+
+def _gru_inputs(shape, dtype, device, seed=0):
+    """Weights at the model's scales (glorot-sized, w_h ~ 1/sqrt(H)): with
+    much larger weights the recurrence amplifies rounding, and the plain
+    form in f32 itself drifts from float64."""
+    b, hid, feat, _ = shape
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=device) * scale
+
+    def glorot(n_in, n_out):
+        return r(n_in, n_out, scale=(2.0 / (n_in + n_out)) ** 0.5)
+    args = [torch.tanh(r(b, hid)), r(b, feat), glorot(2 * feat, 3 * hid),
+            r(hid, 3 * hid, scale=hid ** -0.5), r(3 * hid, scale=0.1),
+            r(3 * hid, scale=0.1), glorot(feat, feat), glorot(hid, feat),
+            r(feat, scale=0.1)]
+    return [a.to(dtype) for a in args]
+
+
+def _bf16_ulp(peak: float) -> float:
+    import math
+    return 2.0 ** (math.floor(math.log2(max(peak, 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("with_h", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRU_SCANS, ids=str)
+def test_gru_scan_kernel_matches_plain(cuda_device, shape, dtype, with_h):
+    n = shape[3]
+    args = _gru_inputs(shape, dtype, cuda_device)
+    before = tgru.gru_scan_fwd.launches
+    got = tgru.gru_scan_fwd(*args, n, with_h=with_h)
+    torch.cuda.synchronize()
+    assert tgru.gru_scan_fwd.launches == before + 1
+    want = tgru.gru_scan_plain(*args, n, with_h=with_h)
+    pairs = zip(got, want) if with_h else [(got, want)]
+    for g, w in pairs:
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        peak = w.float().abs().max().item()
+        # f32: the same sums in another order; bf16: the same f32 values
+        # before the one rounding of the output
+        tol = 1e-4 * peak if dtype == torch.float32 else _bf16_ulp(peak)
+        assert err <= tol, (err, peak)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRU_SCANS, ids=str)
+def test_gru_scan_bwd_kernel_matches_plain(cuda_device, shape, dtype):
+    b, _, feat, n = shape
+    args = _gru_inputs(shape, dtype, cuda_device, seed=1)
+    out, h_seq = tgru.gru_scan_fwd(*args, n, with_h=True)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    g = torch.randn(b, n, feat, generator=gen, device=cuda_device).to(dtype)
+    before = tgru.gru_scan_bwd.launches
+    got = tgru.gru_scan_bwd(g, *args, out, h_seq)
+    torch.cuda.synchronize()
+    assert tgru.gru_scan_bwd.launches == before + 1
+    want = tgru.gru_scan_bwd_plain(g, *args, out, h_seq)
+    # relative L2 per gradient: sums over frames and rows in another order
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    for name, a, gk, w in zip(tgru.ARG_NAMES, args, got, want):
+        assert gk.dtype == a.dtype and gk.shape == a.shape, name
+        err = (gk.float() - w.float()).norm().item()
+        assert err <= tol * max(w.float().norm().item(), 1e-12), name
+
+
+def test_gru_generator_on_card_matches_cpu(cuda_device):
+    """The conditional GRU G, f32, forward and first-order backward
+    through K4, K5 and K1 against the same module on the CPU (plain
+    forms): output 1e-4 of the peak, gradients 1e-4 relative L2 each."""
+    from audiogan_tpu_torch.config import Config, DataCfg, ModelCfg
+    from audiogan_tpu_torch.models import build_generator
+    from audiogan_tpu_torch.models.init import init_params
+    cfg = Config(data=DataCfg(clip_len=2048, store_len=2048, num_classes=10),
+                 model=ModelCfg(generator="gru", model_dim=16, kernel_size=25,
+                                gru_frame_size=64, gru_hidden=64)).validate()
+    g_cpu = init_params(build_generator(cfg, device="cpu"), 0)
+    g_card = build_generator(cfg, device=cuda_device)
+    g_card.load_state_dict(g_cpu.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    z = torch.randn(4, cfg.model.latent_dim, generator=gen)
+    labels = torch.tensor([0, 3, 9, 3])
+    ct = torch.randn(4, 2048, 1, generator=gen)
+    outs, grads = {}, {}
+    before = (tgru.gru_scan_fwd.launches, tgru.gru_scan_bwd.launches)
+    for name, g in (("cpu", g_cpu), ("card", g_card)):
+        dev = next(g.parameters()).device
+        y = g(z.to(dev), labels.to(dev))
+        outs[name] = y.detach().cpu()
+        grads[name] = torch.autograd.grad((y * ct.to(dev)).sum(),
+                                          list(g.parameters()))
+    assert (tgru.gru_scan_fwd.launches, tgru.gru_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    err = (outs["card"] - outs["cpu"]).abs().max().item()
+    assert err <= 1e-4 * outs["cpu"].abs().max().item(), err
+    for (name, _), gc, gg in zip(g_cpu.named_parameters(), grads["cpu"],
+                                 grads["card"]):
+        e = (gg.cpu() - gc).norm().item()
+        assert e <= 1e-4 * max(gc.norm().item(), 1e-12), name

@@ -70,6 +70,40 @@ def test_entry_points_raise_without_a_card():
         main(["serve", "--artifact", "unused"])
 
 
+def test_gru_entry_points_raise_without_a_card(tmp_path):
+    """cond_gru_sc09's entry points resolve the card and raise without
+    one; its kernel wrappers run the plain form only for a CPU tensor."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from audiogan_tpu_torch.cli import main
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.kernels import gru as kgru
+    from audiogan_tpu_torch.serve import load_sampler
+    from audiogan_tpu_torch.train.sample import build_sample_fn
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    cfg = get_preset("cond_gru_sc09")
+    for call in (lambda: build_sample_fn(cfg),
+                 lambda: build_train_step(cfg),
+                 lambda: create_train_state(cfg),
+                 lambda: load_sampler(tmp_path),
+                 lambda: main(["sample", "--preset", "cond_gru_sc09",
+                               "--init-seed", "0", "--out_dir", "unused"]),
+                 lambda: main(["train", "--preset", "cond_gru_sc09",
+                               "--steps", "1", "--workdir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    args = [torch.zeros(s, device="meta") for s in (
+        (2, 8), (2, 4), (8, 24), (8, 24), (24,), (24,), (4, 4), (8, 4),
+        (4,))]
+    with pytest.raises(ValueError, match="no gru_scan kernel"):
+        kgru.gru_scan_fwd(*args, 3)
+    with pytest.raises(ValueError, match="no gru_scan_bwd kernel"):
+        kgru.gru_scan_bwd(torch.zeros(2, 3, 4, device="meta"), *args,
+                          torch.zeros(2, 3, 4, device="meta"),
+                          torch.zeros(3, 2, 8, device="meta"))
+
+
 def test_kernel_wrapper_catches_nothing():
     """A failed launch raises to the caller: no try/except in the kernel
     module, so no path falls back to the plain form on the card."""
@@ -115,6 +149,24 @@ def _graph_names(t):
         names.add(type(node).__name__)
         stack.extend(n for n, _ in node.next_functions)
     return names
+
+
+def test_gru_generator_output_carries_the_scan_history():
+    """The GRU G's scan and upsampling go through autograd Functions, so
+    its output has their grad_fns and every weight gets a gradient."""
+    from audiogan_tpu_torch.config import Config, DataCfg, ModelCfg
+    from audiogan_tpu_torch.models import build_generator
+    from audiogan_tpu_torch.models.init import init_params
+    cfg = Config(data=DataCfg(clip_len=256, store_len=256, num_classes=3),
+                 model=ModelCfg(generator="gru", model_dim=4, kernel_size=9,
+                                gru_frame_size=64, gru_hidden=8)).validate()
+    g = init_params(build_generator(cfg, device="cpu"), 0)
+    y = g(torch.randn(2, cfg.model.latent_dim), torch.tensor([0, 2]))
+    names = _graph_names(y)
+    assert "GruScanBackward" in names and "ConvTBABackward" in names
+    y.square().sum().backward()
+    for name, p in g.named_parameters():
+        assert p.grad is not None and p.grad.abs().sum() > 0, name
 
 
 def test_generator_and_critic_outputs_carry_autograd_history():

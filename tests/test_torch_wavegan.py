@@ -123,10 +123,16 @@ def test_init_is_seeded_glorot_with_zero_bias():
 
 
 def test_factory_rejects_gru():
+    """The factory builds the GRU generator and rejects, as the reference's
+    validate does, a GRU whose clip is not a whole number of frames."""
+    from audiogan_tpu_torch.models.gru import GRUGenerator
     cfg = port_config(tiny_config())
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, generator="gru"))
-    with pytest.raises(NotImplementedError, match="GRU"):
-        build_generator(cfg, device="cpu")
+    assert isinstance(build_generator(cfg, device="cpu"), GRUGenerator)
+    bad = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                gru_frame_size=100))
+    with pytest.raises(ValueError, match="gru_frame_size"):
+        build_generator(bad, device="cpu")
 
 
 def test_mulaw_matches_jax():
@@ -139,7 +145,8 @@ def test_mulaw_matches_jax():
         np.asarray(jax_expand(jnp.asarray(x))), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["tiny_sc09", "wgan_gp_b64"])
+@pytest.mark.parametrize("name", ["tiny_sc09", "wgan_gp_b64",
+                                  "cond_gru_sc09"])
 def test_presets_match_jax(name):
     from audiogan_tpu.config import get_preset as jax_get_preset
     want = json.loads(jax_get_preset(name).to_json())
