@@ -7,6 +7,8 @@ Usage:
         --workdir /tmp/run
     python -m audiogan_tpu_torch.cli train --preset cond_gru_sc09 \\
         --steps 10 --workdir /tmp/gru
+    python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 \\
+        --set model.fused_shuffle_sites=-1 --steps 10 --workdir /tmp/fused
     python -m audiogan_tpu_torch.cli sample --preset cond_gru_sc09 \\
         --init-seed 0 --seed 0 --labels 0,1,2 --out_dir /tmp/wavs
     python -m audiogan_tpu_torch.cli sample --preset wgan_gp_b64 \\
@@ -19,7 +21,8 @@ Usage:
 
 ``train`` takes --steps WGAN-GP steps from a fresh seeded init on the
 synthetic SC09 fixture (or --data_dir), printing one JSON line of metrics
-per log_every steps. Weights for the others come from ``--weights`` (a
+per log_every steps; ``--set KEY=VALUE`` overrides any config field by
+dotted path, as the JAX CLI's does (the flags above it win). Weights for the others come from ``--weights`` (a
 state dict saved with torch.save, e.g. converted with
 convert.params_from_jax) or from ``--init-seed`` (random init, as flax
 initializes). A conditional preset takes ``--labels`` in ``sample`` and
@@ -30,6 +33,8 @@ unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -37,6 +42,47 @@ import torch
 
 from audiogan_tpu_torch.config import PRESETS, Config, get_preset
 from audiogan_tpu_torch.device import resolve_device
+
+
+def _coerce(old, raw: str):
+    """raw as the type of the field's current value (audiogan_tpu/cli.py
+    _coerce)."""
+    if isinstance(old, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(old, int):
+        return int(raw)
+    if isinstance(old, float):
+        return float(raw)
+    if isinstance(old, tuple):
+        return tuple(json.loads(raw))
+    return raw
+
+
+def apply_overrides(cfg: Config, sets: list[str]) -> Config:
+    """Each KEY=VALUE sets the config field at dotted path KEY, rebuilding
+    the frozen dataclasses above it (audiogan_tpu/cli.py apply_overrides).
+    A malformed item, an unknown key or a value of the wrong type exits."""
+    for item in sets:
+        key, eq, raw = item.partition("=")
+        if not eq:
+            raise SystemExit(f"--set expects key=value, got {item!r}")
+        parts = key.split(".")
+        objs = [cfg]
+        try:
+            for p in parts[:-1]:
+                objs.append(getattr(objs[-1], p))
+            old = getattr(objs[-1], parts[-1])
+            val = _coerce(old, raw)
+        except (AttributeError, ValueError, TypeError) as e:
+            raise SystemExit(f"--set {item!r}: {e}") from None
+        if not dataclasses.is_dataclass(objs[-1]) or \
+                dataclasses.is_dataclass(old):
+            raise SystemExit(f"--set {item!r}: {key} is not a config field")
+        new = dataclasses.replace(objs[-1], **{parts[-1]: val})
+        for obj, name in zip(reversed(objs[:-1]), reversed(parts[:-1])):
+            new = dataclasses.replace(obj, **{name: new})
+        cfg = new
+    return cfg
 
 
 def _add_device_flag(sp) -> None:
@@ -95,6 +141,8 @@ def main(argv: list[str] | None = None) -> int:
     t.add_argument("--batch_size", type=int, default=None)
     t.add_argument("--log_every", type=int, default=None)
     t.add_argument("--seed", type=int, default=None)
+    t.add_argument("--set", action="append", metavar="KEY=VALUE",
+                   help="override any config field by dotted path")
 
     v = sub.add_parser("serve", help="HTTP inference server")
     v.add_argument("--artifact", default=None,
@@ -116,10 +164,8 @@ def main(argv: list[str] | None = None) -> int:
     device = resolve_device(args.device)
 
     if args.cmd == "train":
-        import dataclasses
-
         from audiogan_tpu_torch.train.loop import train
-        cfg = get_preset(args.preset)
+        cfg = apply_overrides(get_preset(args.preset), args.set or [])
         tr = {k: v for k, v in (("batch_size", args.batch_size),
                                 ("log_every", args.log_every),
                                 ("seed", args.seed)) if v is not None}

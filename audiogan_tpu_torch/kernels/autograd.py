@@ -12,11 +12,22 @@ Functions and is itself differentiable (no ``once_differentiable``):
     dw(convT)        = ConvTWgrad(x, ct)
     d(Conv1dWgrad)   = convT / conv1d again (primitives.py:257-290)
 
+The shuffled-input family of the fused phase-shuffle sites (kernels/
+sconv.py; primitives.py:603-690) is closed under transposition the same
+way, with z = window_select(xp, offs):
+
+    dxp(sconv1d)     = sconvT of _flip(w), pad_lo' = K-1-pad_lo, t
+    dct(sconvT)      = sconv1d of _flip(w), pads as dx(convT)
+    dw(sconv1d)      = Conv1dWgrad(z, ct)
+    dw(sconvT)       = ConvTWgrad(ct, window_select(g, offs))
+
 The forward passes run the kernel wrappers of kernels/conv.py, so a CUDA
 tensor runs the hand-written kernels in every order of differentiation and
 a CPU tensor their plain forms. The weight gradients have no Pallas kernel
 in the reference (kernels/conv.py:669-676) and use torch's convolution
-weight gradient here.
+weight gradient here, with cuDNN's deterministic algorithms: the default
+ones sum in a run-dependent order, and the step, like the reference's, is
+a function of (seed, step) to the bit.
 
 The fused bias + activation Functions recover the activation's derivative
 from their OUTPUT (``_act_out_grad``, primitives.py:422-434): relu' =
@@ -33,6 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from audiogan_tpu_torch.kernels import conv as kconv
+from audiogan_tpu_torch.kernels import sconv as ksconv
+from audiogan_tpu_torch.ops.sconv import window_select
 
 
 def _flip(w: torch.Tensor) -> torch.Tensor:
@@ -84,13 +97,19 @@ def conv1d_wgrad(x: torch.Tensor, ct: torch.Tensor, stride: int,
                  pad_lo: int, k: int) -> torch.Tensor:
     """dW[j, c, o] = sum_{b,t} x_pad[b, t*s + j, c] * ct[b, t, o] ->
     [K, Cin, Cout] in x.dtype; torch's convolution weight gradient, whose
-    bf16 products accumulate in f32."""
+    bf16 products accumulate in f32, in cuDNN's deterministic algorithms
+    (the caller's setting is restored)."""
     t_out = ct.shape[1]
     hi = (t_out - 1) * stride + k - x.shape[1] - pad_lo
     xp = _pad_time(x, pad_lo, hi).transpose(1, 2)
-    dw = torch.nn.grad.conv1d_weight(
-        xp, (ct.shape[2], x.shape[2], k), ct.transpose(1, 2).to(x.dtype),
-        stride=stride)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dw = torch.nn.grad.conv1d_weight(
+            xp, (ct.shape[2], x.shape[2], k), ct.transpose(1, 2).to(x.dtype),
+            stride=stride)
+    finally:
+        torch.backends.cudnn.deterministic = saved
     return dw.permute(2, 1, 0).contiguous()
 
 
@@ -212,7 +231,7 @@ def _act_out_grad(y: torch.Tensor, act: str, slope: float):
 def _ba_backward(ctx, gy, dx_fn, dw_fn):
     """Shared backward of the fused bias + activation Functions: the
     pre-activation cotangent, then the linear conv's transposes."""
-    x, w, b, y = ctx.saved_tensors
+    x, w, b, y = ctx.saved_tensors[:4]
     gd = _act_out_grad(y, ctx.act, ctx.slope)
     gpre = gy if gd is None else gy * gd
     dx = dw = db = None
@@ -279,3 +298,85 @@ class ConvTBA(torch.autograd.Function):
             ctx, gy, dx_fn,
             lambda x, g: ConvTWgrad.apply(x, g, stride, pad_lo, out_len, k))
         return dx, dw, db, None, None, None, None, None
+
+
+class SConv1d(torch.autograd.Function):
+    """conv1d(window_select(xp, offs), w) (primitives.py sconv1d_p)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, offs, stride, pad_lo, pad_hi, rad):
+        xp, w = xp.contiguous(), w.contiguous()
+        ctx.save_for_backward(xp, w, offs)
+        ctx.geom = (stride, pad_lo, pad_hi, rad)
+        return ksconv.sconv1d_ba(xp, w, _zeros_bias(w), offs, stride, pad_lo,
+                                 pad_hi, rad)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w, offs = ctx.saved_tensors
+        stride, pad_lo, pad_hi, rad = ctx.geom
+        k, t = w.shape[0], xp.shape[1] - 2 * rad
+        dxp = dw = None
+        if needs(ctx, 0):
+            dxp = SConvT.apply(g, _flip(w), offs, stride, k - 1 - pad_lo, t,
+                               rad)
+        if needs(ctx, 1):
+            dw = Conv1dWgrad.apply(window_select(xp, offs, t, rad), g,
+                                   stride, pad_lo, pad_hi, k)
+        return dxp, dw, None, None, None, None, None
+
+
+class SConvT(torch.autograd.Function):
+    """window_place(convT(ct, wf), offs), the transpose of SConv1d
+    (primitives.py sconvt1d_p)."""
+
+    @staticmethod
+    def forward(ctx, ct, wf, offs, stride, pad_lo_t, t, rad):
+        ct, wf = ct.contiguous(), wf.contiguous()
+        ctx.save_for_backward(ct, wf, offs)
+        ctx.geom = (stride, pad_lo_t, t, rad)
+        return ksconv.sconvt1d(ct, wf, offs, stride, pad_lo_t, t, rad)
+
+    @staticmethod
+    def backward(ctx, g):
+        ct, wf, offs = ctx.saved_tensors
+        stride, pad_lo_t, t, rad = ctx.geom
+        k = wf.shape[0]
+        dct = dwf = None
+        if needs(ctx, 0):
+            lo, hi = _convt_dx_pads(k, stride, pad_lo_t, ct.shape[1], t)
+            dct = SConv1d.apply(g, _flip(wf), offs, stride, lo, hi, rad)
+        if needs(ctx, 1):
+            dwf = ConvTWgrad.apply(ct, window_select(g, offs, t, rad),
+                                   stride, pad_lo_t, t, k)
+        return dct, dwf, None, None, None, None, None
+
+
+class SConv1dBA(torch.autograd.Function):
+    """act(conv1d(window_select(xp, offs), w) + b), one fused kernel
+    forward (primitives.py sconv1d_ba_p)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, b, offs, stride, pad_lo, pad_hi, rad, act,
+                slope):
+        xp, w, b = xp.contiguous(), w.contiguous(), b.contiguous()
+        y = ksconv.sconv1d_ba(xp, w, b, offs, stride, pad_lo, pad_hi, rad,
+                              act, slope)
+        ctx.save_for_backward(xp, w, b, y, offs)
+        ctx.geom = (stride, pad_lo, pad_hi, rad)
+        ctx.act, ctx.slope = act, slope
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        stride, pad_lo, pad_hi, rad = ctx.geom
+        xp, w = ctx.saved_tensors[:2]
+        offs = ctx.saved_tensors[4]
+        k, t = w.shape[0], xp.shape[1] - 2 * rad
+        dx, dw, db = _ba_backward(
+            ctx, gy,
+            lambda g, w, x: SConvT.apply(g, _flip(w), offs, stride,
+                                         k - 1 - pad_lo, t, rad),
+            lambda x, g: Conv1dWgrad.apply(window_select(x, offs, t, rad),
+                                           g, stride, pad_lo, pad_hi, k))
+        return dx, dw, db, None, None, None, None, None, None, None

@@ -1,9 +1,13 @@
-"""The GRU generator's frame recurrence: the CUDA kernels, their plain
-forms and the autograd Function.
+"""The GRU cell and the GRU generator's frame recurrence: the CUDA
+kernels, their plain forms and the autograd Functions.
 
-Port of audiogan_tpu/kernels/gru.py. ``csrc/gru_scan.cu`` replaces
-``_gru_scan_impl`` (K4, the whole scan, optionally emitting ``h_seq``) and
-``_gru_scan_bwd`` (K5, its reverse-sweep backward). Per frame t:
+Port of audiogan_tpu/kernels/gru.py. ``csrc/gru_cell.cu`` replaces
+``_gru_fwd_impl`` (K3, one fused cell step: both gate products, the gates
+and the blend, in f32, written in x's dtype); ``GruCell`` runs it forward
+and ``_gru_bwd2``'s plain math backward, as the reference's custom_vjp
+does. ``csrc/gru_scan.cu`` replaces ``_gru_scan_impl`` (K4, the whole
+scan, optionally emitting ``h_seq``) and ``_gru_scan_bwd`` (K5, its
+reverse-sweep backward). Per frame t:
 
     x_t    = [feat_{t-1} @ w_ar, cond]          (feat_{-1} = 0)
     h_t    = GRUCell(x_t, h_{t-1})              (ops/gru.py, gates r, z, n)
@@ -18,9 +22,10 @@ residuals (h_{t-1}, feat_{t-1}) and returns each gradient in the dtype of
 its primal. ``gru_scan_plain`` and ``gru_scan_bwd_plain`` are those
 numerics step by step in torch: the CPU path and the kernels' oracles.
 
-Layouts: h0 [B,H], cond [B,F], w_i [2F,3H], w_h [H,3H], b_i [3H],
-b_h [3H], w_ar [F,F], w_out [H,F], b_out [F] -> feats [B, n_frames, F];
-h_seq [n_frames, B, H].
+Layouts: x [B,in], h [B,H], w_i [in,3H], w_h [H,3H], b_i [3H],
+b_h [3H] -> h' [B,H] for the cell; h0 [B,H], cond [B,F], w_i [2F,3H],
+w_h [H,3H], b_i [3H], b_h [3H], w_ar [F,F], w_out [H,F], b_out [F] ->
+feats [B, n_frames, F], h_seq [n_frames, B, H] for the scan.
 """
 
 from __future__ import annotations
@@ -40,6 +45,99 @@ ARG_NAMES = ("h0", "cond", "w_i", "w_h", "b_i", "b_h", "w_ar", "w_out",
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
+
+
+CELL_ARG_NAMES = ("x", "h", "w_i", "w_h", "b_i", "b_h")
+
+
+def _cell_dims(x, h, w_i, w_h, b_i, b_h) -> tuple[int, int, int]:
+    """(B, in, H) after checking every shape against x and h."""
+    if x.dim() != 2 or h.dim() != 2 or x.shape[0] != h.shape[0]:
+        raise ValueError(f"want x [B,in] and h [B,H]; got "
+                         f"{tuple(x.shape)}, {tuple(h.shape)}")
+    (b, in_dim), hid = x.shape, h.shape[1]
+    want = {"w_i": (in_dim, 3 * hid), "w_h": (hid, 3 * hid),
+            "b_i": (3 * hid,), "b_h": (3 * hid,)}
+    for name, t in zip(CELL_ARG_NAMES[2:], (w_i, w_h, b_i, b_h)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} is {tuple(t.shape)}, want {want[name]}")
+    return b, in_dim, hid
+
+
+def gru_cell_plain(x, h, w_i, w_h, b_i, b_h) -> torch.Tensor:
+    """K3's function in plain torch with the kernel's numerics: the gates
+    and the blend in f32 (float64 stays float64), h' in x.dtype."""
+    acc = _acc_dtype(x)
+    h32 = h.to(acc)
+    _, z, n, _ = gru_gates(x.to(acc), h32, w_i.to(acc), w_h.to(acc),
+                           b_i.to(acc), b_h.to(acc))
+    return ((1.0 - z) * n + z * h32).to(x.dtype)
+
+
+@functools.cache
+def _cell_lib() -> ctypes.CDLL:
+    """csrc/gru_cell.cu, built at first use, with its C signatures."""
+    lib = _build.load("gru_cell")
+    lib.gru_cell_launch.argtypes = ([ctypes.c_void_p] * 7
+                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.gru_cell_launch.restype = ctypes.c_int
+    lib.gru_cell_error_string.argtypes = [ctypes.c_int]
+    lib.gru_cell_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gru_cell_fwd(x, h, w_i, w_h, b_i, b_h) -> torch.Tensor:
+    """K3: one GRU step -> h' [B, H] in x.dtype. A CPU tensor takes the
+    plain form. A CUDA tensor launches the kernel (every input f32 or
+    every input bf16) or raises; it never falls back. Records no autograd
+    history (see GruCell)."""
+    args = (x, h, w_i, w_h, b_i, b_h)
+    b, in_dim, hid = _cell_dims(*args)
+    if x.device.type == "cpu":
+        return gru_cell_plain(*args)
+    _check_kernel_args("gru_cell", args)
+    out = torch.empty((b, hid), dtype=x.dtype, device=x.device)
+    lib = _cell_lib()
+    err = lib.gru_cell_launch(
+        *(t.data_ptr() for t in args), out.data_ptr(), b, in_dim, hid,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("gru_cell kernel launch failed: "
+                           + lib.gru_cell_error_string(err).decode())
+    gru_cell_fwd.launches += 1
+    return out
+
+
+gru_cell_fwd.launches = 0
+
+
+def gru_cell_bwd(g, x, h, w_i, w_h, b_i, b_h):
+    """The reference's ``_gru_bwd2`` in plain torch: the gates recomputed
+    from the inputs in their own dtype (``_gru_gates``), then the six
+    gradients."""
+    r, z, n, h_n = gru_gates(x, h, w_i, w_h, b_i, b_h)
+    dz = g * (h - n) * z * (1 - z)
+    dn = g * (1 - z) * (1 - n * n)
+    dr = dn * h_n * r * (1 - r)
+    dgi = torch.cat([dr, dz, dn], dim=-1)
+    dgh = torch.cat([dr, dz, dn * r], dim=-1)
+    return (dgi @ w_i.T, dgh @ w_h.T + g * z, x.T @ dgi, h.T @ dgh,
+            dgi.sum(0), dgh.sum(0))
+
+
+class GruCell(torch.autograd.Function):
+    """The fused cell: the primal from K3, the backward in plain torch
+    (kernels/gru.py:113-139, the reference's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, h, w_i, w_h, b_i, b_h):
+        args = tuple(t.contiguous() for t in (x, h, w_i, w_h, b_i, b_h))
+        ctx.save_for_backward(*args)
+        return gru_cell_fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gru_cell_bwd(g, *ctx.saved_tensors)
 
 
 def _dims(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out):

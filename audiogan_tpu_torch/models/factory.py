@@ -34,21 +34,18 @@ def build_generator(cfg: Config,
 
 
 def build_discriminator(cfg: Config, device=None) -> WaveGANDiscriminator:
-    """The WaveGAN critic with uninitialised f32 parameters on ``device``.
-    Every phase-shuffle site is unfused (fused_shuffle_sites=0, the
-    setting of every preset)."""
+    """The WaveGAN critic with uninitialised f32 parameters on ``device``,
+    its first ``model.fused_shuffle_sites`` shuffle sites (-1: all) fused
+    into their consuming convs."""
     cfg.validate()
     m, d = cfg.model, cfg.data
     if m.use_stft_critic:
         raise NotImplementedError(
             "the STFT critic is not ported to audiogan_tpu_torch yet")
-    if m.fused_shuffle_sites != 0:
-        raise NotImplementedError(
-            "fused phase-shuffle sites (kernels/sconv.py) are not ported to "
-            "audiogan_tpu_torch yet; use fused_shuffle_sites=0")
     return WaveGANDiscriminator(
         clip_len=d.clip_len, model_dim=m.model_dim,
         kernel_size=m.kernel_size, strides=m.strides,
         phase_shuffle_rad=m.phase_shuffle, num_classes=d.num_classes,
-        max_channels=m.max_channels, dtype=DTYPES[cfg.train.dtype],
-        device=device)
+        max_channels=m.max_channels,
+        fused_shuffle_sites=m.fused_shuffle_sites,
+        dtype=DTYPES[cfg.train.dtype], device=device)

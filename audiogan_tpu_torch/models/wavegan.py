@@ -14,7 +14,10 @@ Parameters are f32 and named as the flax ones (``project.kernel`` [in, out],
 [K, C_in, C_out], ``convt_{i}_bias``; ``conv_{i}_kernel``, ``conv_{i}_bias``,
 ``head.kernel``, ``head.bias``, ``proj_embed.embedding``); compute runs in
 ``dtype``. The critic's shuffle shifts are an argument, drawn by the caller.
-The flagship keeps every shuffle unfused (``fused_shuffle_sites=0``).
+``fused_shuffle_sites`` (-1 = all, else the first N) moves site i's shift
+into conv i+1, which reads its shuffled input from the masked reflect pad
+(ops/conv.py::sconv1d_ba, kernels K6/K7): the same function, no shuffled
+tensor written. Every preset keeps every site unfused (0).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 from torch import nn
 
 from audiogan_tpu_torch.kernels.autograd import as_compute
-from audiogan_tpu_torch.ops.conv import conv1d_ba, conv_transpose1d_ba
+from audiogan_tpu_torch.ops.conv import (conv1d_ba, conv_transpose1d_ba,
+                                        sconv1d_ba)
 from audiogan_tpu_torch.ops.phase_shuffle import phase_shuffle
 
 
@@ -121,11 +125,13 @@ class WaveGANDiscriminator(nn.Module):
                  kernel_size: int = 25,
                  strides: Sequence[int] = (4, 4, 4, 4, 4),
                  phase_shuffle_rad: int = 2, num_classes: int = 0,
-                 max_channels: int = 1024,
+                 max_channels: int = 1024, fused_shuffle_sites: int = 0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.strides = tuple(strides)
         self.rad = phase_shuffle_rad
+        self.n_fused = (len(self.strides) - 1 if fused_shuffle_sites < 0
+                        else fused_shuffle_sites)
         self.num_classes = num_classes
         self.dtype = dtype
         chs = _disc_channels(model_dim, len(self.strides), max_channels)
@@ -147,13 +153,22 @@ class WaveGANDiscriminator(nn.Module):
         (None: no shuffle, the eval form) -> scores [B] f32."""
         h = as_compute(x, self.dtype)
         n_layers = len(self.strides)
+        pending = None                  # a fused site's shift for conv i
         for i, s in enumerate(self.strides):
             w = as_compute(getattr(self, f"conv_{i}_kernel"), self.dtype)
             b = as_compute(getattr(self, f"conv_{i}_bias"), self.dtype)
-            h = conv1d_ba(h, w, b, stride=s, padding="SAME",
-                          act="leaky_relu", slope=0.2)
+            if pending is not None:
+                h = sconv1d_ba(h, w, b, pending, self.rad, stride=s,
+                               padding="SAME", act="leaky_relu", slope=0.2)
+                pending = None
+            else:
+                h = conv1d_ba(h, w, b, stride=s, padding="SAME",
+                              act="leaky_relu", slope=0.2)
             if shifts is not None and self.rad and i < n_layers - 1:
-                h = phase_shuffle(h, shifts[i], self.rad)
+                if i < self.n_fused:
+                    pending = shifts[i]
+                else:
+                    h = phase_shuffle(h, shifts[i], self.rad)
         score = self.head(h.reshape(h.shape[0], -1))[:, 0]
         if self.num_classes:
             if labels is None:

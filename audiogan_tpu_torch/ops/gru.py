@@ -1,5 +1,6 @@
-"""GRU cell, the port of audiogan_tpu/ops/gru.py (its ``impl="xla"``
-branch). Gate convention of torch.nn.GRUCell, gates ordered (r, z, n):
+"""GRU cell, the port of audiogan_tpu/ops/gru.py: the dispatch point for
+the fused cell. Gate convention of torch.nn.GRUCell, gates ordered
+(r, z, n):
 
     r  = sigmoid(x W_ir + b_ir + h W_hr + b_hr)
     z  = sigmoid(x W_iz + b_iz + h W_hz + b_hz)
@@ -8,8 +9,10 @@ branch). Gate convention of torch.nn.GRUCell, gates ordered (r, z, n):
 
 Weights are stored pre-transposed for right-multiplication: w_i [in, 3H],
 w_h [H, 3H], biases [3H], gate blocks concatenated in (r, z, n) order.
-The plain scan of kernels/gru.py runs this cell; the fused Pallas cell
-(``impl="pallas"``, kernels/gru.py::_gru_fwd_impl) is not ported.
+``impl="xla"`` is the cell in torch ops (the plain scan of kernels/gru.py
+runs it); ``impl="pallas"`` is the fused cell, ``kernels/gru.py::GruCell``:
+K3 (``csrc/gru_cell.cu``, the port of kernels/gru.py::_gru_fwd_impl) on
+the card, its plain form on the CPU.
 """
 
 from __future__ import annotations
@@ -32,8 +35,13 @@ def gru_gates(x: torch.Tensor, h: torch.Tensor, w_i: torch.Tensor,
 
 
 def gru_cell(x: torch.Tensor, h: torch.Tensor, w_i: torch.Tensor,
-             w_h: torch.Tensor, b_i: torch.Tensor,
-             b_h: torch.Tensor) -> torch.Tensor:
+             w_h: torch.Tensor, b_i: torch.Tensor, b_h: torch.Tensor,
+             impl: str = "xla") -> torch.Tensor:
     """One GRU step: x [B, in], h [B, H] -> h' [B, H]."""
+    if impl == "pallas":
+        from audiogan_tpu_torch.kernels.gru import GruCell
+        return GruCell.apply(x, h, w_i, w_h, b_i, b_h)
+    if impl != "xla":
+        raise ValueError(f"impl={impl!r}: want 'xla' or 'pallas'")
     _, z, n, _ = gru_gates(x, h, w_i, w_h, b_i, b_h)
     return (1.0 - z) * n + z * h

@@ -50,8 +50,11 @@ def _pshuft(ct: torch.Tensor, offs: torch.Tensor, rad: int) -> torch.Tensor:
 
 
 class PShuf(torch.autograd.Function):
+    calls = 0       # forward passes, so a run can show a site was fused
+
     @staticmethod
     def forward(ctx, x, offs, rad):
+        PShuf.calls += 1
         ctx.save_for_backward(offs)
         ctx.rad = rad
         return _pshuf(x, offs, rad)

@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Two paths, each driven through the user's entry points: the flagship
-WaveGAN (wgan_gp_b64) and the class-conditional GRU generator
-(cond_gru_sc09). Phases, each printing one JSON line with its own
-``seconds``; any failure raises and the script exits non-zero:
+Three paths, each driven through the user's entry points: the flagship
+WaveGAN (wgan_gp_b64), the same preset trained with every phase-shuffle
+site fused into its consuming conv (`cli train --set
+model.fused_shuffle_sites=-1`), and the class-conditional GRU generator
+(cond_gru_sc09); beside them the fused GRU cell (`ops/gru.py::gru_cell`,
+impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
+line with its own ``seconds``; any failure raises and the script exits
+non-zero:
 
 1. env      the card's name and power limit (nvidia-smi).
-2. build    the four sources (convt1d, conv1d, ingest, gru_scan) from a
-            clean build directory, one plain nvcc each, all started
-            together; ptxas registers and spills.
+2. build    the six sources (convt1d, conv1d, ingest, gru_scan, sconv,
+            gru_cell) from a clean build directory, one plain nvcc each,
+            all started together; ptxas registers and spills.
 3. compare  each kernel against its plain PyTorch form, f32 and bf16:
             convt1d at the five wgan_gp_b64 generator layers (batch 64) and
             at the critic's backward geometries (the dx of every critic
@@ -20,24 +24,36 @@ WaveGAN (wgan_gp_b64) and the class-conditional GRU generator
             at [64, 16384] with store = clip and with store 20000 and
             random offsets; the GRU scan (K4, with and without h_seq) and
             its backward (K5) at cond_gru_sc09's widths, batch 64 (the GRU
-            G's three convT layers and the critic are flagship geometries).
+            G's three convT layers and the critic are flagship geometries);
+            sconv1d (K6) at the four fused sites' convs (2B) and sconvt1d
+            (K7) at their x-gradients, every offset in the batch; the GRU
+            cell (K3) at cond_gru_sc09's cell, x and h [64, 512], forward
+            and its Function's gradients.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16) exported, loaded and served over HTTP on 127.0.0.1; a
             few requests (with labels for the GRU), each kernel's launches
             per request, the served audio against a CPU reference.
-5. parity   one f32 training step of each preset at full width, batch 2,
-            on the card (kernels) and on the CPU (plain forms), from one
-            state and the same draws: metrics, parameters, Adam moments.
-6. train    each preset through train.loop.train (what `cli train` runs):
-            B=64, bf16, n_critic 5, fused views, resident synthetic corpus;
-            warm-up steps then timed ones, finite losses, steps/s, launches
-            per step of each kernel (counts zeroed just before each path,
-            read just after), peak device memory; one more step under
-            torch.profiler for the device time by kernel.
+5. parity   one f32 training step of each preset (and of the fused
+            flagship) at full width, batch 2, on the card (kernels) and on
+            the CPU (plain forms), from one state and the same draws:
+            metrics, parameters, Adam moments.
+6. train    each preset, and the fused flagship, through train.loop.train
+            (what `cli train` runs): B=64, bf16, n_critic 5, fused views,
+            resident synthetic corpus; warm-up steps then timed ones, finite
+            losses, steps/s, launches per step of each kernel (counts zeroed
+            just before each path, read just after; K6 and K7 held to the
+            counts the step's structure gives, the unfused shuffle to none),
+            peak device memory; one more step under torch.profiler for the
+            device time by kernel. Then the GRU cell's 256-frame recurrence,
+            forward and backward, against the same recurrence through the
+            plain cell.
 7. timing   per geometry: kernel, plain form and, where one exists, one
-            library call (F.conv_transpose1d / F.conv1d, yardsticks the port
-            never calls) beside the card's bound; the GRU scan's CUDA
-            launches per call; each sampler's clips/s.
+            library call (F.conv_transpose1d / F.conv1d, torch.nn.GRUCell
+            for K3: yardsticks the port never calls) beside the card's
+            bound; for K6 and K7, which no single PyTorch call computes,
+            the unfused pair they replace (shuffle + conv1d kernel, convT
+            kernel + shuffle's transpose); the GRU scan's CUDA launches per
+            call; each sampler's clips/s.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -88,7 +104,7 @@ PARITY_PARAM_FINE = 1e-6
 SERVE_BF16_REL_TOL = 5e-2
 GRU_BWD_REL_L2 = 1e-3         # K5: every gradient sums over 16384 rows
 BUILD_LIMIT_S = 180.0
-SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan")
+SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 
 
@@ -173,6 +189,41 @@ def generator_dx_layers(cfg, batch: int) -> list[dict]:
     return out
 
 
+def fused_site_layers(cfg, batch: int) -> list[dict]:
+    """The fused critic's shuffled-input convs (K6): conv i+1 reading the
+    window of site i's masked reflect pad, xp [B, t + 2 rad, Cin]."""
+    rad = cfg.model.phase_shuffle
+    return [dict(L, name=f"site {i} -> D{i + 1} fwd", rad=rad)
+            for i, L in enumerate(critic_layers(cfg, batch)[1:])]
+
+
+def fused_site_dx_layers(cfg, batch: int) -> list[dict]:
+    """Their x-gradients (K7): ct [B, t_out, Cout] and the flipped taps
+    -> [B, t + 2 rad, Cin], pad_lo = K-1-lo, out_len = t."""
+    out = []
+    for L in fused_site_layers(cfg, batch):
+        t_out = (L["t_in"] + L["lo"] + L["hi"] - L["k"]) // L["s"] + 1
+        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
+                        t_in=t_out, cin=L["cout"], cout=L["cin"], k=L["k"],
+                        s=L["s"], pad_lo=L["k"] - 1 - L["lo"],
+                        out_len=L["t_in"], rad=L["rad"], act="none"))
+    return out
+
+
+def fused_step_launches(cfg) -> tuple[int, int]:
+    """(K6, K7) launches of one training step with every site fused: per
+    critic micro-step, with V critic calls on the views (1 for the fused
+    2B call, else 2), K6 (V + 2) x sites (the views' forwards, x-hat's
+    forward, the penalty's double backprop: d/dct of K7 is K6) and K7
+    (V + 1) x sites (the penalty's input gradient, the loss's backward
+    through the views); the G update one of each per site."""
+    sites = len(cfg.model.strides) - 1
+    views = 1 if cfg.train.fused_d_views else 2
+    n_critic = cfg.loss.n_critic
+    return ((n_critic * (views + 2) + 1) * sites,
+            (n_critic * (views + 1) + 1) * sites)
+
+
 def convt_work(L: dict, itemsize: int) -> tuple[int, int]:
     """(flops, bytes) a convT needs: multiply-adds over the taps that land
     inside the input, each input read and output written once."""
@@ -206,6 +257,22 @@ def conv1d_work(L: dict, itemsize: int) -> tuple[int, int]:
                          + L["k"] * L["cin"] * L["cout"] + L["cout"]
                          + L["b"] * t_out * L["cout"])
     return flops, nbytes
+
+
+def sconv_work(L: dict, itemsize: int) -> tuple[int, int]:
+    """K6: the conv1d's flops over the z-space window (taps in the pads
+    excluded); bytes: xp with its 2 rad rows, the taps, bias, offs, y."""
+    flops, nbytes = conv1d_work(L, itemsize)
+    return flops, nbytes + itemsize * L["b"] * 2 * L["rad"] * L["cin"] \
+        + 4 * L["b"]
+
+
+def sconvt_work(L: dict, itemsize: int) -> tuple[int, int]:
+    """K7: the convT's flops; bytes: ct, the taps, offs and the output
+    with its 2 rad zero rows (no bias)."""
+    flops, nbytes = convt_work(L, itemsize)
+    return flops, nbytes + itemsize * (L["b"] * 2 * L["rad"] * L["cout"]
+                                       - L["cout"]) + 4 * L["b"]
 
 
 def bound(flops: int, nbytes: int) -> tuple[float, str]:
@@ -501,6 +568,255 @@ def time_gru(cfg, dev, errs: dict) -> dict:
     return rows
 
 
+# -- the fused shuffle sites (K6, K7) and the GRU cell (K3) ---------------------
+
+def sconv_inputs(L: dict, dtype, dev, seed: int, transpose: bool):
+    """K6: (xp, w, b, offs) with xp the masked reflect pad of a random
+    activation; K7: (ct, wf, offs). offs run through 0..2 rad."""
+    from audiogan_tpu_torch.ops.sconv import mask_reflect_pad
+    offs = (torch.arange(L["b"], device=dev) % (2 * L["rad"] + 1)).int()
+    if transpose:
+        ct, wf, _ = conv_inputs(L, dtype, dev, seed)
+        return ct, wf, offs
+    y, w, b = conv_inputs(L, torch.float32, dev, seed)
+    xp = mask_reflect_pad(y, offs, L["rad"])
+    return xp.to(dtype), w.to(dtype), b.to(dtype), offs
+
+
+def sconv_args(L):
+    return (L["s"], L["lo"], L["hi"], L["rad"], L["act"], 0.2)
+
+
+def sconvt_args(L):
+    return (L["s"], L["pad_lo"], L["out_len"], L["rad"])
+
+
+def compare_sconv(transpose: bool, layers: list[dict], dev) -> dict:
+    """K6 (or K7) against its plain form at each geometry, f32 and bf16,
+    within F32_REL_TOL / BF16_REL_TOL of the peak; returns {(name, dtype):
+    max abs err}."""
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    name = "sconvt1d" if transpose else "sconv1d"
+    kernel, plain, args_of = (
+        (ksconv.sconvt1d, ksconv.sconvt1d_plain, sconvt_args) if transpose
+        else (ksconv.sconv1d_ba, ksconv.sconv1d_ba_plain, sconv_args))
+    errs = {}
+    for dtype, dname, tol in ((torch.float32, "f32", F32_REL_TOL),
+                              (torch.bfloat16, "bf16", BF16_REL_TOL)):
+        for i, L in enumerate(layers):
+            *tensors, offs = sconv_inputs(L, dtype, dev, i, transpose)
+            got = kernel(*tensors, offs, *args_of(L))
+            want = plain(*(t.float() for t in tensors), offs, *args_of(L))
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"{name} {L['name']} {dname}: "
+                                     f"{got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want).abs().max().item()
+            peak = want.abs().max().item()
+            errs[(L["name"], dname)] = err
+            print(json.dumps({"compare": name, "dtype": dname,
+                              "geometry": L["name"],
+                              "x": list(tensors[0].shape),
+                              "out": list(got.shape), "max_abs_err": err,
+                              "max_rel_err": err / peak, "max_abs_y": peak,
+                              "tol_rel": tol}), flush=True)
+            if not err <= tol * peak:
+                raise AssertionError(f"{name} {L['name']} {dname}: max err "
+                                     f"{err} > {tol} * {peak}")
+    return errs
+
+
+def gru_cell_inputs(cfg, dtype, dev, seed: int = 2) -> list:
+    """The cell's six inputs at cond_gru_sc09's cell: x [B, 2F] (the AR
+    feature and the conditioning), h [B, H], the scan's weights."""
+    h0, cond, w_i, w_h, b_i, b_h = gru_inputs(cfg, torch.float32, dev,
+                                              seed)[:6]
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.cat([torch.tanh(torch.randn(cond.shape, generator=gen,
+                                          device=dev)), cond], dim=-1)
+    return [a.to(dtype).contiguous() for a in (x, h0, w_i, w_h, b_i, b_h)]
+
+
+def compare_gru_cell(cfg, dev) -> dict:
+    """K3 against its plain form (f32 within F32_REL_TOL of the peak, bf16
+    within one ulp of it: the same f32 values before the one rounding of
+    h'), and GruCell's gradients (K3 forward, plain backward) against
+    autograd through the plain cell, f32, GRU_BWD_REL_L2 each."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    from audiogan_tpu_torch.ops.gru import gru_cell
+    errs = {}
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args = gru_cell_inputs(cfg, dtype, dev)
+        got = kgru.gru_cell_fwd(*args)
+        want = kgru.gru_cell_plain(*(a.float() for a in args))
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        peak = want.abs().max().item()
+        tol = F32_REL_TOL * peak if dtype == torch.float32 else bf16_ulp(peak)
+        print(json.dumps({"compare": "gru_cell", "dtype": dname,
+                          "x": list(args[0].shape), "h": list(args[1].shape),
+                          "max_abs_err": err, "max_abs_y": peak,
+                          "tol_abs": tol}), flush=True)
+        if got.dtype != dtype or not err <= tol:
+            raise AssertionError(f"gru_cell {dname}: {err} > {tol}")
+        errs[("gru_cell", dname)] = err
+    args = [a.requires_grad_(True) for a in gru_cell_inputs(cfg,
+                                                            torch.float32,
+                                                            dev)]
+    gen = torch.Generator(dev).manual_seed(3)
+    ct = torch.randn(args[1].shape, generator=gen, device=dev)
+    got = torch.autograd.grad((gru_cell(*args, impl="pallas") * ct).sum(),
+                              args)
+    want = torch.autograd.grad((gru_cell(*args, impl="xla") * ct).sum(),
+                               args)
+    rel = {n: ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+           for n, g, w in zip(kgru.CELL_ARG_NAMES, got, want)}
+    print(json.dumps({"compare": "gru_cell_grad", "dtype": "f32",
+                      "rel_l2": rel, "tol_rel_l2": GRU_BWD_REL_L2}),
+          flush=True)
+    bad = {k: v for k, v in rel.items() if not v <= GRU_BWD_REL_L2}
+    if bad:
+        raise AssertionError(f"gru_cell gradients: {bad}")
+    errs[("gru_cell_grad_rel_l2", "f32")] = max(rel.values())
+    return errs
+
+
+def gru_cell_phase(cfg, dev, frames: int = 256) -> dict:
+    """A frames-long recurrence h_t = gru_cell(x_t, h_{t-1}, impl="pallas")
+    at cond_gru_sc09's cell, f32, forward (K3, counted: zeroed just before,
+    read just after) and backward; against the same recurrence through
+    the plain cell (impl="xla") on the card: h_T within F32_REL_TOL of the
+    peak, every gradient within GRU_BWD_REL_L2 relative L2."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    from audiogan_tpu_torch.ops.gru import gru_cell
+    x0, h0, *params = gru_cell_inputs(cfg, torch.float32, dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    xs = torch.tanh(torch.randn(frames, *x0.shape, generator=gen,
+                                device=dev))
+
+    def run(impl):
+        leaves = [t.clone().requires_grad_(True) for t in (xs, h0, *params)]
+        h = leaves[1]
+        for t in range(frames):
+            h = gru_cell(leaves[0][t], h, *leaves[2:], impl=impl)
+        grads = torch.autograd.grad(h.square().sum(), leaves)
+        torch.cuda.synchronize()
+        return h.detach(), grads
+
+    kgru.gru_cell_fwd.launches = 0
+    t0 = time.perf_counter()
+    h_k, g_k = run("pallas")
+    seconds = time.perf_counter() - t0
+    launches = kgru.gru_cell_fwd.launches
+    h_p, g_p = run("xla")
+    if launches != frames:
+        raise AssertionError(f"gru_cell launched {launches} times in "
+                             f"{frames} frames")
+    err = (h_k - h_p).abs().max().item()
+    peak = h_p.abs().max().item()
+    rel = {n: ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+           for n, g, w in zip(("xs", *kgru.CELL_ARG_NAMES[1:]), g_k, g_p)}
+    if not (torch.isfinite(h_k).all() and err <= F32_REL_TOL * peak
+            and max(rel.values()) <= GRU_BWD_REL_L2):
+        raise AssertionError(f"gru_cell recurrence: h err {err} (peak "
+                             f"{peak}), grads {rel}")
+    return dict(frames=frames, batch=h0.shape[0], x=list(x0.shape),
+                h=list(h0.shape), dtype="float32", launches=launches,
+                seconds_fwd_bwd=seconds, h_max_abs_err=err, h_peak=peak,
+                grad_rel_l2=rel, tol_rel=F32_REL_TOL,
+                tol_grad_rel_l2=GRU_BWD_REL_L2)
+
+
+def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
+    """K6 (or K7) per geometry, bf16: kernel, plain form, and the unfused
+    pair it replaces (PShuf's gather + the conv1d kernel for K6; the convT
+    kernel + PShufT for K7), which no single PyTorch call matches."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    from audiogan_tpu_torch.ops.phase_shuffle import _pshuf, _pshuft
+    rows = []
+    for i, L in enumerate(layers):
+        *tensors, offs = sconv_inputs(L, torch.bfloat16, dev, i, transpose)
+        offs_l = offs.long()
+        rad = L["rad"]
+        if transpose:
+            ct, wf = tensors
+            zeros = torch.zeros(L["cout"], dtype=ct.dtype, device=dev)
+            args = sconvt_args(L)
+            kernel = lambda: ksconv.sconvt1d(ct, wf, offs, *args)
+            plain = lambda: ksconv.sconvt1d_plain(ct, wf, offs, *args)
+            pair = lambda: _pshuft(kconv.conv_transpose1d_ba(
+                ct, wf, zeros, L["s"], L["pad_lo"], L["out_len"]),
+                offs_l, rad)
+            flops, nbytes = sconvt_work(L, 2)
+        else:
+            xp, w, b = tensors
+            y = xp[:, rad:xp.shape[1] - rad].contiguous()
+            args = sconv_args(L)
+            kernel = lambda: ksconv.sconv1d_ba(xp, w, b, offs, *args)
+            plain = lambda: ksconv.sconv1d_ba_plain(xp, w, b, offs, *args)
+            pair = lambda: kconv.conv1d_ba(_pshuf(y, offs_l, rad), w, b,
+                                           L["s"], L["lo"], L["hi"],
+                                           L["act"], 0.2)
+            flops, nbytes = sconv_work(L, 2)
+        bound_ms, bound_by = bound(flops, nbytes)
+        ms = cuda_ms(kernel)
+        rows.append({
+            "geometry": L["name"], "x": list(tensors[0].shape),
+            "ms": ms, "tflops_per_s": flops / ms / 1e9,
+            "plain_ms": cuda_ms(plain), "library_ms": None,
+            "unfused_pair_ms": cuda_ms(pair),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": errs[(L["name"], "bf16")],
+        })
+        print(json.dumps({"timing": "sconvt1d" if transpose else "sconv1d",
+                          **rows[-1]}), flush=True)
+    return rows
+
+
+def time_gru_cell(cfg, dev, errs: dict) -> dict:
+    """K3 at cond_gru_sc09's cell, bf16. Its library call is
+    torch.nn.GRUCell, the same r, z, n gates and blend over [3H, in]
+    weights (w_i.T and w_h.T, copied outside the timed call); it is first
+    held to the plain form in f32 (F32_REL_TOL of the peak)."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+
+    def library(dtype):
+        args = gru_cell_inputs(cfg, dtype, dev)
+        x, h, w_i, w_h, b_i, b_h = args
+        cell = torch.nn.GRUCell(x.shape[1], h.shape[1], device=dev,
+                                dtype=dtype)
+        with torch.no_grad():
+            for p, v in ((cell.weight_ih, w_i.T), (cell.weight_hh, w_h.T),
+                         (cell.bias_ih, b_i), (cell.bias_hh, b_h)):
+                p.copy_(v)
+        return args, cell
+    args, cell = library(torch.float32)
+    with torch.no_grad():
+        want = kgru.gru_cell_plain(*args)
+        lib_err = (cell(args[0], args[1]) - want).abs().max().item()
+    if not lib_err <= F32_REL_TOL * want.abs().max().item():
+        raise AssertionError(f"torch.nn.GRUCell vs the plain cell: {lib_err}")
+    args, cell = library(torch.bfloat16)
+    x, h = args[0], args[1]
+    b, in_dim, hid = x.shape[0], x.shape[1], h.shape[1]
+    flops = 2 * b * 3 * hid * (in_dim + hid)
+    nbytes = 2 * (sum(a.numel() for a in args) + b * hid)
+    bound_ms, bound_by = bound(flops, nbytes)
+    with torch.no_grad():
+        library_ms = cuda_ms(lambda: cell(x, h), iters=50)
+    ms = cuda_ms(lambda: kgru.gru_cell_fwd(*args), iters=50)
+    row = {"geometry": f"x [{b},{in_dim}], h [{b},{hid}]", "ms": ms,
+           "tflops_per_s": flops / ms / 1e9,
+           "plain_ms": cuda_ms(lambda: kgru.gru_cell_plain(*args), iters=50),
+           "library_ms": library_ms, "library_f32_max_abs_err": lib_err,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes, "max_abs_err": errs[("gru_cell", "bf16")]}
+    print(json.dumps({"timing": "gru_cell", **row}), flush=True)
+    return row
+
+
 # -- serving --------------------------------------------------------------------
 
 def http_json(url: str, body: dict | None = None) -> tuple[int, dict]:
@@ -654,7 +970,10 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def parity_phase(cfg, dev, batch: int) -> dict:
     """One f32 step on the card and on the CPU from the same state (taken
     after one warm step on the card, so Adam's second moment is non-zero
-    and the update is smooth in the gradient) and the same draws."""
+    and the update is smooth in the gradient) and the same draws. The
+    step on the card is bit-reproducible (the weight gradients run cuDNN's
+    deterministic algorithms, kernels/autograd.py::conv1d_wgrad), so the
+    compared state, and the result, is the same in every run."""
     from audiogan_tpu_torch.train.state import create_train_state
     from audiogan_tpu_torch.train.step import build_train_step, draw_step
     cfg = cfg.replace(train=dataclasses.replace(
@@ -917,11 +1236,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from audiogan_tpu_torch.cli import apply_overrides
     from audiogan_tpu_torch.config import get_preset
     from audiogan_tpu_torch.kernels import _build
     from audiogan_tpu_torch.kernels import conv as kconv
     from audiogan_tpu_torch.kernels import gru as kgru
     from audiogan_tpu_torch.kernels import ingest as king
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    from audiogan_tpu_torch.ops.phase_shuffle import PShuf
 
     # the plain oracle in full f32: cuDNN's TF32 default would blur it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -932,6 +1254,8 @@ def main() -> int:
                 "gru_scan": kgru.gru_scan_fwd,
                 "gru_scan_bwd": kgru.gru_scan_bwd}
     wave_kernels = {k: counters[k] for k in ("convt1d", "conv1d", "ingest")}
+    fused_kernels = {**wave_kernels, "sconv1d": ksconv.sconv1d_ba,
+                     "sconvt1d": ksconv.sconvt1d}
 
     # 1. env ---------------------------------------------------------------
     t0 = time.time()
@@ -968,22 +1292,31 @@ def main() -> int:
     # 3. every kernel vs its plain form ---------------------------------------
     t0 = time.time()
     cfg = get_preset("wgan_gp_b64")
+    # the fused configuration, as `cli train --set` reaches it
+    fcfg = apply_overrides(cfg, ["model.fused_shuffle_sites=-1"]).validate()
     gcfg = get_preset("cond_gru_sc09")
     g_fwd = generator_layers(cfg, BATCH)
     d_dx = critic_dx_layers(cfg, 2 * BATCH)
     d_fwd = critic_layers(cfg, 2 * BATCH)
     g_dx = generator_dx_layers(cfg, BATCH)
+    s_fwd = fused_site_layers(cfg, 2 * BATCH)
+    s_dx = fused_site_dx_layers(cfg, 2 * BATCH)
     errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx, dev),
-            "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev)}
+            "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev),
+            "sconv1d": compare_sconv(False, s_fwd, dev),
+            "sconvt1d": compare_sconv(True, s_dx, dev)}
     cases = ingest_cases(dev)
     errs["ingest"] = compare_ingest(cases, dev)
     errs["gru"] = compare_gru(gcfg, dev)
+    errs["gru_cell"] = compare_gru_cell(gcfg, dev)
+    single = ("gru", "gru_cell")
     phase("compare", t0, geometries={k: len(v) // 2 if k != "ingest"
                                      else len(v) for k, v in errs.items()
-                                     if k != "gru"},
+                                     if k not in single},
           max_abs_err={k: max(v.values()) for k, v in errs.items()
-                       if k != "gru"},
-          gru={" ".join(k): v for k, v in errs["gru"].items()})
+                       if k not in single},
+          gru={" ".join(k): v for k, v in errs["gru"].items()},
+          gru_cell={" ".join(k): v for k, v in errs["gru_cell"].items()})
 
     # 4. serve both generators -------------------------------------------------
     t0 = time.time()
@@ -996,19 +1329,39 @@ def main() -> int:
     phase("serve", t0, **gserved)
 
     # 5. one full-width f32 step of each preset, card vs CPU ---------------
-    for c in (cfg, gcfg):
+    for c in (cfg, fcfg, gcfg):
         t0 = time.time()
-        phase("parity", t0, preset=c.name, **parity_phase(c, dev, batch=2))
+        phase("parity", t0, preset=c.name,
+              fused_shuffle_sites=c.model.fused_shuffle_sites,
+              **parity_phase(c, dev, batch=2))
 
-    # 6. both presets train ----------------------------------------------------
+    # 6. both presets, and the fused flagship, train ------------------------
     t0 = time.time()
+    PShuf.calls = ksconv.sconv1d_ba.launches = ksconv.sconvt1d.launches = 0
     trained = train_phase(cfg, dev, wave_kernels, {})
-    phase("train", t0, card=card, **trained)
+    unfused_shuffles = PShuf.calls
+    if not unfused_shuffles or ksconv.sconv1d_ba.launches \
+            or ksconv.sconvt1d.launches:
+        raise AssertionError("the unfused critic must shuffle and launch "
+                             "neither K6 nor K7")
+    phase("train", t0, card=card, pshuf_calls=unfused_shuffles, **trained)
+    t0 = time.time()
+    k6_step, k7_step = fused_step_launches(fcfg)
+    PShuf.calls = 0
+    ftrained = train_phase(fcfg, dev, fused_kernels,
+                           {"sconv1d": k6_step, "sconvt1d": k7_step})
+    if PShuf.calls:
+        raise AssertionError(f"fused critic shuffled {PShuf.calls} times")
+    phase("train", t0, card=card, fused_shuffle_sites=-1,
+          pshuf_calls=PShuf.calls, **ftrained)
     t0 = time.time()
     gtrained = train_phase(gcfg, dev, counters,
                            {"gru_scan": 1 + gcfg.loss.n_critic,
                             "gru_scan_bwd": 1})
     phase("train", t0, card=card, **gtrained)
+    t0 = time.time()
+    cell_run = gru_cell_phase(gcfg, dev)
+    phase("gru_cell", t0, card=card, **cell_run)
 
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()
@@ -1016,14 +1369,20 @@ def main() -> int:
                                  errs["convt1d"]),
             "conv1d": time_conv("conv1d", d_fwd + g_dx, dev, errs["conv1d"]),
             "ingest": time_ingest(cases, errs["ingest"]),
-            **time_gru(gcfg, dev, errs["gru"])}
+            **time_gru(gcfg, dev, errs["gru"]),
+            "sconv1d": time_sconv(False, s_fwd, dev, errs["sconv1d"]),
+            "sconvt1d": time_sconv(True, s_dx, dev, errs["sconvt1d"]),
+            "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"])}
     samplers = {cfg.name: sampler_rate(sampler, cfg),
                 gcfg.name: sampler_rate(gsampler, gcfg)}
     phase("timing", t0, samplers=samplers,
           train_steps_per_s={cfg.name: trained["steps_per_s"],
+                             cfg.name + " fused_shuffle_sites=-1":
+                                 ftrained["steps_per_s"],
                              gcfg.name: gtrained["steps_per_s"]}, card=card)
 
     per_step = trained["launches_per_step"]
+    fper_step = ftrained["launches_per_step"]
     gper_step = gtrained["launches_per_step"]
     gru_per = ("one scan of cond_gru_sc09's G (B=64, H=512, F=256, 256 "
                "frames), bf16")
@@ -1071,6 +1430,33 @@ def main() -> int:
             gtrained["launches"]["gru_scan_bwd"], [rows["gru_scan_bwd"]],
             gru_per + ": the nine gradients", card,
             launches_per_train_step=gper_step["gru_scan_bwd"]),
+        kernel_entry(
+            "sconv1d", "audiogan_tpu_torch/csrc/sconv.cu",
+            "audiogan_tpu/kernels/sconv.py:440",
+            "_sconv1d_pallas (body _sconv_kernel)",
+            ftrained["launches"]["sconv1d"], rows["sconv1d"],
+            "sum over the fused critic's 4 shuffled-input convs D1-D4 "
+            "forward (2B=128), bf16", card,
+            launches_per_train_step_fused=fper_step["sconv1d"],
+            unfused_pair_ms=sum(r["unfused_pair_ms"]
+                                for r in rows["sconv1d"])),
+        kernel_entry(
+            "sconvt1d", "audiogan_tpu_torch/csrc/sconv.cu",
+            "audiogan_tpu/kernels/sconv.py:627",
+            "_sconvt1d_pallas (body _sconvt_kernel)",
+            ftrained["launches"]["sconvt1d"], rows["sconvt1d"],
+            "sum over the x-gradients of the fused critic's 4 shuffled-input "
+            "convs (2B=128), bf16", card,
+            launches_per_train_step_fused=fper_step["sconvt1d"],
+            unfused_pair_ms=sum(r["unfused_pair_ms"]
+                                for r in rows["sconvt1d"])),
+        kernel_entry(
+            "gru_cell", "audiogan_tpu_torch/csrc/gru_cell.cu",
+            "audiogan_tpu/kernels/gru.py:57",
+            "_gru_fwd_impl (body _gru_kernel)",
+            cell_run["launches"], [rows["gru_cell"]],
+            "one step of cond_gru_sc09's cell, x and h [64, 512], bf16", card,
+            launches_per_recurrence=cell_run["launches"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

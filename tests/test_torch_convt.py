@@ -44,7 +44,8 @@ def _inputs(k, t_in, cin, cout, seed=0):
 def test_convt_ba_matches_jax(geom, act, impl, monkeypatch):
     monkeypatch.setattr(jconv, "_INTERPRET", True)
     k, s, t_in, cin, cout = GEOMS[geom]
-    x, w, b = _inputs(k, t_in, cin, cout)
+    seed = 0
+    x, w, b = _inputs(k, t_in, cin, cout, seed)
     want = np.asarray(jconv.conv_transpose1d_ba(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), stride=s, act=act,
         slope=0.2, impl=impl))
@@ -54,7 +55,11 @@ def test_convt_ba_matches_jax(geom, act, impl, monkeypatch):
         stride=s, act=act, slope=0.2)
     assert got.dtype == torch.float32
     assert got.shape == want.shape == (2, t_in * s, cout)
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    # the message names the case, so a failure leaves a record of it
+    np.testing.assert_allclose(
+        got.numpy(), want, atol=1e-5, rtol=1e-5,
+        err_msg=f"geometry={geom} {GEOMS[geom]} act={act} impl={impl} "
+                f"seed={seed}")
     # a CPU tensor takes the plain form: no kernel launch is counted
     assert tconv.conv_transpose1d_ba.launches == before
 

@@ -1,7 +1,9 @@
-"""The CUDA kernels (convt1d, conv1d, ingest, gru_scan and gru_scan_bwd)
-against their plain forms, on the card, and the autograd Functions'
-first- and second-order gradients through the kernels, and the GRU
-generator's forward and backward, against the same code on the CPU.
+"""The CUDA kernels (convt1d, conv1d, ingest, gru_scan, gru_scan_bwd,
+sconv1d, sconvt1d and gru_cell) against their plain forms, on the card,
+and the autograd Functions' first- and second-order gradients through the
+kernels (unfused and fused shuffle sites), the GRU generator's forward and
+backward and the fused GRU cell's, against the same code on the CPU; and
+that a training step on the card is bit-reproducible.
 
 Marked ``cuda``: each test skips where there is no CUDA device. These import
 torch and the port only, so they also run on a machine without JAX:
@@ -16,6 +18,7 @@ import torch
 from audiogan_tpu_torch.kernels import conv as tconv
 from audiogan_tpu_torch.kernels import gru as tgru
 from audiogan_tpu_torch.kernels import ingest as tingest
+from audiogan_tpu_torch.kernels import sconv as tsconv
 
 pytestmark = pytest.mark.cuda
 
@@ -151,16 +154,23 @@ def _tiny_cfg():
                                  phase_shuffle=2)).validate()
 
 
-def test_second_order_through_kernels_matches_cpu(cuda_device):
+@pytest.mark.parametrize("fused_sites", [0, -1])
+def test_second_order_through_kernels_matches_cpu(cuda_device, fused_sites):
     """The penalty's double backprop and the generator's backward through
-    the kernels (every conv, dx and d/dct a launch) against the same
-    Functions on the CPU (plain forms), same weights, f32: gradients within
-    1e-4 relative L2 over each tensor."""
+    the kernels (every conv, dx and d/dct a launch; with fused shuffle
+    sites K6 and K7 too) against the same Functions on the CPU (plain
+    forms), same weights, f32: gradients within 1e-4 relative L2 over each
+    tensor."""
+    import dataclasses
+
     from audiogan_tpu_torch.losses import gradient_penalty, wgan_g_loss
     from audiogan_tpu_torch.models import (build_discriminator,
                                            build_generator)
     from audiogan_tpu_torch.models.init import init_params
     cfg = _tiny_cfg()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, fused_shuffle_sites=fused_sites))
+    sconv_before = (tsconv.sconv1d_ba.launches, tsconv.sconvt1d.launches)
     cpu = torch.device("cpu")
     g = init_params(build_generator(cfg, device=cpu), 0)
     d = init_params(build_discriminator(cfg, device=cpu), 1)
@@ -186,9 +196,44 @@ def test_second_order_through_kernels_matches_cpu(cuda_device):
         grads[name] = torch.autograd.grad(loss, params)
     assert tconv.conv1d_ba.launches > 0
     assert tconv.conv_transpose1d_ba.launches > 0
+    if fused_sites:
+        assert tsconv.sconv1d_ba.launches > sconv_before[0]
+        assert tsconv.sconvt1d.launches > sconv_before[1]
     for gc, gg in zip(grads["cpu"], grads["cuda"]):
         err = (gg.cpu() - gc).norm().item()
         assert err <= 1e-4 * max(gc.norm().item(), 1e-12), err
+
+
+@pytest.mark.parametrize("fused_sites", [0, -1])
+def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites):
+    """Two runs of two f32 training steps from one seed on the same data
+    give the same parameters to the bit: no kernel and no weight gradient
+    sums in a run-dependent order."""
+    import dataclasses
+
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    cfg = _tiny_cfg()
+    batch = 16
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, fused_shuffle_sites=fused_sites),
+        train=dataclasses.replace(cfg.train, dtype="float32",
+                                  batch_size=batch))
+    gen = torch.Generator().manual_seed(0)
+    raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
+                       generator=gen) * 6000).clamp(-32768, 32767)
+    raw = raw.to(torch.int16)
+    labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, device=cuda_device)
+        step = build_train_step(cfg, cuda_device)
+        for _ in range(2):
+            step(state, raw, labels)
+        runs.append([p.detach().cpu() for p in (*state.g.parameters(),
+                                                *state.d.parameters())])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # (B, H, F, n_frames): ragged against every gemm tile (32, 64, 128), a
@@ -297,3 +342,154 @@ def test_gru_generator_on_card_matches_cpu(cuda_device):
                                  grads["card"]):
         e = (gg.cpu() - gc).norm().item()
         assert e <= 1e-4 * max(gc.norm().item(), 1e-12), name
+
+
+# (k, stride, rad, t, cin, cout): the four flagship site shapes cut short
+# (k25 s4 rad2, with Cin >= 8 and short rows), tiny_sc09's 16 channels at
+# rad 1, one input channel, t % stride != 0, strides 1-7
+SCONV_GEOMS = [
+    (25, 4, 2, 256, 64, 128),
+    (25, 4, 2, 64, 96, 130),        # t_out 16: several elements per block
+    (25, 4, 1, 128, 16, 32),
+    (9, 4, 2, 50, 3, 20),           # Cin < 8
+    (9, 3, 2, 41, 17, 20),
+    (7, 7, 3, 49, 32, 33),
+    (9, 1, 2, 30, 9, 7),
+    (5, 2, 1, 23, 40, 1),           # one output channel
+]
+
+
+def _sconv_inputs(geom, dtype, device, seed=0):
+    k, s, rad, t, cin, cout = geom
+    from audiogan_tpu_torch.kernels.conv import _same_pads
+    b = 2 * rad + 3
+    gen = torch.Generator(device).manual_seed(seed)
+    xp = torch.randn(b, t + 2 * rad, cin, generator=gen, device=device)
+    w = torch.randn(k, cin, cout, generator=gen, device=device)
+    w /= (k * cin / 4) ** 0.5
+    bias = torch.randn(cout, generator=gen, device=device) * 0.5
+    offs = (torch.arange(b, device=device) % (2 * rad + 1)).int()
+    _, lo, hi = _same_pads(t, k, s)
+    t_out = (t + lo + hi - k) // s + 1
+    ct = torch.randn(b, t_out, cout, generator=gen, device=device)
+    wf = torch.randn(k, cout, cin, generator=gen, device=device)
+    wf /= (k * cout / 4) ** 0.5
+    return ([a.to(dtype) for a in (xp, w, bias, ct, wf)], offs, lo, hi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "leaky_relu"])
+@pytest.mark.parametrize("geom", SCONV_GEOMS, ids=str)
+def test_sconv1d_kernel_matches_plain(cuda_device, geom, act, dtype):
+    k, s, rad = geom[:3]
+    (xp, w, bias, _, _), offs, lo, hi = _sconv_inputs(geom, dtype,
+                                                      cuda_device)
+    before = tsconv.sconv1d_ba.launches
+    got = tsconv.sconv1d_ba(xp, w, bias, offs, s, lo, hi, rad, act, 0.3)
+    torch.cuda.synchronize()
+    assert tsconv.sconv1d_ba.launches == before + 1
+    want = tsconv.sconv1d_ba_plain(xp.float(), w.float(), bias.float(), offs,
+                                   s, lo, hi, rad, act, 0.3)
+    assert got.dtype == dtype and got.shape == want.shape
+    # f32: the same sums in another order; bf16: one rounding of the output
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", SCONV_GEOMS, ids=str)
+def test_sconvt1d_kernel_matches_plain(cuda_device, geom, dtype):
+    k, s, rad, t = geom[:4]
+    (_, _, _, ct, wf), offs, lo, _ = _sconv_inputs(geom, dtype, cuda_device,
+                                                   seed=1)
+    before = tsconv.sconvt1d.launches
+    got = tsconv.sconvt1d(ct, wf, offs, s, k - 1 - lo, t, rad)
+    torch.cuda.synchronize()
+    assert tsconv.sconvt1d.launches == before + 1
+    want = tsconv.sconvt1d_plain(ct.float(), wf.float(), offs, s, k - 1 - lo,
+                                 t, rad)
+    assert got.dtype == dtype and got.shape == want.shape
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item(), err
+    # the rows outside each window are written, as zeros
+    from audiogan_tpu_torch.ops.sconv import _live
+    assert not torch.where(_live(offs, t, rad), 0.0, got.float()).any()
+
+
+def test_sconvt1d_overwrites_every_row(cuda_device):
+    """The output is allocated uninitialised: a second call on the same
+    caching allocator block must not show the first call's rows."""
+    geom = SCONV_GEOMS[0]
+    k, s, rad, t = geom[:4]
+    (_, _, _, ct, wf), offs, lo, _ = _sconv_inputs(geom, torch.float32,
+                                                   cuda_device, seed=2)
+    first = tsconv.sconvt1d(ct, wf, offs, s, k - 1 - lo, t, rad)
+    first.fill_(float("nan"))
+    del first
+    got = tsconv.sconvt1d(ct, wf, offs.flip(0).contiguous(), s, k - 1 - lo,
+                          t, rad)
+    assert torch.isfinite(got).all()
+
+
+# (B, in, H): cond_gru_sc09's cell, ragged against the 16 x 16 tile, and
+# depths that are not multiples of the 32-deep chunk
+GRU_CELLS = [(64, 512, 512), (5, 20, 33), (17, 1, 7), (130, 48, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRU_CELLS, ids=str)
+def test_gru_cell_kernel_matches_plain(cuda_device, shape, dtype):
+    b, in_dim, hid = shape
+    gen = torch.Generator(cuda_device).manual_seed(0)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device=cuda_device)
+                * scale).to(dtype)
+    args = (r(b, in_dim), torch.tanh(r(b, hid)),
+            r(in_dim, 3 * hid, scale=(1.0 / in_dim) ** 0.5),
+            r(hid, 3 * hid, scale=hid ** -0.5), r(3 * hid, scale=0.1),
+            r(3 * hid, scale=0.1))
+    before = tgru.gru_cell_fwd.launches
+    got = tgru.gru_cell_fwd(*args)
+    torch.cuda.synchronize()
+    assert tgru.gru_cell_fwd.launches == before + 1
+    want = tgru.gru_cell_plain(*(a.float() for a in args))
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want).abs().max().item()
+    peak = want.abs().max().item()
+    # f32: the same sums in another order; bf16: the same f32 values
+    # before the one rounding of h'
+    tol = 1e-4 * peak if dtype == torch.float32 else _bf16_ulp(peak)
+    assert err <= tol, (err, peak)
+
+
+def test_gru_cell_recurrence_on_card_matches_cpu(cuda_device):
+    """A 16-frame recurrence through gru_cell(impl="pallas"), f32, forward
+    through K3 and backward in torch, against the CPU: h within 1e-4 of
+    the peak, gradients within 1e-4 relative L2 each."""
+    from audiogan_tpu_torch.ops.gru import gru_cell
+    b, in_dim, hid, n = 8, 24, 40, 16
+    gen = torch.Generator().manual_seed(1)
+    xs = torch.randn(n, b, in_dim, generator=gen)
+    params = [torch.randn(in_dim, 3 * hid, generator=gen) / in_dim ** 0.5,
+              torch.randn(hid, 3 * hid, generator=gen) / hid ** 0.5,
+              torch.randn(3 * hid, generator=gen) * 0.1,
+              torch.randn(3 * hid, generator=gen) * 0.1]
+    h0 = torch.tanh(torch.randn(b, hid, generator=gen))
+    outs, grads = {}, {}
+    before = tgru.gru_cell_fwd.launches
+    for dev in ("cpu", cuda_device):
+        leaves = [t.to(dev).requires_grad_(True) for t in (xs, h0, *params)]
+        h = leaves[1]
+        for t in range(n):
+            h = gru_cell(leaves[0][t], h, *leaves[2:], impl="pallas")
+        outs[str(dev)] = h.detach().cpu()
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
+            h.square().sum(), leaves)]
+    assert tgru.gru_cell_fwd.launches == before + n
+    want, got = outs["cpu"], outs[str(cuda_device)]
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    for gc, gg in zip(grads["cpu"], grads[str(cuda_device)]):
+        assert (gg - gc).norm().item() <= 1e-4 * max(gc.norm().item(), 1e-12)

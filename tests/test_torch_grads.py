@@ -197,3 +197,26 @@ def test_inner_grad_skips_unrequested_weight_grads(monkeypatch):
     assert calls == []
     y.sum().backward()
     assert calls == [1] and w.grad is not None
+
+
+@pytest.mark.parametrize("callers", [False, True])
+def test_wgrad_asks_cudnn_for_deterministic_algorithms(monkeypatch, callers):
+    """The weight gradient runs with cuDNN's deterministic algorithms (the
+    default ones sum in a run-dependent order on the card) and gives the
+    caller's setting back."""
+    seen = []
+    real = torch.nn.grad.conv1d_weight
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cudnn.deterministic)
+        return real(*a, **k)
+    monkeypatch.setattr(torch.nn.grad, "conv1d_weight", spy)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = callers
+    try:
+        x, ct = _f64((2, 11, 2), (2, 5, 3))
+        kad.conv1d_wgrad(x, ct, 2, 2, 5)
+        assert torch.backends.cudnn.deterministic is callers
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert seen == [True]

@@ -191,3 +191,45 @@ def test_generator_and_critic_outputs_carry_autograd_history():
     assert g.convt_0_kernel.grad is not None
     assert g.convt_0_kernel.grad.abs().sum() > 0
     assert d.conv_0_kernel.grad.abs().sum() > 0
+
+
+def test_fused_site_and_cell_wrappers_take_no_plain_path_off_the_cpu():
+    """K6, K7 and K3's wrappers run the plain form only for a CPU tensor:
+    any other device launches the kernel or raises."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+
+    def meta(*s, dtype=torch.float32):
+        return torch.zeros(s, device="meta", dtype=dtype)
+    offs = meta(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="no sconv1d kernel"):
+        ksconv.sconv1d_ba(meta(3, 20, 4), meta(5, 4, 6), meta(6), offs, 2,
+                          2, 2, 2)
+    with pytest.raises(ValueError, match="no sconvt1d kernel"):
+        ksconv.sconvt1d(meta(3, 8, 6), meta(5, 6, 4), offs, 2, 2, 16, 2)
+    with pytest.raises(ValueError, match="no gru_cell kernel"):
+        kgru.gru_cell_fwd(meta(2, 4), meta(2, 8), meta(4, 24), meta(8, 24),
+                          meta(24), meta(24))
+
+
+def test_fused_critic_output_carries_the_fused_history(tmp_path):
+    """With every site fused the critic's graph runs through the masked
+    reflect pad and the shuffled-input conv Function, never PShuf; the
+    fused configuration's training entry point still needs a card."""
+    from audiogan_tpu_torch.cli import apply_overrides, main
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.models import build_discriminator
+    from audiogan_tpu_torch.models.init import init_params
+    cfg = apply_overrides(get_preset("tiny_sc09"),
+                          ["model.fused_shuffle_sites=-1"])
+    d = init_params(build_discriminator(cfg, device="cpu"), 1)
+    x = torch.rand(2, cfg.data.clip_len, 1).requires_grad_(True)
+    s = d(x, None, torch.ones(len(cfg.model.strides) - 1, 2,
+                              dtype=torch.long))
+    names = _graph_names(s)
+    assert {"SConv1dBABackward", "MRPadBackward"} <= names
+    assert "PShufBackward" not in names
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["train", "--set", "model.fused_shuffle_sites=-1",
+                  "--steps", "1", "--workdir", str(tmp_path)])

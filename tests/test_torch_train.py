@@ -6,9 +6,11 @@ views, and a conditional one (projection critic, labels) with the drift
 term, from a carried non-initial state (the JAX state after one step:
 weights and both Adam states) and the reference's draws: z, eps, crop
 offsets, labels from ``jax.random.split(fold_in(step_key, idx), 7)``
-(train/step.py:210-211) and the flax-drawn shuffle shifts, recorded by a
-test-only wrapper around audiogan_tpu.models.wavegan.phase_shuffle
-(ordered jax.debug.callback). Compared: the metrics, both nets' parameters
+(train/step.py:210-211) and the flax-drawn shuffle shifts, recorded by
+test-only wrappers around audiogan_tpu.models.wavegan.phase_shuffle and,
+for fused shuffle sites, wavegan.sconv1d_ba, which draws its shift from
+its key (kernels/sconv.py:741), both in site order (ordered
+jax.debug.callback). Compared: the metrics, both nets' parameters
 and the Adam moments. Tolerances (f32, the same sums in another order):
 metrics 1e-5 relative, parameters 1e-6 absolute (a hundredth of one Adam
 step), moments 1e-4 relative to each tensor's largest.
@@ -55,14 +57,22 @@ def _jax_run(cfg):
     (state after step 1, state after step 2, step-2 metrics, shifts,
     step-2 batch)."""
     rec = []
-    orig = jwg.phase_shuffle
+    orig, orig_fused = jwg.phase_shuffle, jwg.sconv1d_ba
 
-    def recording(h, key, rad, impl=None):
-        sh = jax.random.randint(key, (h.shape[0],), -rad, rad + 1)
+    def record(key, b, rad):
+        sh = jax.random.randint(key, (b,), -rad, rad + 1)
         jax.debug.callback(lambda v: rec.append(np.array(v)), sh,
                            ordered=True)
+
+    def recording(h, key, rad, impl=None):
+        record(key, h.shape[0], rad)
         return orig(h, key, rad, impl=impl)
+
+    def recording_fused(y, w, b, key, rad, **kw):
+        record(key, y.shape[0], rad)
+        return orig_fused(y, w, b, key, rad, **kw)
     jwg.phase_shuffle = recording
+    jwg.sconv1d_ba = recording_fused
     try:
         state0 = jcreate(cfg)
         step = jax.jit(jbuild_step(cfg))
@@ -73,7 +83,7 @@ def _jax_run(cfg):
         state2, metrics = step(state1, *batch)
         jax.effects_barrier()
     finally:
-        jwg.phase_shuffle = orig
+        jwg.phase_shuffle, jwg.sconv1d_ba = orig, orig_fused
     return state1, state2, metrics, rec, batch
 
 
@@ -140,16 +150,21 @@ def _variant(name):
     base = tiny_config()
     cfg = tiny_config(train=dataclasses.replace(
         base.train, fused_d_views=name != "unfused"))
-    if name == "conditional_drift":
+    if name.startswith("conditional"):
         cfg = tiny_config(
             data=dataclasses.replace(base.data, num_classes=4),
             loss=dataclasses.replace(base.loss, drift_epsilon=1e-3),
             train=cfg.train)
+    if "sites" in name:
+        # every phase-shuffle site fused into its consuming conv (K6/K7)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, fused_shuffle_sites=-1))
     return cfg
 
 
 @pytest.mark.parametrize("variant", ["unfused", "fused",
-                                     "conditional_drift"])
+                                     "conditional_drift", "fused_sites",
+                                     "conditional_fused_sites"])
 def test_step_matches_jax(variant):
     cfg = _variant(variant)
     state1, state2, want, shifts, (clips, labels) = _jax_run(cfg)
