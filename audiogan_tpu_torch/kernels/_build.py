@@ -6,7 +6,9 @@ The library lands in ``build/torch_kernels/<sha256>/lib<name>.so`` at the
 repository root, keyed by the source, the headers beside it and the nvcc
 flags, so an edited source builds anew and an unchanged one is reused.
 It is written under a temporary name and moved into place whole, so a
-build cut off half way is never loaded.
+build cut off half way is never loaded. The tensor-core convs
+(``csrc/igemm_tc.cuh``) look up libcuda's ``cuTensorMapEncodeTiled``
+through the CUDA runtime, so nothing links ``-lcuda``.
 """
 
 from __future__ import annotations

@@ -10,6 +10,15 @@ replaces ``_conv1d_pallas`` and ``csrc/convt1d.cu`` replaces
 These wrappers record no autograd history: kernels/autograd.py wraps them
 in Functions.
 
+Each kernel has two paths, and which one a call takes is a pure function
+of dtype and shape (``conv1d_tensor_core``, ``convt_tensor_core``): bf16
+with Cin, Cout >= 64 runs the implicit GEMM on the tensor cores
+(``csrc/igemm_tc.cuh``: TMA, an mbarrier ring, wgmma), everything else
+the CUDA-core tiles (``csrc/rowconv_tiles.cuh``). The tensor-core kernel
+does no tap arithmetic of its own: ``conv1d_ksteps`` / ``convt_ksteps``
+list its k-steps and ``tc_plan`` packs them with the tile shape into the
+int32 array the kernel is launched with.
+
 conv1d is the strided cross-correlation of x with ``pad_lo`` zeros in
 front and ``pad_hi`` behind:
 
@@ -38,6 +47,15 @@ from audiogan_tpu_torch.kernels import _build
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The tensor-core kernel's tiles, largest first: (consumer warpgroups, N);
+# a tile is M = 64 x warpgroups output rows by N output channels.
+TC_TILES = ((2, 128), (2, 64), (1, 128), (1, 64))
+TC_CHUNK = 64            # channels per k-step chunk (one 128-byte row)
+TC_MAX_STEPS = 64        # k-step table entries (csrc/igemm_tc.cuh)
+TC_MAX_PHASES = 16
+TC_MIN_BLOCKS = 99       # 3/4 of the H100's 132 SMs: a grid below it
+                         # takes the 64-row tile
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -88,6 +106,123 @@ def _convt_phase_taps(w: torch.Tensor, s: int, pad_lo: int):
     taps = w[torch.as_tensor(np.clip(j_idx, 0, k - 1), device=w.device)]
     v = torch.where(valid[:, :, None, None], taps, torch.zeros_like(taps))
     return v, q_min, q_taps                             # [Q, s, ci, co]
+
+
+def conv1d_ksteps(k: int, s: int, pad_lo: int) -> list[tuple[int, int, int]]:
+    """The conv1d k-steps (tap j, row shift qq, phase pp), one per tap:
+    with x viewed as [B, T/s, s, Cin], tap j of output t reads packed row
+    t + qq at phase pp, where j - pad_lo = qq*s + pp, 0 <= pp < s."""
+    return [(j, (j - pad_lo) // s, (j - pad_lo) % s) for j in range(k)]
+
+
+def convt_ksteps(k: int, s: int, pad_lo: int
+                 ) -> list[list[tuple[int, int, int]]]:
+    """The convT k-steps per output phase rho: (tap j, row shift q, 0)
+    with y[m*s + rho] += x[m + q] @ w[j], j = pad_lo - rho + q*s. Taps
+    outside [0, K) are left out, not multiplied by zeros."""
+    q_min, q_taps = _convt_phase_range(k, s, pad_lo)
+    phases = []
+    for rho in range(s):
+        phases.append([(pad_lo - rho + q * s, q, 0)
+                       for q in range(q_min, q_min + q_taps)
+                       if 0 <= pad_lo - rho + q * s < k])
+    return phases
+
+
+def _tc_shapes_ok(dtype, cin: int, cout: int, k: int) -> bool:
+    # TMA needs 16-byte strides (Cin, Cout multiples of 8 in bf16)
+    return (dtype == torch.bfloat16 and cin >= 64 and cout >= 64
+            and cin % 8 == 0 and cout % 8 == 0 and k <= TC_MAX_STEPS)
+
+
+def conv1d_tensor_core(dtype, t_in: int, cin: int, cout: int, k: int,
+                       stride: int) -> bool:
+    """True iff conv1d_ba runs this geometry on the tensor cores; the
+    packed view [B, T/s, s, Cin] needs T % s == 0."""
+    return _tc_shapes_ok(dtype, cin, cout, k) and t_in % stride == 0
+
+
+def convt_tensor_core(dtype, cin: int, cout: int, k: int,
+                      stride: int) -> bool:
+    """True iff conv_transpose1d_ba runs this geometry on the tensor
+    cores (one phase per output phase, at most TC_MAX_PHASES)."""
+    return _tc_shapes_ok(dtype, cin, cout, k) and stride <= TC_MAX_PHASES
+
+
+def tc_tile_shape(batch: int, t_lim: int, n_phase: int, cout: int,
+                  tile: int) -> tuple[int, int, int, int]:
+    """(rows, nb, n_mt, blocks) of TC_TILES[tile]: t_lim output rows per
+    element and phase; rows shorter than half the tile stack nb =
+    M // t_lim batch elements (each with its own zero halo), else one
+    element's rows in n_mt tiles of M, the ragged last one masked."""
+    nwg, bn = TC_TILES[tile]
+    bm = 64 * nwg
+    nb = bm // t_lim if t_lim < bm else 1
+    if nb > 1:
+        rows, n_mt, n_m = t_lim, 1, _cdiv(batch, nb)
+    else:
+        n_mt = _cdiv(t_lim, bm)
+        rows, n_m = bm, batch * n_mt
+    return rows, nb, n_mt, n_m * n_phase * _cdiv(cout, bn)
+
+
+def tc_tile(batch: int, t_lim: int, n_phase: int, cout: int) -> int:
+    """N = 128 unless Cout <= 64 (half a 128-wide tile would multiply
+    zeros); M = 128 unless that grid leaves more than a quarter of the
+    SMs without a block, then M = 64; failing both, the tile with the
+    most blocks. (The choice the flagship's timings of every tile on the
+    card favour: PERF.md §6.)"""
+    bn = 128 if cout > 64 else 64
+    blocks = [tc_tile_shape(batch, t_lim, n_phase, cout, i)[3]
+              for i in range(len(TC_TILES))]
+    for nwg in (2, 1):
+        i = TC_TILES.index((nwg, bn))
+        if blocks[i] >= TC_MIN_BLOCKS:
+            return i
+    return max(range(len(TC_TILES)), key=lambda i: (blocks[i], -i))
+
+
+def tc_plan(batch: int, t_lim: int, s_out: int, y_len: int,
+            phases: list, cout: int, tile: int | None = None) -> np.ndarray:
+    """The int32 array the tensor-core kernel is launched with: tile,
+    rows, nb, n_mt, t_lim, s_out, y_len, n_phase, n_steps, start[n_phase
+    + 1], tap[n_steps], row[n_steps], pin[n_steps]. Output row t of phase
+    p lands at y row t*s_out + p, masked against t_lim and y_len."""
+    n_phase = len(phases)
+    if tile is None:
+        tile = tc_tile(batch, t_lim, n_phase, cout)
+    rows, nb, n_mt, _ = tc_tile_shape(batch, t_lim, n_phase, cout, tile)
+    steps = [st for ph in phases for st in ph]
+    if n_phase > TC_MAX_PHASES or len(steps) > TC_MAX_STEPS:
+        raise ValueError(f"{n_phase} phases, {len(steps)} k-steps: over "
+                         f"the kernel's {TC_MAX_PHASES}, {TC_MAX_STEPS}")
+    start = np.cumsum([0] + [len(ph) for ph in phases]).tolist()
+    return np.asarray([tile, rows, nb, n_mt, t_lim, s_out, y_len, n_phase,
+                       len(steps), *start, *(st[0] for st in steps),
+                       *(st[1] for st in steps), *(st[2] for st in steps)],
+                      dtype=np.int32)
+
+
+@functools.cache
+def conv1d_tc_plan(batch: int, t_in: int, cout: int, k: int, stride: int,
+                   pad_lo: int, pad_hi: int, tile: int | None = None
+                   ) -> np.ndarray:
+    """conv1d's plan (read-only; cached, the wrapper asks every call)."""
+    t_out = conv1d_t_out(t_in, k, stride, pad_lo, pad_hi)
+    plan = tc_plan(batch, t_out, 1, t_out, [conv1d_ksteps(k, stride, pad_lo)],
+                   cout, tile)
+    plan.flags.writeable = False
+    return plan
+
+
+@functools.cache
+def convt_tc_plan(batch: int, cout: int, k: int, stride: int, pad_lo: int,
+                  out_len: int, tile: int | None = None) -> np.ndarray:
+    """convT's plan (read-only; cached, the wrapper asks every call)."""
+    plan = tc_plan(batch, _cdiv(out_len, stride), stride, out_len,
+                   convt_ksteps(k, stride, pad_lo), cout, tile)
+    plan.flags.writeable = False
+    return plan
 
 
 def _apply_act(r: torch.Tensor, act: str, slope: float) -> torch.Tensor:
@@ -179,6 +314,34 @@ def _check_kernel_args(name, x, w, b) -> None:
         raise ValueError(f"{name} takes contiguous x, w and b")
 
 
+def _check_tc_alignment(name, *tensors) -> None:
+    """TMA reads from 16-byte aligned bases; a tensor at another offset
+    is refused, never rerouted."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core path needs 16-byte "
+                             f"aligned tensors; one starts at "
+                             f"{t.data_ptr():#x}")
+
+
+def _c_plan(plan: np.ndarray):
+    """The plan as the kernel's int32 array pointer (with the array that
+    keeps it alive)."""
+    plan = np.ascontiguousarray(plan, dtype=np.int32)
+    return plan, ctypes.cast(plan.ctypes.data, ctypes.POINTER(ctypes.c_int))
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err)
+                           .decode())
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 @functools.cache
 def _conv1d_lib() -> ctypes.CDLL:
     """csrc/conv1d.cu, built at first use, with its C signatures."""
@@ -187,9 +350,27 @@ def _conv1d_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.conv1d_launch.restype = ctypes.c_int
+    lib.conv1d_tc_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p])
+    lib.conv1d_tc_launch.restype = ctypes.c_int
     lib.conv1d_error_string.argtypes = [ctypes.c_int]
     lib.conv1d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _conv1d_tc(x, w, b, y, stride, plan, act, slope) -> None:
+    """One launch of conv1d's tensor-core kernel with the given plan."""
+    _check_tc_alignment("conv1d", x, w, b, y)
+    lib = _conv1d_lib()
+    bsz, t_in, cin = x.shape
+    k, _, cout = w.shape
+    plan, ptr = _c_plan(plan)
+    err = lib.conv1d_tc_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t_in,
+        cin, cout, k, stride, ptr, ACTS[act], slope, _stream(x))
+    _raise_on(lib, err, "conv1d")
 
 
 def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -200,7 +381,9 @@ def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     A CPU tensor takes the plain form. A CUDA tensor launches the conv1d
     kernel (f32 or bf16 in, f32 accumulate, x.dtype out) or raises; it
     never falls back. pad_hi may be below what SAME gives (autodiff's dx
-    of a convT asks for max(hi, 0)).
+    of a convT asks for max(hi, 0)). Where ``conv1d_tensor_core`` holds,
+    the tensor-core path runs (counted in ``launches_tc``), else the
+    CUDA-core tiles (``launches_cc``); ``launches`` counts both.
     """
     if act not in ACTS:
         raise ValueError(f"act={act!r} not in {sorted(ACTS)}")
@@ -212,19 +395,24 @@ def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     k, _, cout = w.shape
     t_out = conv1d_t_out(t_in, k, stride, pad_lo, pad_hi)
     y = torch.empty((bsz, t_out, cout), dtype=x.dtype, device=x.device)
-    lib = _conv1d_lib()
-    err = lib.conv1d_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t_in,
-        cin, cout, k, stride, pad_lo, pad_hi, ACTS[act], slope,
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("conv1d kernel launch failed: "
-                           + lib.conv1d_error_string(err).decode())
+    if conv1d_tensor_core(x.dtype, t_in, cin, cout, k, stride):
+        _conv1d_tc(x, w, b, y, stride,
+                   conv1d_tc_plan(bsz, t_in, cout, k, stride, pad_lo, pad_hi),
+                   act, slope)
+        conv1d_ba.launches_tc += 1
+    else:
+        lib = _conv1d_lib()
+        err = lib.conv1d_launch(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz,
+            t_in, cin, cout, k, stride, pad_lo, pad_hi, ACTS[act], slope,
+            _DTYPES[x.dtype], _stream(x))
+        _raise_on(lib, err, "conv1d")
+        conv1d_ba.launches_cc += 1
     conv1d_ba.launches += 1
     return y
 
 
-conv1d_ba.launches = 0
+conv1d_ba.launches = conv1d_ba.launches_tc = conv1d_ba.launches_cc = 0
 
 
 @functools.cache
@@ -235,23 +423,38 @@ def _kernel_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.convt1d_launch.restype = ctypes.c_int
+    lib.convt1d_tc_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p])
+    lib.convt1d_tc_launch.restype = ctypes.c_int
     lib.convt1d_error_string.argtypes = [ctypes.c_int]
     lib.convt1d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _convt_tc(x, w, b, y, plan, act, slope) -> None:
+    """One launch of convT's tensor-core kernel with the given plan."""
+    _check_tc_alignment("convt1d", x, w, b, y)
+    lib = _kernel_lib()
+    bsz, t_in, cin = x.shape
+    k, _, cout = w.shape
+    plan, ptr = _c_plan(plan)
+    err = lib.convt1d_tc_launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t_in,
+        cin, cout, k, ptr, ACTS[act], slope, _stream(x))
+    _raise_on(lib, err, "convt1d")
 
 
 def _launch(x, w, b, y, stride, pad_lo, out_len, act, slope) -> None:
     lib = _kernel_lib()
     bsz, t_in, cin = x.shape
     k, _, cout = w.shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.convt1d_launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t_in,
         cin, cout, k, stride, pad_lo, out_len, ACTS[act], slope,
-        _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError("convt1d kernel launch failed: "
-                           + lib.convt1d_error_string(err).decode())
+        _DTYPES[x.dtype], _stream(x))
+    _raise_on(lib, err, "convt1d")
 
 
 def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -263,7 +466,9 @@ def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     A CPU tensor takes the plain form. A CUDA tensor launches the
     convt1d kernel (f32 or bf16 in, f32 accumulate, x.dtype out) or
     raises; it never falls back. Defaults as in the JAX function:
-    pad_lo = (K-1)//2, out_len = T*stride.
+    pad_lo = (K-1)//2, out_len = T*stride. Where ``convt_tensor_core``
+    holds, the tensor-core path runs (counted in ``launches_tc``), else
+    the CUDA-core tiles (``launches_cc``); ``launches`` counts both.
     """
     k = w.shape[0]
     pad_lo = (k - 1) // 2 if pad_lo is None else pad_lo
@@ -275,11 +480,20 @@ def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return conv_transpose1d_ba_plain(x, w, b, stride, pad_lo, out_len,
                                          act, slope)
     _check_kernel_args("convt1d", x, w, b)
-    y = torch.empty((x.shape[0], out_len, w.shape[2]), dtype=x.dtype,
+    cout = w.shape[2]
+    y = torch.empty((x.shape[0], out_len, cout), dtype=x.dtype,
                     device=x.device)
-    _launch(x, w, b, y, stride, pad_lo, out_len, act, slope)
+    if convt_tensor_core(x.dtype, x.shape[2], cout, k, stride):
+        _convt_tc(x, w, b, y,
+                  convt_tc_plan(x.shape[0], cout, k, stride, pad_lo, out_len),
+                  act, slope)
+        conv_transpose1d_ba.launches_tc += 1
+    else:
+        _launch(x, w, b, y, stride, pad_lo, out_len, act, slope)
+        conv_transpose1d_ba.launches_cc += 1
     conv_transpose1d_ba.launches += 1
     return y
 
 
-conv_transpose1d_ba.launches = 0
+conv_transpose1d_ba.launches = conv_transpose1d_ba.launches_tc = 0
+conv_transpose1d_ba.launches_cc = 0

@@ -28,7 +28,10 @@ non-zero:
             sconv1d (K6) at the four fused sites' convs (2B) and sconvt1d
             (K7) at their x-gradients, every offset in the batch; the GRU
             cell (K3) at cond_gru_sc09's cell, x and h [64, 512], forward
-            and its Function's gradients.
+            and its Function's gradients. In bf16, 16 of the 20 convt1d
+            and conv1d geometries run the tensor-core path (each line
+            names its path); f32 and the one-channel layers the CUDA-core
+            tiles.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16) exported, loaded and served over HTTP on 127.0.0.1; a
             few requests (with labels for the GRU), each kernel's launches
@@ -41,15 +44,19 @@ non-zero:
             (what `cli train` runs): B=64, bf16, n_critic 5, fused views,
             resident synthetic corpus; warm-up steps then timed ones, finite
             losses, steps/s, launches per step of each kernel (counts zeroed
-            just before each path, read just after; K6 and K7 held to the
-            counts the step's structure gives, the unfused shuffle to none),
+            just before each path, read just after; K1', K1, their
+            tensor-core launches (zero is a failure), K6 and K7 held to
+            the counts the step's structure gives, the unfused shuffle to
+            none),
             peak device memory; one more step under torch.profiler for the
             device time by kernel. Then the GRU cell's 256-frame recurrence,
             forward and backward, against the same recurrence through the
             plain cell.
-7. timing   per geometry: kernel, plain form and, where one exists, one
-            library call (F.conv_transpose1d / F.conv1d, torch.nn.GRUCell
-            for K3: yardsticks the port never calls) beside the card's
+7. timing   per geometry: kernel (its path; on the tensor cores its tile
+            and the time of each other tile), plain form and, where one
+            exists, one library call (F.conv_transpose1d / F.conv1d,
+            torch.nn.GRUCell for K3: yardsticks the port never calls)
+            beside the card's
             bound; for K6 and K7, which no single PyTorch call computes,
             the unfused pair they replace (shuffle + conv1d kernel, convT
             kernel + shuffle's transpose); the GRU scan's CUDA launches per
@@ -105,7 +112,9 @@ SERVE_BF16_REL_TOL = 5e-2
 GRU_BWD_REL_L2 = 1e-3         # K5: every gradient sums over 16384 rows
 BUILD_LIMIT_S = 180.0
 SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell")
-TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# a flagship step takes about 0.13 s on the tensor-core convs: 20 timed
+# steps keep the rate's window near 3 s
+TRAIN_WARMUP, TRAIN_TIMED = 2, 20
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -222,6 +231,62 @@ def fused_step_launches(cfg) -> tuple[int, int]:
     n_critic = cfg.loss.n_critic
     return ((n_critic * (views + 2) + 1) * sites,
             (n_critic * (views + 1) + 1) * sites)
+
+
+class PathCounter:
+    """One path's launch count on a conv wrapper (``launches_tc``), read
+    and zeroed like a kernel's own ``launches``."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
+
+
+def tensor_core(family: str, L: dict) -> bool:
+    """Whether the wrapper runs geometry L in bf16 on the tensor cores."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    if family == "conv1d":
+        return kconv.conv1d_tensor_core(torch.bfloat16, L["t_in"], L["cin"],
+                                        L["cout"], L["k"], L["s"])
+    return kconv.convt_tensor_core(torch.bfloat16, L["cin"], L["cout"],
+                                   L["k"], L["s"])
+
+
+def conv_step_launches(cfg) -> dict:
+    """K1' and K1 launches of one WaveGAN training step, in total and on
+    the tensor-core path (bf16). Per critic micro-step, with V critic
+    calls on the views: each unfused critic conv runs V + 2 times (the
+    views' forwards, x-hat's forward, the penalty's d/dct of its dx) and
+    its dx V + 1 times (the loss's backward, the penalty's input gradient;
+    D0's dx only the latter); the G update adds one critic forward and
+    one dx per layer, and G runs forward n_critic + 1 times and its dx
+    once. With fused sites K6 and K7 take D1-D4's forward and dx."""
+    views = 1 if cfg.train.fused_d_views else 2
+    n = cfg.loss.n_critic
+    fused = cfg.model.fused_shuffle_sites != 0
+    counts = {"conv1d": 0, "convt1d": 0, "conv1d_tc": 0, "convt1d_tc": 0}
+
+    def add(family, L, times):
+        counts[family] += times
+        if tensor_core(family, L):
+            counts[family + "_tc"] += times
+    for i, (L, dx) in enumerate(zip(critic_layers(cfg, 2), critic_dx_layers(
+            cfg, 2))):
+        if fused and i > 0:
+            continue
+        add("conv1d", L, n * (views + 2) + 1)
+        add("convt1d", dx, n * (views + 1) + 1 if i > 0 else n + 1)
+    for L, dx in zip(generator_layers(cfg, 2), generator_dx_layers(cfg, 2)):
+        add("convt1d", L, n + 1)
+        add("conv1d", dx, 1)
+    return counts
 
 
 def convt_work(L: dict, itemsize: int) -> tuple[int, int]:
@@ -355,8 +420,11 @@ def compare_conv(family: str, layers: list[dict], dev) -> dict:
             err = (got.float() - want).abs().max().item()
             peak = want.abs().max().item()
             errs[(L["name"], dname)] = err
+            path = ("tensor_core" if dtype == torch.bfloat16
+                    and tensor_core(family, L) else "cuda_core")
             print(json.dumps({"compare": family, "dtype": dname,
-                              "geometry": L["name"], "x": list(x.shape),
+                              "geometry": L["name"], "path": path,
+                              "x": list(x.shape),
                               "cout": L["cout"], "max_abs_err": err,
                               "max_rel_err": err / peak, "max_abs_y": peak,
                               "tol_rel": tol}), flush=True)
@@ -1154,6 +1222,31 @@ def profile_step(cfg, dev, state) -> dict:
 
 # -- timing ---------------------------------------------------------------------
 
+def tc_tile_times(family: str, L: dict, x, w, b) -> dict:
+    """The tensor-core kernel at each of its tiles (kernels/conv.py
+    TC_TILES), launched with that tile's plan: the measured alternatives
+    to the tile the wrapper picks. Not counted launches."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    out = {}
+    for tile, (nwg, bn) in enumerate(kconv.TC_TILES):
+        if family == "conv1d":
+            plan = kconv.conv1d_tc_plan(L["b"], L["t_in"], L["cout"], L["k"],
+                                        L["s"], L["lo"], L["hi"], tile)
+            y = torch.empty(L["b"], (L["t_in"] + L["lo"] + L["hi"] - L["k"])
+                            // L["s"] + 1, L["cout"], dtype=x.dtype,
+                            device=x.device)
+            call = lambda: kconv._conv1d_tc(x, w, b, y, L["s"], plan,
+                                            L["act"], 0.2)
+        else:
+            plan = kconv.convt_tc_plan(L["b"], L["cout"], L["k"], L["s"],
+                                       L["pad_lo"], L["out_len"], tile)
+            y = torch.empty(L["b"], L["out_len"], L["cout"], dtype=x.dtype,
+                            device=x.device)
+            call = lambda: kconv._convt_tc(x, w, b, y, plan, L["act"], 0.2)
+        out[f"{64 * nwg}x{bn}"] = cuda_ms(call)
+    return out
+
+
 def time_conv(family: str, layers: list[dict], dev, errs: dict) -> list:
     from audiogan_tpu_torch.kernels import conv as kconv
     kname, pname, args_of, work, library = FAMILIES[family]
@@ -1165,8 +1258,22 @@ def time_conv(family: str, layers: list[dict], dev, errs: dict) -> list:
         flops, nbytes = work(L, 2)
         bound_ms, bound_by = bound(flops, nbytes)
         ms = cuda_ms(lambda: kernel(x, w, b, *args))
+        tc = tensor_core(family, L)
+        extra = {}
+        if tc:
+            if family == "conv1d":
+                plan = kconv.conv1d_tc_plan(L["b"], L["t_in"], L["cout"],
+                                            L["k"], L["s"], L["lo"], L["hi"])
+            else:
+                plan = kconv.convt_tc_plan(L["b"], L["cout"], L["k"], L["s"],
+                                           L["pad_lo"], L["out_len"])
+            nwg, bn = kconv.TC_TILES[int(plan[0])]
+            extra = {"tile": f"{64 * nwg}x{bn}", "rows": int(plan[1]),
+                     "nb": int(plan[2]),
+                     "tile_ms": tc_tile_times(family, L, x, w, b)}
         rows.append({
             "geometry": L["name"], "x": list(x.shape), "cout": L["cout"],
+            "path": "tensor_core" if tc else "cuda_core", **extra,
             "ms": ms, "tflops_per_s": flops / ms / 1e9,
             "plain_ms": cuda_ms(lambda: plain(x, w, b, *args)),
             "library_ms": cuda_ms(library(L, x, w, b)),
@@ -1252,8 +1359,12 @@ def main() -> int:
     counters = {"convt1d": kconv.conv_transpose1d_ba,
                 "conv1d": kconv.conv1d_ba, "ingest": king.ingest_fused,
                 "gru_scan": kgru.gru_scan_fwd,
-                "gru_scan_bwd": kgru.gru_scan_bwd}
-    wave_kernels = {k: counters[k] for k in ("convt1d", "conv1d", "ingest")}
+                "gru_scan_bwd": kgru.gru_scan_bwd,
+                "convt1d_tc": PathCounter(kconv.conv_transpose1d_ba,
+                                          "launches_tc"),
+                "conv1d_tc": PathCounter(kconv.conv1d_ba, "launches_tc")}
+    wave_kernels = {k: counters[k] for k in ("convt1d", "conv1d", "ingest",
+                                             "convt1d_tc", "conv1d_tc")}
     fused_kernels = {**wave_kernels, "sconv1d": ksconv.sconv1d_ba,
                      "sconvt1d": ksconv.sconvt1d}
 
@@ -1320,12 +1431,17 @@ def main() -> int:
 
     # 4. serve both generators -------------------------------------------------
     t0 = time.time()
-    sampler, served = serve_phase(cfg, dev, counters,
-                                  {"convt1d": len(g_fwd)})
+    sampler, served = serve_phase(
+        cfg, dev, counters,
+        {"convt1d": len(g_fwd),
+         "convt1d_tc": sum(tensor_core("convt1d", L) for L in g_fwd)})
     phase("serve", t0, **served)
     t0 = time.time()
+    # the GRU G's convT layers 256 -> 128 -> 64 -> 1: two on the tensor
+    # cores
     gsampler, gserved = serve_phase(gcfg, dev, counters,
-                                    {"gru_scan": 1, "convt1d": 3})
+                                    {"gru_scan": 1, "convt1d": 3,
+                                     "convt1d_tc": 2})
     phase("serve", t0, **gserved)
 
     # 5. one full-width f32 step of each preset, card vs CPU ---------------
@@ -1338,7 +1454,9 @@ def main() -> int:
     # 6. both presets, and the fused flagship, train ------------------------
     t0 = time.time()
     PShuf.calls = ksconv.sconv1d_ba.launches = ksconv.sconvt1d.launches = 0
-    trained = train_phase(cfg, dev, wave_kernels, {})
+    # K1' 85 and K1 80 per flagship step, 68 each on the tensor cores;
+    # the fused flagship 21 and 36, 4 and 24
+    trained = train_phase(cfg, dev, wave_kernels, conv_step_launches(cfg))
     unfused_shuffles = PShuf.calls
     if not unfused_shuffles or ksconv.sconv1d_ba.launches \
             or ksconv.sconvt1d.launches:
@@ -1349,7 +1467,8 @@ def main() -> int:
     k6_step, k7_step = fused_step_launches(fcfg)
     PShuf.calls = 0
     ftrained = train_phase(fcfg, dev, fused_kernels,
-                           {"sconv1d": k6_step, "sconvt1d": k7_step})
+                           {"sconv1d": k6_step, "sconvt1d": k7_step,
+                            **conv_step_launches(fcfg)})
     if PShuf.calls:
         raise AssertionError(f"fused critic shuffled {PShuf.calls} times")
     phase("train", t0, card=card, fused_shuffle_sites=-1,
@@ -1397,7 +1516,10 @@ def main() -> int:
             launches_per_train_step=per_step["convt1d"],
             launches_per_train_step_gru=gper_step["convt1d"],
             launches_serve=served["launches"]["convt1d"],
-            launches_serve_gru=gserved["launches"]["convt1d"]),
+            launches_serve_gru=gserved["launches"]["convt1d"],
+            launches_tensor_core=trained["launches"]["convt1d_tc"],
+            launches_tensor_core_per_train_step=per_step["convt1d_tc"],
+            launches_tensor_core_per_train_step_gru=gper_step["convt1d_tc"]),
         kernel_entry(
             "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
             "audiogan_tpu/kernels/conv.py:285",
@@ -1406,7 +1528,10 @@ def main() -> int:
             "sum over D's 5 layers forward (2B=128) and the dx of G's 5 "
             "layers (B=64), bf16", card,
             launches_per_train_step=per_step["conv1d"],
-            launches_per_train_step_gru=gper_step["conv1d"]),
+            launches_per_train_step_gru=gper_step["conv1d"],
+            launches_tensor_core=trained["launches"]["conv1d_tc"],
+            launches_tensor_core_per_train_step=per_step["conv1d_tc"],
+            launches_tensor_core_per_train_step_gru=gper_step["conv1d_tc"]),
         kernel_entry(
             "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
             "audiogan_tpu/kernels/ingest.py:124", "ingest_fused (body _kernel)",

@@ -34,6 +34,13 @@ GEOMS = [
     (9, 3, 50, 8, 40, None, None),
     (9, 4, 10, 8, 5, 3, 38),              # out_len % stride != 0
     (5, 2, 12, 6, 3, 0, 24),
+    # bf16 takes the tensor cores here (Cin, Cout >= 64, multiples of 8)
+    (25, 4, 16, 128, 136, None, None),    # m_out 16: stacked, ragged Cout
+    (25, 4, 70, 64, 64, None, None),      # ragged m
+    (25, 4, 40, 72, 64, None, None),      # ragged channel chunk
+    (9, 4, 10, 64, 72, 3, 38),            # out_len % stride != 0
+    (25, 7, 21, 64, 80, None, None),      # stride 7
+    (9, 16, 5, 64, 64, 4, 80),            # phases without a tap
 ]
 
 
@@ -63,10 +70,15 @@ def test_kernel_matches_plain(cuda_device, geom, act, dtype):
     _, s, _, _, _, pad_lo, out_len = geom
     x, w, b = _inputs(geom, dtype, cuda_device)
     before = tconv.conv_transpose1d_ba.launches
+    before_tc = tconv.conv_transpose1d_ba.launches_tc
+    before_cc = tconv.conv_transpose1d_ba.launches_cc
     got = tconv.conv_transpose1d_ba(x, w, b, s, pad_lo=pad_lo,
                                     out_len=out_len, act=act, slope=0.3)
     torch.cuda.synchronize()
     assert tconv.conv_transpose1d_ba.launches == before + 1
+    tc = tconv.convt_tensor_core(dtype, x.shape[2], w.shape[2], w.shape[0], s)
+    assert tconv.conv_transpose1d_ba.launches_tc == before_tc + int(tc)
+    assert tconv.conv_transpose1d_ba.launches_cc == before_cc + int(not tc)
     k = w.shape[0]
     want = tconv.conv_transpose1d_ba_plain(
         x.float(), w.float(), b.float(), s,
@@ -103,6 +115,14 @@ CONV1D_GEOMS = [
     (9, 3, 50, 8, 40, 4, 4),
     (5, 1, 40, 9, 7, 2, 2),
     (25, 4, 41, 3, 5, 14, 0),
+    # bf16 takes the tensor cores here (Cin, Cout >= 64, multiples of 8,
+    # T % s == 0)
+    (25, 4, 64, 128, 136, 10, 11),      # t_out 16: stacked, ragged Cout
+    (25, 4, 80, 64, 64, 10, 11),        # t_out 20: 3 per 64-row tile
+    (25, 4, 1000, 64, 72, 12, 9),       # ragged t tiles, hi below SAME
+    (9, 2, 70, 72, 64, 4, 0),           # ragged channel chunk, stride 2
+    (5, 1, 40, 64, 64, 2, 2),           # stride 1
+    (25, 4, 41, 64, 64, 14, 0),         # T % s != 0: the CUDA-core tiles
 ]
 
 
@@ -114,9 +134,14 @@ def test_conv1d_kernel_matches_plain(cuda_device, geom, act, dtype):
     x, w, b = _inputs((k, s, t_in, cin, cout, None, None), dtype,
                       cuda_device, seed=1)
     before = tconv.conv1d_ba.launches
+    before_tc = tconv.conv1d_ba.launches_tc
+    before_cc = tconv.conv1d_ba.launches_cc
     got = tconv.conv1d_ba(x, w, b, s, lo, hi, act, 0.3)
     torch.cuda.synchronize()
     assert tconv.conv1d_ba.launches == before + 1
+    tc = tconv.conv1d_tensor_core(dtype, t_in, cin, cout, k, s)
+    assert tconv.conv1d_ba.launches_tc == before_tc + int(tc)
+    assert tconv.conv1d_ba.launches_cc == before_cc + int(not tc)
     want = tconv.conv1d_ba_plain(x.float(), w.float(), b.float(), s, lo, hi,
                                  act, 0.3)
     assert got.dtype == dtype and got.shape == want.shape
@@ -124,6 +149,74 @@ def test_conv1d_kernel_matches_plain(cuda_device, geom, act, dtype):
     rel = 1e-4 if dtype == torch.float32 else 2e-2
     err = (got.float() - want).abs().max().item()
     assert err <= rel * want.abs().max().item(), err
+
+
+# the tensor-core path at each of its tiles: (family, geometry) with
+# geometry as in CONV1D_GEOMS / GEOMS
+TC_TILE_CASES = [
+    ("conv1d", (25, 4, 64, 128, 136, 10, 11)),
+    ("conv1d", (25, 4, 1000, 64, 72, 12, 9)),
+    ("convt1d", (25, 4, 16, 128, 136, 12, 64)),
+    ("convt1d", (25, 4, 70, 72, 64, 12, 280)),
+]
+
+
+def _tc_call(family, geom, tile, device, dtype=torch.bfloat16):
+    """(kernel with the plan of `tile`, plain form) on the same inputs."""
+    k, s, t_in, cin, cout, lo, hi_or_len = geom
+    x, w, b = _inputs((k, s, t_in, cin, cout, None, None), dtype, device,
+                      seed=2)
+    if family == "conv1d":
+        t_out = tconv.conv1d_t_out(t_in, k, s, lo, hi_or_len)
+        plan = tconv.conv1d_tc_plan(3, t_in, cout, k, s, lo, hi_or_len, tile)
+
+        def kernel():
+            y = torch.empty(3, t_out, cout, dtype=dtype, device=device)
+            tconv._conv1d_tc(x, w, b, y, s, plan, "leaky_relu", 0.3)
+            return y
+        want = tconv.conv1d_ba_plain(x.float(), w.float(), b.float(), s, lo,
+                                     hi_or_len, "leaky_relu", 0.3)
+    else:
+        plan = tconv.convt_tc_plan(3, cout, k, s, lo, hi_or_len, tile)
+
+        def kernel():
+            y = torch.empty(3, hi_or_len, cout, dtype=dtype, device=device)
+            tconv._convt_tc(x, w, b, y, plan, "leaky_relu", 0.3)
+            return y
+        want = tconv.conv_transpose1d_ba_plain(
+            x.float(), w.float(), b.float(), s, lo, hi_or_len, "leaky_relu",
+            0.3)
+    return kernel, want
+
+
+@pytest.mark.parametrize("tile", range(len(tconv.TC_TILES)))
+@pytest.mark.parametrize("family,geom", TC_TILE_CASES, ids=str)
+def test_tensor_core_tiles_match_plain_and_repeat_bit_for_bit(
+        cuda_device, family, geom, tile):
+    """Every tile of the tensor-core kernel against the plain form (one
+    rounding of the output, as above), and two launches give the same
+    bits: each output sums in one fixed order."""
+    kernel, want = _tc_call(family, geom, tile, cuda_device)
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    err = (first.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+    assert torch.equal(first, second)
+
+
+def test_tensor_core_path_refuses_a_misaligned_tensor(cuda_device):
+    """TMA reads 16-byte aligned bases: the wrapper raises, it does not
+    reroute to the CUDA-core tiles."""
+    x, w, b = _inputs((25, 4, 65, 64, 64, None, None), torch.bfloat16,
+                      cuda_device)
+    shifted = x.flatten()[1:1 + 3 * 64 * 64].view(3, 64, 64)
+    assert shifted.is_contiguous()
+    before = tconv.conv1d_ba.launches
+    with pytest.raises(ValueError, match="aligned"):
+        tconv.conv1d_ba(shifted, w, b, 4, 10, 11)
+    with pytest.raises(ValueError, match="aligned"):
+        tconv.conv_transpose1d_ba(shifted, w, b, 4)
+    assert tconv.conv1d_ba.launches == before
 
 
 @pytest.mark.parametrize("mu", [255.0, 0.0])
@@ -204,21 +297,29 @@ def test_second_order_through_kernels_matches_cpu(cuda_device, fused_sites):
         assert err <= 1e-4 * max(gc.norm().item(), 1e-12), err
 
 
-@pytest.mark.parametrize("fused_sites", [0, -1])
-def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites):
-    """Two runs of two f32 training steps from one seed on the same data
-    give the same parameters to the bit: no kernel and no weight gradient
-    sums in a run-dependent order."""
+@pytest.mark.parametrize("fused_sites,dtype", [(0, "float32"),
+                                               (-1, "float32"),
+                                               (0, "bfloat16")])
+def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
+                                                dtype):
+    """Two runs of two training steps from one seed on the same data give
+    the same parameters to the bit: no kernel and no weight gradient sums
+    in a run-dependent order. The bf16 case runs the tensor-core convs
+    (the model is widened to 64 channels for it)."""
     import dataclasses
 
     from audiogan_tpu_torch.train.state import create_train_state
     from audiogan_tpu_torch.train.step import build_train_step
     cfg = _tiny_cfg()
     batch = 16
+    width = {} if dtype == "float32" else {"model_dim": 64,
+                                           "max_channels": 128}
     cfg = cfg.replace(
-        model=dataclasses.replace(cfg.model, fused_shuffle_sites=fused_sites),
-        train=dataclasses.replace(cfg.train, dtype="float32",
+        model=dataclasses.replace(cfg.model, fused_shuffle_sites=fused_sites,
+                                  **width),
+        train=dataclasses.replace(cfg.train, dtype=dtype,
                                   batch_size=batch))
+    tc_before = tconv.conv1d_ba.launches_tc
     gen = torch.Generator().manual_seed(0)
     raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
                        generator=gen) * 6000).clamp(-32768, 32767)
@@ -234,6 +335,7 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites):
                                                 *state.d.parameters())])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    assert (tconv.conv1d_ba.launches_tc > tc_before) == (dtype == "bfloat16")
 
 
 # (B, H, F, n_frames): ragged against every gemm tile (32, 64, 128), a
