@@ -22,6 +22,15 @@ residuals (h_{t-1}, feat_{t-1}) and returns each gradient in the dtype of
 its primal. ``gru_scan_plain`` and ``gru_scan_bwd_plain`` are those
 numerics step by step in torch: the CPU path and the kernels' oracles.
 
+Each scan kernel has two paths, and which one a call takes is a pure
+function of dtype and shape (``gru_scan_persistent``): bf16 with B <= 64
+and H, F multiples of 16 runs one persistent cooperative launch per scan
+(K4) and per reverse sweep (K5), the weights resident in shared memory
+across the grid and the per-frame products on the tensor cores; f32 and
+every other shape the host loop of per-frame launches. The persistent
+kernels do no partition arithmetic of their own: ``gru_persistent_plan``
+gives each block its batch rows and its hidden-unit and feature columns.
+
 Layouts: x [B,in], h [B,H], w_i [in,3H], w_h [H,3H], b_i [3H],
 b_h [3H] -> h' [B,H] for the cell; h0 [B,H], cond [B,F], w_i [2F,3H],
 w_h [H,3H], b_i [3H], b_h [3H], w_ar [F,F], w_out [H,F], b_out [F] ->
@@ -33,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from audiogan_tpu_torch.kernels import _build
@@ -239,6 +249,125 @@ def gru_scan_bwd_plain(g, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
     return tuple(d.to(p.dtype) for d, p in zip(grads, primals))
 
 
+# The persistent path (csrc/gru_scan.cu: scan_fwd_persistent,
+# scan_bwd_persistent). A block owns m-tiles of 16 batch rows, unit tiles of
+# 8 hidden units (their r, z and n gate columns) and feature tiles of 8
+# columns of F; its products keep one m16n8 accumulator per column tile,
+# which bounds a block to GRU_MAX_UNIT_TILES and GRU_MAX_FEAT_TILES.
+GRU_TILE = 16                # H and F: multiples of one mma depth
+GRU_MAX_BATCH = 64           # four m-tiles of 16 rows
+GRU_MAX_UNIT_TILES = 2
+GRU_MAX_FEAT_TILES = 2
+GRU_MAX_M_TILES = 4
+GRU_WARPS = 8                # csrc/gru_scan.cu kPW
+GRU_SMEM_LIMIT = 232448      # an H100 block's shared memory
+GRU_MAX_BLOCKS = 132         # one block per SM of an H100: all resident
+PLAN_HEAD = 6                # G, NG, MS, MT, UT, FT; then per block
+                             # m_lo, m_hi, u_lo, u_hi, f_lo, f_hi
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gru_persistent_smem(hid: int, feat: int, mt: int, ut: int,
+                        ft: int) -> tuple[int, int]:
+    """Shared memory (bytes) of scan_fwd_persistent and
+    scan_bwd_persistent for blocks of at most mt m-tiles, ut unit tiles
+    and ft feature tiles (csrc/gru_scan.cu fwd_smem, bwd_smem): 16 bytes
+    per weight fragment row of 8 columns, the warps' partial sums, and
+    the f32 state the block keeps (the cond half, h w_h and h; dh, dh*z,
+    the frame sums of dgi, dgh and dfp, and the next frame's epilogue
+    inputs)."""
+    fwd = (16 * (3 * ut * (2 * feat + hid) + ft * (hid + feat))
+           + GRU_WARPS * 8 * 32 * 16 + 4 * 16 * mt * 56 * ut)
+    bwd = (16 * (ut * (feat + 3 * hid) + ft * (3 * hid + feat))
+           + GRU_WARPS * 2 * 32 * 16 + 4 * 16 * mt * (64 * ut + 8 * ft)
+           + 4 * 16 * mt * (52 * ut + 12 * ft))
+    return fwd, bwd
+
+
+def gru_persistent_grid(batch: int, hid: int, feat: int) -> tuple[int, int]:
+    """(column groups, row groups) of the persistent launch: the fewest
+    column groups that keep every block within its tile caps, and the
+    batch's m-tiles spread over as many row groups as the card holds
+    (at most one per m-tile): 32 x 4 = 128 blocks at cond_gru_sc09.
+    (The choice the timings of every grid on the card favour: PERF.md
+    §6.)"""
+    ng = max(_cdiv(hid // 8, GRU_MAX_UNIT_TILES),
+             _cdiv(feat // 8, GRU_MAX_FEAT_TILES))
+    n_m = _cdiv(batch, 16)
+    ms = next((m for m in (4, 2, 1) if m <= n_m and ng * m <= GRU_MAX_BLOCKS),
+              1)
+    return ng, ms
+
+
+def _split(n: int, parts: int, i: int) -> tuple[int, int]:
+    return i * n // parts, (i + 1) * n // parts
+
+
+@functools.cache
+def gru_persistent_plan(batch: int, hid: int, feat: int,
+                        grid: tuple[int, int] | None = None) -> np.ndarray:
+    """The int32 array the persistent kernels are launched with (read-only;
+    cached, the wrapper asks every call). Block b = cg * ms + rg takes row
+    group rg's m-tiles and column group cg's unit and feature tiles, each
+    range an even contiguous share, so every (row, column) of every phase
+    has exactly one owner. Header: G, NG, MS and the largest m, unit and
+    feature tile counts of a block (the kernels' shared memory layout)."""
+    ng, ms = gru_persistent_grid(batch, hid, feat) if grid is None else grid
+    n_m, n_u, n_f = _cdiv(batch, 16), hid // 8, feat // 8
+    if ms > n_m or hid % 8 or feat % 8:
+        raise ValueError(f"grid {ng}x{ms} for B={batch} H={hid} F={feat}")
+    blocks = []
+    for cg in range(ng):
+        for rg in range(ms):
+            blocks.append((*_split(n_m, ms, rg), *_split(n_u, ng, cg),
+                           *_split(n_f, ng, cg)))
+    per = np.asarray(blocks, dtype=np.int32).reshape(-1, 6)
+    spans = per[:, 1::2] - per[:, 0::2]
+    mt, ut, ft = (int(v) for v in spans.max(axis=0))
+    if (ut > GRU_MAX_UNIT_TILES or ft > GRU_MAX_FEAT_TILES
+            or mt > GRU_MAX_M_TILES):
+        raise ValueError(f"grid {ng}x{ms}: a block holds {mt} m-tiles, {ut} "
+                         f"unit and {ft} feature tiles")
+    plan = np.concatenate([np.asarray([ng * ms, ng, ms, mt, ut, ft],
+                                      dtype=np.int32), per.ravel()])
+    plan.flags.writeable = False
+    return plan
+
+
+def gru_scan_persistent(dtype, batch: int, hid: int, feat: int) -> bool:
+    """True iff gru_scan_fwd and gru_scan_bwd run this shape on the
+    persistent path: bf16, 1 <= B <= GRU_MAX_BATCH, H and F multiples of
+    GRU_TILE, and a grid that fits the card (one block per SM, each within
+    the shared memory limit)."""
+    if not (dtype == torch.bfloat16 and 1 <= batch <= GRU_MAX_BATCH
+            and hid > 0 and feat > 0 and hid % GRU_TILE == 0
+            and feat % GRU_TILE == 0):
+        return False
+    blocks, _, _, mt, ut, ft = (
+        int(v) for v in gru_persistent_plan(batch, hid, feat)[:PLAN_HEAD])
+    return (blocks <= GRU_MAX_BLOCKS
+            and max(gru_persistent_smem(hid, feat, mt, ut, ft))
+            <= GRU_SMEM_LIMIT)
+
+
+@functools.cache
+def _device_plan(plan_bytes: bytes, device: torch.device) -> torch.Tensor:
+    return torch.frombuffer(bytearray(plan_bytes), dtype=torch.int32).to(
+        device)
+
+
+def _plan_ptrs(plan: np.ndarray, device: torch.device):
+    """(host array, its int pointer, the device copy) of a plan; the first
+    and last keep the memory alive through the call."""
+    host = np.ascontiguousarray(plan, dtype=np.int32)
+    dev = _device_plan(host.tobytes(), device)
+    return host, ctypes.cast(host.ctypes.data,
+                             ctypes.POINTER(ctypes.c_int)), dev
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """csrc/gru_scan.cu, built at first use, with its C signatures."""
@@ -247,11 +376,12 @@ def _lib() -> ctypes.CDLL:
     lib.gru_scan_fwd_workspace.restype = ctypes.c_size_t
     lib.gru_scan_bwd_workspace.argtypes = [ctypes.c_int] * 4
     lib.gru_scan_bwd_workspace.restype = ctypes.c_size_t
+    plan = [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     lib.gru_scan_fwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                                 + [ctypes.c_void_p])
+                                 + plan + [ctypes.c_void_p])
     lib.gru_scan_fwd.restype = ctypes.c_int
-    lib.gru_scan_bwd.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
-                                 + [ctypes.c_void_p])
+    lib.gru_scan_bwd.argtypes = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 6
+                                 + plan + [ctypes.c_void_p])
     lib.gru_scan_bwd.restype = ctypes.c_int
     lib.gru_scan_error_string.argtypes = [ctypes.c_int]
     lib.gru_scan_error_string.restype = ctypes.c_char_p
@@ -279,19 +409,11 @@ def _raise_if(lib, err: int, name: str) -> None:
                            + lib.gru_scan_error_string(err).decode())
 
 
-def gru_scan_fwd(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
-                 n_frames: int, with_h: bool = False):
-    """The scan -> feats [B, n_frames, F] (and h_seq [n_frames, B, H] if
-    with_h), in h0.dtype. A CPU tensor takes the plain form. A CUDA
-    tensor launches K4 (every input f32 or every input bf16) or raises;
-    it never falls back. Records no autograd history (see gru_scan)."""
-    args = (h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out)
+def _scan_fwd(args, n_frames: int, with_h: bool, plan):
+    """One K4 call on checked CUDA tensors: the persistent launch with the
+    given plan, or the host loop when plan is None."""
+    h0 = args[0]
     b, hid, feat = _dims(*args)
-    if n_frames < 1:
-        raise ValueError(f"n_frames={n_frames}")
-    if h0.device.type == "cpu":
-        return gru_scan_plain(*args, n_frames, with_h)
-    _check_kernel_args("gru_scan", args)
     dev, dt = h0.device, h0.dtype
     out = torch.empty((b, n_frames, feat), dtype=dt, device=dev)
     h_seq = (torch.empty((n_frames, b, hid), dtype=dt, device=dev)
@@ -299,16 +421,48 @@ def gru_scan_fwd(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
     lib = _lib()
     ws = torch.empty(lib.gru_scan_fwd_workspace(b, hid, feat),
                      dtype=torch.float32, device=dev)
+    # host keeps the plan's array alive through the call
+    host, ptr, plan_dev = (_plan_ptrs(plan, dev) if plan is not None
+                           else (None, None, None))
     err = lib.gru_scan_fwd(
         *(t.data_ptr() for t in args), out.data_ptr(),
         h_seq.data_ptr() if with_h else None, ws.data_ptr(), b, hid, feat,
-        n_frames, _DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        n_frames, _DTYPES[dt], ptr,
+        plan_dev.data_ptr() if plan_dev is not None else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(lib, err, "gru_scan")
-    gru_scan_fwd.launches += 1
     return (out, h_seq) if with_h else out
 
 
+def gru_scan_fwd(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
+                 n_frames: int, with_h: bool = False):
+    """The scan -> feats [B, n_frames, F] (and h_seq [n_frames, B, H] if
+    with_h), in h0.dtype. A CPU tensor takes the plain form. A CUDA
+    tensor launches K4 (every input f32 or every input bf16) or raises;
+    it never falls back. Where ``gru_scan_persistent`` holds the scan is
+    one persistent launch (counted in ``launches_persistent``), else the
+    host loop (``launches_loop``); ``launches`` counts both. Records no
+    autograd history (see gru_scan)."""
+    args = (h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out)
+    b, hid, feat = _dims(*args)
+    if n_frames < 1:
+        raise ValueError(f"n_frames={n_frames}")
+    if h0.device.type == "cpu":
+        return gru_scan_plain(*args, n_frames, with_h)
+    _check_kernel_args("gru_scan", args)
+    if gru_scan_persistent(h0.dtype, b, hid, feat):
+        res = _scan_fwd(args, n_frames, with_h,
+                        gru_persistent_plan(b, hid, feat))
+        gru_scan_fwd.launches_persistent += 1
+    else:
+        res = _scan_fwd(args, n_frames, with_h, None)
+        gru_scan_fwd.launches_loop += 1
+    gru_scan_fwd.launches += 1
+    return res
+
+
 gru_scan_fwd.launches = 0
+gru_scan_fwd.launches_persistent = gru_scan_fwd.launches_loop = 0
 
 
 def gru_scan_bwd(g, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
@@ -328,22 +482,58 @@ def gru_scan_bwd(g, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
     if h0.device.type == "cpu":
         return gru_scan_bwd_plain(g, *args, feats, h_seq)
     _check_kernel_args("gru_scan_bwd", (g, *args, feats, h_seq))
-    prev_f, prev_h = _prev_residuals(h0, feats, h_seq)
-    grads = tuple(torch.empty_like(t) for t in args)
-    lib = _lib()
-    ws = torch.empty(lib.gru_scan_bwd_workspace(b, hid, feat, n_frames),
-                     dtype=torch.float32, device=h0.device)
-    err = lib.gru_scan_bwd(
-        g.data_ptr(), prev_f.data_ptr(), prev_h.data_ptr(),
-        *(t.data_ptr() for t in args[1:]), *(d.data_ptr() for d in grads),
-        ws.data_ptr(), b, hid, feat, n_frames, _DTYPES[h0.dtype],
-        torch.cuda.current_stream(h0.device).cuda_stream)
-    _raise_if(lib, err, "gru_scan_bwd")
+    persistent = gru_scan_persistent(h0.dtype, b, hid, feat)
+    call = ScanBwdCall(g, args, feats, h_seq,
+                       gru_persistent_plan(b, hid, feat) if persistent
+                       else None)
+    call.run(BWD_ALL_STAGES)
+    if persistent:
+        gru_scan_bwd.launches_persistent += 1
+    else:
+        gru_scan_bwd.launches_loop += 1
     gru_scan_bwd.launches += 1
-    return grads
+    return call.grads
 
 
 gru_scan_bwd.launches = 0
+gru_scan_bwd.launches_persistent = gru_scan_bwd.launches_loop = 0
+
+# K5's stages (csrc/gru_scan.cu gru_scan_bwd): the recompute of every
+# frame's gates, the reverse sweep, the weight gradients
+BWD_STAGES = {"recompute": 1, "sweep": 2, "weight_grads": 4}
+BWD_ALL_STAGES = 7
+
+
+class ScanBwdCall:
+    """One K5 call on checked CUDA tensors, its workspace and outputs held,
+    so that its stages can run as separate launches in order (to time
+    them); plan None takes the host loop for the sweep."""
+
+    def __init__(self, g, args, feats, h_seq, plan):
+        h0 = args[0]
+        self.b, self.hid, self.feat = _dims(*args)
+        self.n_frames = feats.shape[1]
+        self.g, self.args, self.feats, self.h_seq = g, args, feats, h_seq
+        self.grads = tuple(torch.empty_like(t) for t in args)
+        self.lib = _lib()
+        self.ws = torch.empty(
+            self.lib.gru_scan_bwd_workspace(self.b, self.hid, self.feat,
+                                            self.n_frames),
+            dtype=torch.float32, device=h0.device)
+        self.plan = (_plan_ptrs(plan, h0.device) if plan is not None
+                     else (None, None, None))
+
+    def run(self, stages: int) -> None:
+        h0 = self.args[0]
+        _, ptr, plan_dev = self.plan
+        err = self.lib.gru_scan_bwd(
+            self.g.data_ptr(), self.feats.data_ptr(), self.h_seq.data_ptr(),
+            *(t.data_ptr() for t in self.args),
+            *(d.data_ptr() for d in self.grads), self.ws.data_ptr(), self.b,
+            self.hid, self.feat, self.n_frames, _DTYPES[h0.dtype], stages,
+            ptr, plan_dev.data_ptr() if plan_dev is not None else None,
+            torch.cuda.current_stream(h0.device).cuda_stream)
+        _raise_if(self.lib, err, "gru_scan_bwd")
 
 
 class GruScan(torch.autograd.Function):

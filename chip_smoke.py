@@ -24,7 +24,9 @@ non-zero:
             at [64, 16384] with store = clip and with store 20000 and
             random offsets; the GRU scan (K4, with and without h_seq) and
             its backward (K5) at cond_gru_sc09's widths, batch 64 (the GRU
-            G's three convT layers and the critic are flagship geometries);
+            G's three convT layers and the critic are flagship geometries;
+            in bf16 K4 and K5 must take the persistent path, in f32 the
+            host loop);
             sconv1d (K6) at the four fused sites' convs (2B) and sconvt1d
             (K7) at their x-gradients, every offset in the batch; the GRU
             cell (K3) at cond_gru_sc09's cell, x and h [64, 512], forward
@@ -47,7 +49,7 @@ non-zero:
             just before each path, read just after; K1', K1, their
             tensor-core launches (zero is a failure), K6 and K7 held to
             the counts the step's structure gives, the unfused shuffle to
-            none),
+            none, K4 6 and K5 1 per GRU step, all persistent),
             peak device memory; one more step under torch.profiler for the
             device time by kernel. Then the GRU cell's 256-frame recurrence,
             forward and backward, against the same recurrence through the
@@ -60,7 +62,9 @@ non-zero:
             bound; for K6 and K7, which no single PyTorch call computes,
             the unfused pair they replace (shuffle + conv1d kernel, convT
             kernel + shuffle's transpose); the GRU scan's CUDA launches per
-            call; each sampler's clips/s.
+            call, its path, K5's three stages (recompute, sweep, weight
+            gradients), the persistent kernels at each grid of gru_grids
+            and the host loop on the same inputs; each sampler's clips/s.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -112,6 +116,8 @@ SERVE_BF16_REL_TOL = 5e-2
 GRU_BWD_REL_L2 = 1e-3         # K5: every gradient sums over 16384 rows
 BUILD_LIMIT_S = 180.0
 SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell")
+# K3 against torch.nn.GRUCell: alternating rounds of launches, medians
+K3_ROUNDS, K3_LAUNCHES = 5, 50
 # a flagship step takes about 0.13 s on the tensor-core convs: 20 timed
 # steps keep the rate's window near 3 s
 TRAIN_WARMUP, TRAIN_TIMED = 2, 20
@@ -514,6 +520,13 @@ def bf16_ulp(x: float) -> float:
     return float(2.0 ** (np.floor(np.log2(max(x, 1e-30))) - 7))
 
 
+def gru_path(dtype, b: int, hid: int, feat: int) -> str:
+    """The path kernels/gru.py's dispatch gives a scan of this shape."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    return ("persistent" if kgru.gru_scan_persistent(dtype, b, hid, feat)
+            else "loop")
+
+
 def compare_gru(cfg, dev) -> dict:
     """K4 (without and with h_seq) and K5 against their plain forms on the
     same inputs, f32 and bf16. K4: f32 within F32_REL_TOL of the peak,
@@ -521,14 +534,21 @@ def compare_gru(cfg, dev) -> dict:
     rounding of the output); K5: every gradient within GRU_BWD_REL_L2
     relative L2."""
     from audiogan_tpu_torch.kernels import gru as kgru
-    b, _, feat, n = gru_dims(cfg)
+    b, hid, feat, n = gru_dims(cfg)
     errs = {}
     for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         args = gru_inputs(cfg, dtype, dev)
+        path = gru_path(dtype, b, hid, feat)
         for with_h in (False, True):
+            before = kgru.gru_scan_fwd.launches_persistent
             got = kgru.gru_scan_fwd(*args, n, with_h=with_h)
             want = kgru.gru_scan_plain(*args, n, with_h=with_h)
             torch.cuda.synchronize()
+            took = ("persistent" if kgru.gru_scan_fwd.launches_persistent
+                    > before else "loop")
+            if took != path:
+                raise AssertionError(f"gru_scan {dname} took the {took} "
+                                     f"path, want {path}")
             outs = (zip(("feats", "h_seq"), got, want) if with_h
                     else [("feats", got, want)])
             for out, g, w in outs:
@@ -537,7 +557,8 @@ def compare_gru(cfg, dev) -> dict:
                 tol = (F32_REL_TOL * peak if dtype == torch.float32
                        else bf16_ulp(peak))
                 print(json.dumps({"compare": "gru_scan", "dtype": dname,
-                                  "with_h_seq": with_h, "output": out,
+                                  "path": path, "with_h_seq": with_h,
+                                  "output": out,
                                   "shape": list(g.shape),
                                   "max_abs_err": err, "max_abs_y": peak,
                                   "tol_abs": tol}), flush=True)
@@ -549,9 +570,15 @@ def compare_gru(cfg, dev) -> dict:
         out, h_seq = kgru.gru_scan_fwd(*args, n, with_h=True)
         gen = torch.Generator(dev).manual_seed(1)
         ct = torch.randn(b, n, feat, generator=gen, device=dev).to(dtype)
+        before = kgru.gru_scan_bwd.launches_persistent
         got = kgru.gru_scan_bwd(ct, *args, out, h_seq)
         want = kgru.gru_scan_bwd_plain(ct, *args, out, h_seq)
         torch.cuda.synchronize()
+        took = ("persistent" if kgru.gru_scan_bwd.launches_persistent
+                > before else "loop")
+        if took != path:
+            raise AssertionError(f"gru_scan_bwd {dname} took the {took} "
+                                 f"path, want {path}")
         rel, abs_err = {}, 0.0
         for name, a, g, w in zip(kgru.ARG_NAMES, args, got, want):
             if g.dtype != a.dtype or g.shape != a.shape:
@@ -561,7 +588,7 @@ def compare_gru(cfg, dev) -> dict:
             rel[name] = (d.norm() / w.float().norm().clamp_min(1e-30)).item()
             abs_err = max(abs_err, d.abs().max().item())
         print(json.dumps({"compare": "gru_scan_bwd", "dtype": dname,
-                          "rel_l2": rel, "max_abs_err": abs_err,
+                          "path": path, "rel_l2": rel, "max_abs_err": abs_err,
                           "tol_rel_l2": GRU_BWD_REL_L2}), flush=True)
         bad = {k: v for k, v in rel.items() if not v <= GRU_BWD_REL_L2}
         if bad:
@@ -592,21 +619,88 @@ def device_launches(fn) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA)
 
 
-def time_gru(cfg, dev, errs: dict) -> dict:
-    """K4 (without h_seq; with it beside) and K5 at B=64, bf16."""
+def bwd_stage_ms(call, iters: int = 5) -> dict:
+    """K5's three stages (kernels/gru.py BWD_STAGES) of one call, each run
+    as its own launch in order and timed with CUDA events around it; means
+    over iters after one warm-up call."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    call.run(kgru.BWD_ALL_STAGES)
+    torch.cuda.synchronize()
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+           for _ in range(iters)]
+    for ev in evs:
+        ev[0].record()
+        for i, bit in enumerate(kgru.BWD_STAGES.values()):
+            call.run(bit)
+            ev[i + 1].record()
+    torch.cuda.synchronize()
+    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in evs) / iters
+            for i, name in enumerate(kgru.BWD_STAGES)}
+
+
+def gru_grids(b: int, hid: int, feat: int) -> list:
+    """The persistent grids timed beside the rule's: (column groups, row
+    groups) with the rule's column groups or twice as many, and one, two
+    or four row groups; each resident on the card (one block per SM)."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    ng, _ = kgru.gru_persistent_grid(b, hid, feat)
+    n_m = -(-b // 16)
+    return [(c, m) for c in (ng, 2 * ng) for m in (4, 2, 1)
+            if m <= n_m and c * m <= kgru.GRU_MAX_BLOCKS
+            and c <= hid // 8]
+
+
+def gru_launch_counts(cfg, dev) -> dict:
+    """CUDA launches (device_launches) of one K4 call without h_seq and one
+    K5 call at B=64, bf16, through the wrappers; K5's stage by stage (the
+    stages run in order); and the host loop's on the same inputs. Taken
+    before the training phase: after its step profiles, the profiler
+    recorded neither the cooperative launches nor some of the others."""
+    from audiogan_tpu_torch.kernels import gru as kgru
+    b, hid, feat, n = gru_dims(cfg)
+    args = gru_inputs(cfg, torch.bfloat16, dev)
+    out, h_seq = kgru.gru_scan_fwd(*args, n, with_h=True)
+    ct = torch.randn(b, n, feat, generator=torch.Generator(dev).manual_seed(1),
+                     device=dev).bfloat16()
+    persistent = gru_path(torch.bfloat16, b, hid, feat) == "persistent"
+    plan = kgru.gru_persistent_plan(b, hid, feat) if persistent else None
+    counts = {"gru_scan": device_launches(lambda: kgru.gru_scan_fwd(*args,
+                                                                    n)),
+              "gru_scan_bwd": device_launches(
+                  lambda: kgru.gru_scan_bwd(ct, *args, out, h_seq))}
+    call = kgru.ScanBwdCall(ct, args, out, h_seq, plan)
+    counts["gru_scan_bwd_per_stage"] = {
+        name: device_launches(lambda: call.run(bit))
+        for name, bit in kgru.BWD_STAGES.items()}
+    loop = kgru.ScanBwdCall(ct, args, out, h_seq, None)
+    counts["gru_scan_loop"] = device_launches(
+        lambda: kgru._scan_fwd(args, n, False, None))
+    counts["gru_scan_bwd_loop"] = device_launches(
+        lambda: loop.run(kgru.BWD_ALL_STAGES))
+    return counts
+
+
+def time_gru(cfg, dev, errs: dict, launches: dict) -> dict:
+    """K4 (without h_seq; with it beside) and K5 at B=64, bf16: the path
+    the wrapper takes, K5's three stages, the persistent kernels at each
+    grid of gru_grids, and the host loop of PR 8's design on the same
+    inputs (both launched through kernels/gru.py's internal calls, not
+    counted)."""
     from audiogan_tpu_torch.kernels import gru as kgru
     b, hid, feat, n = gru_dims(cfg)
     args = gru_inputs(cfg, torch.bfloat16, dev)
     out, h_seq = kgru.gru_scan_fwd(*args, n, with_h=True)
     gen = torch.Generator(dev).manual_seed(1)
     ct = torch.randn(b, n, feat, generator=gen, device=dev).bfloat16()
+    path = gru_path(torch.bfloat16, b, hid, feat)
     calls = {
         "gru_scan": (lambda: kgru.gru_scan_fwd(*args, n),
                      lambda: kgru.gru_scan_plain(*args, n), False),
@@ -620,17 +714,50 @@ def time_gru(cfg, dev, errs: dict) -> dict:
         bound_ms, bound_by = bound(flops, nbytes)
         ms = cuda_ms(kernel, iters=5, warmup=1)
         rows[name] = {
-            "geometry": f"B={b} H={hid} F={feat} frames={n}",
+            "geometry": f"B={b} H={hid} F={feat} frames={n}", "path": path,
             "ms": ms, "tflops_per_s": flops / ms / 1e9,
             "plain_ms": cuda_ms(plain, iters=2, warmup=1),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes,
             "max_abs_err": errs[(name, "bf16")],
-            "cuda_launches_per_call": device_launches(kernel)}
+            "cuda_launches_per_call": launches[name]}
     rows["gru_scan"]["ms_with_h_seq"] = cuda_ms(
         lambda: kgru.gru_scan_fwd(*args, n, with_h=True), iters=5, warmup=1)
     rows["gru_scan_bwd"]["max_rel_l2_bf16"] = errs[("gru_scan_bwd_rel_l2",
                                                      "bf16")]
+    rule = (kgru.gru_persistent_grid(b, hid, feat) if path == "persistent"
+            else None)
+    plan = kgru.gru_persistent_plan(b, hid, feat) if rule else None
+    bwd = kgru.ScanBwdCall(ct, args, out, h_seq, plan)
+    rows["gru_scan_bwd"]["stages_ms"] = bwd_stage_ms(bwd)
+    rows["gru_scan_bwd"]["cuda_launches_per_stage"] = launches[
+        "gru_scan_bwd_per_stage"]
+    if rule:
+        grids = {}
+        for grid in gru_grids(b, hid, feat):
+            gplan = kgru.gru_persistent_plan(b, hid, feat, grid)
+            gbwd = kgru.ScanBwdCall(ct, args, out, h_seq, gplan)
+            grids[f"{grid[0]}x{grid[1]}"] = {
+                "blocks": int(gplan[0]),
+                "fwd_ms": cuda_ms(lambda: kgru._scan_fwd(args, n, False,
+                                                         gplan),
+                                  iters=5, warmup=1),
+                "bwd_sweep_ms": bwd_stage_ms(gbwd, iters=3)["sweep"]}
+        for name in rows:
+            rows[name]["grid"] = f"{rule[0]}x{rule[1]}"
+            rows[name]["blocks"] = int(plan[0])
+            rows[name]["grids"] = grids
+        # the host loop (PR 8's design) on the same inputs, for the A/B
+        def loop_fwd():
+            return kgru._scan_fwd(args, n, False, None)
+        rows["gru_scan"]["loop_ms"] = cuda_ms(loop_fwd, iters=3, warmup=1)
+        rows["gru_scan"]["loop_cuda_launches"] = launches["gru_scan_loop"]
+        loop = kgru.ScanBwdCall(ct, args, out, h_seq, None)
+        rows["gru_scan_bwd"]["loop_stages_ms"] = bwd_stage_ms(loop, iters=3)
+        rows["gru_scan_bwd"]["loop_ms"] = sum(
+            rows["gru_scan_bwd"]["loop_stages_ms"].values())
+        rows["gru_scan_bwd"]["loop_cuda_launches"] = launches[
+            "gru_scan_bwd_loop"]
     for name, row in rows.items():
         print(json.dumps({"timing": name, **row}), flush=True)
     return rows
@@ -847,7 +974,11 @@ def time_gru_cell(cfg, dev, errs: dict) -> dict:
     """K3 at cond_gru_sc09's cell, bf16. Its library call is
     torch.nn.GRUCell, the same r, z, n gates and blend over [3H, in]
     weights (w_i.T and w_h.T, copied outside the timed call); it is first
-    held to the plain form in f32 (F32_REL_TOL of the peak)."""
+    held to the plain form in f32 (F32_REL_TOL of the peak). The two are
+    timed in K3_ROUNDS alternating rounds (K3, library, K3, ...) of
+    K3_LAUNCHES launches each, after one warm-up round of each; ms and
+    library_ms are the medians, with each one's spread (max - min over
+    its rounds) beside them."""
     from audiogan_tpu_torch.kernels import gru as kgru
 
     def library(dtype):
@@ -872,10 +1003,21 @@ def time_gru_cell(cfg, dev, errs: dict) -> dict:
     flops = 2 * b * 3 * hid * (in_dim + hid)
     nbytes = 2 * (sum(a.numel() for a in args) + b * hid)
     bound_ms, bound_by = bound(flops, nbytes)
+    rounds = {"kernel": [], "library": []}
     with torch.no_grad():
-        library_ms = cuda_ms(lambda: cell(x, h), iters=50)
-    ms = cuda_ms(lambda: kgru.gru_cell_fwd(*args), iters=50)
+        for i in range(K3_ROUNDS):
+            for name, fn in (("kernel", lambda: kgru.gru_cell_fwd(*args)),
+                             ("library", lambda: cell(x, h))):
+                rounds[name].append(cuda_ms(fn, iters=K3_LAUNCHES,
+                                            warmup=1 if i else 3))
+    ms = float(np.median(rounds["kernel"]))
+    library_ms = float(np.median(rounds["library"]))
     row = {"geometry": f"x [{b},{in_dim}], h [{b},{hid}]", "ms": ms,
+           "ms_spread": max(rounds["kernel"]) - min(rounds["kernel"]),
+           "library_ms_spread": (max(rounds["library"])
+                                 - min(rounds["library"])),
+           "rounds_ms": rounds, "protocol": f"median of {K3_ROUNDS} "
+           f"alternating rounds of {K3_LAUNCHES} launches",
            "tflops_per_s": flops / ms / 1e9,
            "plain_ms": cuda_ms(lambda: kgru.gru_cell_plain(*args), iters=50),
            "library_ms": library_ms, "library_f32_max_abs_err": lib_err,
@@ -1360,6 +1502,10 @@ def main() -> int:
                 "conv1d": kconv.conv1d_ba, "ingest": king.ingest_fused,
                 "gru_scan": kgru.gru_scan_fwd,
                 "gru_scan_bwd": kgru.gru_scan_bwd,
+                "gru_scan_persistent": PathCounter(kgru.gru_scan_fwd,
+                                                   "launches_persistent"),
+                "gru_scan_bwd_persistent": PathCounter(
+                    kgru.gru_scan_bwd, "launches_persistent"),
                 "convt1d_tc": PathCounter(kconv.conv_transpose1d_ba,
                                           "launches_tc"),
                 "conv1d_tc": PathCounter(kconv.conv1d_ba, "launches_tc")}
@@ -1419,6 +1565,7 @@ def main() -> int:
     cases = ingest_cases(dev)
     errs["ingest"] = compare_ingest(cases, dev)
     errs["gru"] = compare_gru(gcfg, dev)
+    gru_launches = gru_launch_counts(gcfg, dev)
     errs["gru_cell"] = compare_gru_cell(gcfg, dev)
     single = ("gru", "gru_cell")
     phase("compare", t0, geometries={k: len(v) // 2 if k != "ingest"
@@ -1427,6 +1574,7 @@ def main() -> int:
           max_abs_err={k: max(v.values()) for k, v in errs.items()
                        if k not in single},
           gru={" ".join(k): v for k, v in errs["gru"].items()},
+          gru_cuda_launches=gru_launches,
           gru_cell={" ".join(k): v for k, v in errs["gru_cell"].items()})
 
     # 4. serve both generators -------------------------------------------------
@@ -1439,9 +1587,10 @@ def main() -> int:
     t0 = time.time()
     # the GRU G's convT layers 256 -> 128 -> 64 -> 1: two on the tensor
     # cores
+    # the served batch of 64 runs K4 on the persistent path
     gsampler, gserved = serve_phase(gcfg, dev, counters,
-                                    {"gru_scan": 1, "convt1d": 3,
-                                     "convt1d_tc": 2})
+                                    {"gru_scan": 1, "gru_scan_persistent": 1,
+                                     "convt1d": 3, "convt1d_tc": 2})
     phase("serve", t0, **gserved)
 
     # 5. one full-width f32 step of each preset, card vs CPU ---------------
@@ -1474,9 +1623,12 @@ def main() -> int:
     phase("train", t0, card=card, fused_shuffle_sites=-1,
           pshuf_calls=PShuf.calls, **ftrained)
     t0 = time.time()
+    # K4 6 and K5 1 per step, every one on the persistent path in bf16
     gtrained = train_phase(gcfg, dev, counters,
                            {"gru_scan": 1 + gcfg.loss.n_critic,
-                            "gru_scan_bwd": 1})
+                            "gru_scan_bwd": 1,
+                            "gru_scan_persistent": 1 + gcfg.loss.n_critic,
+                            "gru_scan_bwd_persistent": 1})
     phase("train", t0, card=card, **gtrained)
     t0 = time.time()
     cell_run = gru_cell_phase(gcfg, dev)
@@ -1488,7 +1640,7 @@ def main() -> int:
                                  errs["convt1d"]),
             "conv1d": time_conv("conv1d", d_fwd + g_dx, dev, errs["conv1d"]),
             "ingest": time_ingest(cases, errs["ingest"]),
-            **time_gru(gcfg, dev, errs["gru"]),
+            **time_gru(gcfg, dev, errs["gru"], gru_launches),
             "sconv1d": time_sconv(False, s_fwd, dev, errs["sconv1d"]),
             "sconvt1d": time_sconv(True, s_dx, dev, errs["sconvt1d"]),
             "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"])}
@@ -1547,14 +1699,19 @@ def main() -> int:
             gtrained["launches"]["gru_scan"], [rows["gru_scan"]],
             gru_per + ", without h_seq", card,
             launches_per_train_step=gper_step["gru_scan"],
-            launches_serve=gserved["launches"]["gru_scan"]),
+            launches_serve=gserved["launches"]["gru_scan"],
+            launches_persistent=gtrained["launches"]["gru_scan_persistent"],
+            launches_persistent_serve=gserved["launches"][
+                "gru_scan_persistent"]),
         kernel_entry(
             "gru_scan_bwd", "audiogan_tpu_torch/csrc/gru_scan.cu",
             "audiogan_tpu/kernels/gru.py:397",
             "_gru_scan_bwd (body _gru_scan_bwd_kernel)",
             gtrained["launches"]["gru_scan_bwd"], [rows["gru_scan_bwd"]],
             gru_per + ": the nine gradients", card,
-            launches_per_train_step=gper_step["gru_scan_bwd"]),
+            launches_per_train_step=gper_step["gru_scan_bwd"],
+            launches_persistent=gtrained["launches"][
+                "gru_scan_bwd_persistent"]),
         kernel_entry(
             "sconv1d", "audiogan_tpu_torch/csrc/sconv.cu",
             "audiogan_tpu/kernels/sconv.py:440",

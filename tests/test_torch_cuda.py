@@ -297,29 +297,50 @@ def test_second_order_through_kernels_matches_cpu(cuda_device, fused_sites):
         assert err <= 1e-4 * max(gc.norm().item(), 1e-12), err
 
 
+def _tiny_gru_cfg():
+    """A conditional GRU generator whose scans take the persistent path in
+    bf16 (H = F = 64)."""
+    from audiogan_tpu_torch.config import Config, DataCfg, ModelCfg
+    return Config(data=DataCfg(clip_len=2048, store_len=2048, num_classes=10),
+                  model=ModelCfg(generator="gru", model_dim=16,
+                                 kernel_size=25, gru_frame_size=64,
+                                 gru_hidden=64)).validate()
+
+
 @pytest.mark.parametrize("fused_sites,dtype", [(0, "float32"),
                                                (-1, "float32"),
-                                               (0, "bfloat16")])
+                                               (0, "bfloat16"),
+                                               ("gru", "bfloat16")])
 def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
                                                 dtype):
     """Two runs of two training steps from one seed on the same data give
     the same parameters to the bit: no kernel and no weight gradient sums
     in a run-dependent order. The bf16 case runs the tensor-core convs
-    (the model is widened to 64 channels for it)."""
+    (the model is widened to 64 channels for it); the "gru" case the
+    conditional GRU generator, whose scans (K4, K5) take the persistent
+    path."""
     import dataclasses
 
     from audiogan_tpu_torch.train.state import create_train_state
     from audiogan_tpu_torch.train.step import build_train_step
-    cfg = _tiny_cfg()
     batch = 16
-    width = {} if dtype == "float32" else {"model_dim": 64,
-                                           "max_channels": 128}
-    cfg = cfg.replace(
-        model=dataclasses.replace(cfg.model, fused_shuffle_sites=fused_sites,
-                                  **width),
-        train=dataclasses.replace(cfg.train, dtype=dtype,
-                                  batch_size=batch))
+    if fused_sites == "gru":
+        cfg = _tiny_gru_cfg()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, dtype=dtype,
+                                                    batch_size=batch))
+    else:
+        cfg = _tiny_cfg()
+        width = {} if dtype == "float32" else {"model_dim": 64,
+                                               "max_channels": 128}
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model,
+                                      fused_shuffle_sites=fused_sites,
+                                      **width),
+            train=dataclasses.replace(cfg.train, dtype=dtype,
+                                      batch_size=batch))
     tc_before = tconv.conv1d_ba.launches_tc
+    scan_before = (tgru.gru_scan_fwd.launches_persistent,
+                   tgru.gru_scan_bwd.launches_persistent)
     gen = torch.Generator().manual_seed(0)
     raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
                        generator=gen) * 6000).clamp(-32768, 32767)
@@ -336,6 +357,12 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     assert (tconv.conv1d_ba.launches_tc > tc_before) == (dtype == "bfloat16")
+    if fused_sites == "gru":
+        # per step: the critic's n_critic fakes and G's own pass, one K5
+        steps = 2 * 2
+        assert (tgru.gru_scan_fwd.launches_persistent - scan_before[0],
+                tgru.gru_scan_bwd.launches_persistent - scan_before[1]) == \
+            (steps * (cfg.loss.n_critic + 1), steps)
 
 
 # (B, H, F, n_frames): ragged against every gemm tile (32, 64, 128), a
@@ -409,6 +436,45 @@ def test_gru_scan_bwd_kernel_matches_plain(cuda_device, shape, dtype):
         assert gk.dtype == a.dtype and gk.shape == a.shape, name
         err = (gk.float() - w.float()).norm().item()
         assert err <= tol * max(w.float().norm().item(), 1e-12), name
+
+
+@pytest.mark.parametrize("frames", [1, 2, 256])
+@pytest.mark.parametrize("batch", [1, 7, 64])
+def test_persistent_gru_scan_matches_plain_and_repeats_bit_for_bit(
+        cuda_device, batch, frames):
+    """K4 (with and without h_seq) and K5 on the persistent path at
+    cond_gru_sc09's widths (H 512, F 256), bf16: K4 within one bf16 ulp of
+    the plain form's peak, K5 within 1e-3 relative L2 per gradient, and a
+    second launch gives the same bits."""
+    shape = (batch, 512, 256, frames)
+    args = _gru_inputs(shape, torch.bfloat16, cuda_device, seed=3)
+    assert tgru.gru_scan_persistent(torch.bfloat16, batch, 512, 256)
+    before = (tgru.gru_scan_fwd.launches_persistent,
+              tgru.gru_scan_bwd.launches_persistent)
+    for with_h in (False, True):
+        runs = [tgru.gru_scan_fwd(*args, frames, with_h=with_h)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        want = tgru.gru_scan_plain(*args, frames, with_h=with_h)
+        pairs = (zip(runs[0], runs[1], want) if with_h
+                 else [(runs[0], runs[1], want)])
+        for a, b, w in pairs:
+            assert torch.equal(a, b)
+            err = (a.float() - w.float()).abs().max().item()
+            assert err <= _bf16_ulp(w.float().abs().max().item()), err
+    out, h_seq = runs[0]
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    g = torch.randn(batch, frames, 256, generator=gen,
+                    device=cuda_device).bfloat16()
+    grads = [tgru.gru_scan_bwd(g, *args, out, h_seq) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = tgru.gru_scan_bwd_plain(g, *args, out, h_seq)
+    for name, a, b, w in zip(tgru.ARG_NAMES, *grads, want):
+        assert torch.equal(a, b), name
+        err = (a.float() - w.float()).norm().item()
+        assert err <= 1e-3 * max(w.float().norm().item(), 1e-12), name
+    assert (tgru.gru_scan_fwd.launches_persistent - before[0],
+            tgru.gru_scan_bwd.launches_persistent - before[1]) == (4, 2)
 
 
 def test_gru_generator_on_card_matches_cpu(cuda_device):
