@@ -66,7 +66,13 @@
 
 #include <algorithm>
 
+#include "mma_sync.cuh"
+
 namespace {
+
+using mma::bf16_pair;
+using mma::mma16816;
+using mma::split_pair;
 
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
 enum Act { ACT_NONE = 0, ACT_TANH = 1 };
@@ -521,12 +527,6 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
   grid_wait(bar, target);
 }
 
-__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 // A 4-byte copy from device to shared memory that completes in the
 // background (cp.async), and the wait for all of a thread's copies.
 __device__ __forceinline__ void copy4_async(void* dst, const void* src) {
@@ -537,25 +537,6 @@ __device__ __forceinline__ void copy4_async(void* dst, const void* src) {
 
 __device__ __forceinline__ void copies_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// x0, x1 -> hi = bf16(x), lo = bf16(x - hi), packed as mma operands (the
-// first column in the low half).
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
 // An A operand: rows [0, rows) of a row-major matrix, f32 (or bf16 where

@@ -15,10 +15,17 @@
 //   convT:  x as [B, T, 1, Cin]; output phase rho (y row m*s + rho) reads
 //     row m + q at tap j = pad_lo - rho + q*s, and taps outside [0, K)
 //     are not in the table (skipped, not multiplied by zeros).
+//   sconv1d (K6, csrc/sconv.cu): conv1d of z[b] = xp[b, offs[b] : offs[b] +
+//     T] (zero outside [0, T)), xp [B, T + 2 rad, Cin]: one A view per
+//     offset o in [0, 2 rad] over xp from row o, [B, T/s, s, Cin] with
+//     xp's batch stride; element b's rows come through view offs[b], so
+//     they are exactly z[b] (below).
 // A row outside [0, a_rows) is a row of the pads: TMA's out-of-bounds
-// fill writes it as zeros, so the padding costs no code. So does a ragged
-// last channel chunk (A and w both read zeros past Cin) and a ragged Cout
-// tile (w reads zeros past Cout; the epilogue masks the stores).
+// fill writes it as zeros, so the padding costs no code: for K6 that is
+// the conv's padding in z-space, and no row of xp outside element b's
+// window is ever read as data. So does a ragged last channel chunk (A and
+// w both read zeros past Cin) and a ragged Cout tile (w reads zeros past
+// Cout; the epilogue masks the stores).
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 tensor, 3.35 TB/s HBM): at
 // the WaveGAN geometries with Cin, Cout >= 64 the convs do hundreds of
@@ -31,7 +38,10 @@
 //    the 132 SMs;
 //  * short rows stack batch elements: the A box {64 ch, rows, 1, nb}
 //    lands as [nb][rows][64], one contiguous operand tile, and each element
-//    gets its own zero halo from the out-of-bounds fill;
+//    gets its own zero halo from the out-of-bounds fill; with one view per
+//    offset (K6) each element is its own box {64, 1, rows, 1} through its
+//    own view, at the place the stacked box would put it (rows a multiple
+//    of 8, so each box starts on a 1024-byte swizzle period);
 //  * a ring of kStages stages, each an A tile [M][64] and a B tile
 //    [2][64][64] (Cin x Cout, Cout contiguous: MN-major, the wgmma
 //    transpose bit), in 128-byte swizzle at 1024-byte aligned bases; one
@@ -83,6 +93,16 @@ struct Plan {
   int n_phase, n_ot, n_chunks;
   int act;
   float slope;
+  const int* offs;  // K6: element b's A view is offs[b] (clamped to
+  int max_off;      // [0, max_off]); null for one view
+};
+
+// The A operand's tensor maps: one, or (K6) one per window offset.
+constexpr int kMaxViews = 9;     // 2 rad + 1 for rad <= 4 (a view's
+                                 // index fits 4 bits)
+template <int NV>
+struct AViews {
+  CUtensorMap m[NV];
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -224,9 +244,9 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db) {
   else wgmma_m64n64(d, da, db);
 }
 
-template <int NWG, int BN>
+template <int NWG, int BN, int NV>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
-igemm_kernel(const __grid_constant__ CUtensorMap a_map,
+igemm_kernel(const __grid_constant__ AViews<NV> a_views,
              const __grid_constant__ CUtensorMap b_map,
              const __grid_constant__ KSteps ks, const Plan g,
              const __nv_bfloat16* __restrict__ bias,
@@ -267,7 +287,23 @@ igemm_kernel(const __grid_constant__ CUtensorMap a_map,
   if (warp == NWG * 4) {
     // the producer: one thread keeps the ring's TMA loads in flight
     if (lane == 0) {
-      const uint32_t bytes = g.rows * g.nb * 128 + B_BYTES;
+      // one view: one box of nb elements; per-element views: a box per
+      // element of the batch (elements past it are not loaded: their rows
+      // feed only outputs the epilogue masks)
+      const int n_el = NV == 1 ? g.nb : min(g.nb, g.batch - b0);
+      const uint32_t bytes = g.rows * n_el * 128 + B_BYTES;
+      // element seg's view in bits [4 seg, 4 seg + 4): read once, and the
+      // views' descriptors fetched ahead of the first loads
+      uint64_t views = 0;
+      if constexpr (NV > 1) {
+        for (int seg = 0; seg < n_el; ++seg)
+          views |= (uint64_t)min(max(__ldg(g.offs + b0 + seg), 0), g.max_off)
+                   << (4 * seg);
+        for (int v = 0; v <= g.max_off; ++v)
+          asm volatile("prefetch.tensormap [%0];" ::"l"(
+                           reinterpret_cast<uint64_t>(&a_views.m[v]))
+                       : "memory");
+      }
       for (int it = 0; it < n_iter; ++it) {
         const int st = it % kStages;
         mbar_wait(bars + 8 * (kStages + st), ((it / kStages) & 1) ^ 1);
@@ -276,7 +312,15 @@ igemm_kernel(const __grid_constant__ CUtensorMap a_map,
         const uint32_t sa = base + st * STAGE, sb = sa + A_BYTES;
         const uint32_t full = bars + 8 * st;
         mbar_expect_tx(full, bytes);
-        tma_load_4d(sa, &a_map, full, c0, ks.pin[e], t0 + ks.row[e], b0);
+        if constexpr (NV == 1) {
+          tma_load_4d(sa, &a_views.m[0], full, c0, ks.pin[e],
+                      t0 + ks.row[e], b0);
+        } else {
+          for (int seg = 0; seg < n_el; ++seg)
+            tma_load_4d(sa + seg * g.rows * 128,
+                        &a_views.m[(views >> (4 * seg)) & 15], full, c0,
+                        ks.pin[e], t0 + ks.row[e], b0 + seg);
+        }
 #pragma unroll
         for (int h = 0; h < BN / 64; ++h)
           tma_load_3d(sb + h * 8192, &b_map, full, o0 + h * 64, c0,
@@ -382,14 +426,26 @@ inline bool encode(CUtensorMap* map, const void* ptr, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NWG, int BN>
-cudaError_t launch_tile(const void* x, int a_rows, int a_phases,
-                        const void* w, int k, const void* bias, void* y,
-                        Plan g, const KSteps& ks, cudaStream_t stream) {
+// The A operand as launch_tile encodes it: x viewed as [batch, a_rows,
+// a_phases, cin] with elements batch_pitch rows of cin apart; n_views
+// views whose bases step view_step rows (K6: xp's window offsets).
+struct AView {
+  const void* x;
+  int a_rows, a_phases;
+  long long batch_pitch;
+  int n_views, view_step;
+};
+
+template <int NWG, int BN, int NV>
+cudaError_t launch_tile(const AView& av, const void* w, int k,
+                        const void* bias, void* y, Plan g, const KSteps& ks,
+                        cudaStream_t stream) {
   constexpr int BM = 64 * NWG;
   constexpr int STAGE = BM * 128 + BN * 128;
   if (g.rows < 1 || g.nb < 1 || g.rows > 256 || g.nb > 256 ||
-      g.rows * g.nb > BM || (g.nb > 1 && g.rows != g.t_lim))
+      g.rows * g.nb > BM || (g.nb > 1 && g.rows != g.t_lim) ||
+      av.n_views < 1 || av.n_views > NV ||
+      (NV > 1 && ((g.nb > 1 && g.rows % 8) || g.nb > 16)))
     return cudaErrorInvalidValue;
   g.n_ot = (g.cout + BN - 1) / BN;
   g.n_chunks = (g.cin + kChunk - 1) / kChunk;
@@ -397,52 +453,57 @@ cudaError_t launch_tile(const void* x, int a_rows, int a_phases,
                                  : (long long)g.batch * g.n_mt;
   if (n_m > 65535 || (long long)g.n_ot * g.n_phase > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
-  CUtensorMap a_map, b_map;
+  AViews<NV> a_views = {};
+  CUtensorMap b_map;
   const cuuint64_t cin = g.cin;
-  const cuuint64_t a_dims[4] = {cin, (cuuint64_t)a_phases, (cuuint64_t)a_rows,
-                                (cuuint64_t)g.batch};
-  const cuuint64_t a_strides[3] = {2 * cin, 2 * cin * a_phases,
-                                   2 * cin * a_phases * a_rows};
+  const cuuint64_t a_dims[4] = {cin, (cuuint64_t)av.a_phases,
+                                (cuuint64_t)av.a_rows, (cuuint64_t)g.batch};
+  const cuuint64_t a_strides[3] = {2 * cin, 2 * cin * av.a_phases,
+                                   2 * cin * (cuuint64_t)av.batch_pitch};
+  // per-element views load one element per box
   const cuuint32_t a_box[4] = {kChunk, 1, (cuuint32_t)g.rows,
-                               (cuuint32_t)g.nb};
+                               NV == 1 ? (cuuint32_t)g.nb : 1u};
+  for (int v = 0; v < av.n_views; ++v)
+    if (!encode(&a_views.m[v],
+                static_cast<const char*>(av.x) + 2 * cin * av.view_step * v,
+                4, a_dims, a_strides, a_box))
+      return cudaErrorInvalidValue;
   const cuuint64_t b_dims[3] = {(cuuint64_t)g.cout, cin, (cuuint64_t)k};
   const cuuint64_t b_strides[2] = {2 * (cuuint64_t)g.cout,
                                    2 * cin * g.cout};
   const cuuint32_t b_box[3] = {64, kChunk, 1};
-  if (!encode(&a_map, x, 4, a_dims, a_strides, a_box) ||
-      !encode(&b_map, w, 3, b_dims, b_strides, b_box))
+  if (!encode(&b_map, w, 3, b_dims, b_strides, b_box))
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)kStages * STAGE + 1024 + 16 * kStages;
-  auto kern = igemm_kernel<NWG, BN>;
+  auto kern = igemm_kernel<NWG, BN, NV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(g.n_ot * g.n_phase, (unsigned)n_m);
   kern<<<grid, NWG * 128 + 32, smem, stream>>>(
-      a_map, b_map, ks, g, static_cast<const __nv_bfloat16*>(bias),
+      a_views, b_map, ks, g, static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(y));
   return cudaGetLastError();
 }
 
-// The tensor-core launch shared by conv1d.cu and convt1d.cu. x is viewed
-// as [batch, a_rows, a_phases, cin]; plan is kernels/conv.py::tc_plan's
-// int32 array: tile, rows, nb, n_mt, t_lim, s_out, y_len, n_phase,
-// n_steps, start[n_phase + 1], tap[n_steps], row[n_steps], pin[n_steps].
-// Pointers must be 16-byte aligned and cin, cout multiples of 8 (TMA's
-// 16-byte strides).
-inline cudaError_t launch(const void* x, int batch, int a_rows, int a_phases,
-                          int cin, const void* w, int k, int cout,
-                          const void* bias, void* y, const int* plan, int act,
-                          float slope, cudaStream_t stream) {
-  if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)bias | (uintptr_t)y) & 15)
+// Decodes kernels/conv.py::tc_plan's int32 array (tile, rows, nb, n_mt,
+// t_lim, s_out, y_len, n_phase, n_steps, start[n_phase + 1], tap[n_steps],
+// row[n_steps], pin[n_steps]) and launches its tile with NV views.
+template <int NV>
+cudaError_t launch_plan(const AView& av, int batch, int cin, const void* w,
+                        int k, int cout, const void* bias, void* y,
+                        const int* plan, int act, float slope,
+                        const int* offs, int max_off, cudaStream_t stream) {
+  if (((uintptr_t)av.x | (uintptr_t)w | (uintptr_t)bias | (uintptr_t)y) & 15)
     return cudaErrorMisalignedAddress;
-  if (batch <= 0 || a_rows <= 0 || a_phases <= 0 || cin < 8 || cin % 8 ||
-      cout < 8 || cout % 8 || k <= 0 || act < rowconv::ACT_NONE ||
+  if (batch <= 0 || av.a_rows <= 0 || av.a_phases <= 0 || cin < 8 ||
+      cin % 8 || cout < 8 || cout % 8 || k <= 0 || act < rowconv::ACT_NONE ||
       act > rowconv::ACT_TANH)
     return cudaErrorInvalidValue;
   Plan g;
   KSteps ks;
   g.batch = batch; g.cin = cin; g.cout = cout; g.act = act; g.slope = slope;
+  g.offs = offs; g.max_off = max_off;
   const int tile = plan[0];
   g.rows = plan[1]; g.nb = plan[2]; g.n_mt = plan[3]; g.t_lim = plan[4];
   g.s_out = plan[5]; g.y_len = plan[6]; g.n_phase = plan[7];
@@ -461,17 +522,47 @@ inline cudaError_t launch(const void* x, int batch, int a_rows, int a_phases,
   }
   if (start[0] != 0 || start[g.n_phase] != n) return cudaErrorInvalidValue;
   for (int e = 0; e < n; ++e) {
-    if (tap[e] < 0 || tap[e] >= k || pin[e] < 0 || pin[e] >= a_phases)
+    if (tap[e] < 0 || tap[e] >= k || pin[e] < 0 || pin[e] >= av.a_phases)
       return cudaErrorInvalidValue;
     ks.tap[e] = tap[e]; ks.row[e] = row[e]; ks.pin[e] = pin[e];
   }
   switch (tile) {
-    case 0: return launch_tile<2, 128>(x, a_rows, a_phases, w, k, bias, y, g, ks, stream);
-    case 1: return launch_tile<2, 64>(x, a_rows, a_phases, w, k, bias, y, g, ks, stream);
-    case 2: return launch_tile<1, 128>(x, a_rows, a_phases, w, k, bias, y, g, ks, stream);
-    case 3: return launch_tile<1, 64>(x, a_rows, a_phases, w, k, bias, y, g, ks, stream);
+    case 0: return launch_tile<2, 128, NV>(av, w, k, bias, y, g, ks, stream);
+    case 1: return launch_tile<2, 64, NV>(av, w, k, bias, y, g, ks, stream);
+    case 2: return launch_tile<1, 128, NV>(av, w, k, bias, y, g, ks, stream);
+    case 3: return launch_tile<1, 64, NV>(av, w, k, bias, y, g, ks, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core launch of conv1d.cu and convt1d.cu: x viewed as [batch,
+// a_rows, a_phases, cin]. Pointers must be 16-byte aligned and cin, cout
+// multiples of 8 (TMA's 16-byte strides).
+inline cudaError_t launch(const void* x, int batch, int a_rows, int a_phases,
+                          int cin, const void* w, int k, int cout,
+                          const void* bias, void* y, const int* plan, int act,
+                          float slope, cudaStream_t stream) {
+  const AView av = {x, a_rows, a_phases, (long long)a_rows * a_phases, 1, 0};
+  return launch_plan<1>(av, batch, cin, w, k, cout, bias, y, plan, act,
+                        slope, nullptr, 0, stream);
+}
+
+// K6's tensor-core launch (sconv.cu): xp [batch, tp, cin], z = xp's window
+// of t = tp - 2 rad rows at offs[b], viewed as [batch, t / s, s, cin]; one
+// view per offset 0..2 rad (2 rad + 1 <= kMaxViews), plan conv1d's on z
+// with stacked elements only where rows % 8 == 0.
+inline cudaError_t launch_shifted(const void* xp, int batch, int tp, int rad,
+                                  int stride, int cin, const void* w, int k,
+                                  int cout, const void* bias,
+                                  const int* offs, void* y, const int* plan,
+                                  int act, float slope, cudaStream_t stream) {
+  const int t = tp - 2 * rad;
+  if (rad < 0 || t <= 0 || stride <= 0 || t % stride ||
+      2 * rad + 1 > kMaxViews || offs == nullptr)
+    return cudaErrorInvalidValue;
+  const AView av = {xp, t / stride, stride, tp, 2 * rad + 1, 1};
+  return launch_plan<kMaxViews>(av, batch, cin, w, k, cout, bias, y, plan,
+                                act, slope, offs, 2 * rad, stream);
 }
 
 }  // namespace igemm

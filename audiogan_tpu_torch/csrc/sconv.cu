@@ -35,13 +35,26 @@
 // What bounds them on an H100 (989 TFLOP/s bf16 tensor, 3.35 TB/s HBM): at
 // the critic's four fused sites (Cin >= 64) both do hundreds of flops per
 // byte and are bound by operations, as the unfused D1-D4 fwd / dx convs.
-// They keep the CUDA-core design: f32 FMAs over tiles staged in shared
-// memory as f32, the offset form of csrc/rowconv_tiles.cuh (the tilings
-// and tile choices K1' and K1 use outside their tensor-core path). This
-// file holds only the entry points; the z-space mask and the zero-row
-// writes are the header's kOffset branches. The tensor-core path of
-// csrc/igemm_tc.cuh needs a z-space mask after each TMA load first.
+// This file holds only the entry points. Two paths for K6, chosen by
+// kernels/sconv.py::sconv1d_tensor_core, a pure function of dtype and
+// shape:
+//  * sconv1d_tc_launch: bf16 with conv1d's tensor-core shapes on z
+//    (Cin, Cout >= 64, T % s == 0) and 2 rad + 1 <= 9: K1′'s implicit GEMM
+//    of csrc/igemm_tc.cuh with one TMA view of xp per window offset o in
+//    [0, 2 rad] (base row o, dims [B, T/s, s, Cin], xp's batch stride).
+//    Element b's rows come through view offs[b] (clamped into [0, 2 rad],
+//    so xp is never read outside whatever offs holds), and TMA's zero
+//    fill outside [0, T/s) is the conv's z-space padding: the mask costs
+//    no code. The plan is conv1d's on z (kernels/conv.py::conv1d_tc_plan),
+//    stacking elements only where their rows are a multiple of 8;
+//  * sconv1d_launch: f32, and the rest, the CUDA-core tiles of
+//    csrc/rowconv_tiles.cuh in their offset form (f32 FMAs over tiles
+//    staged as f32, the z-space mask applied while staging).
+// K7 keeps the CUDA-core offset form (the stores move by offs[b], and the
+// first m-tile's blocks write the zero rows); its tensor-core path would
+// move the window to the epilogue's stores.
 
+#include "igemm_tc.cuh"
 #include "rowconv_tiles.cuh"
 
 using namespace rowconv;
@@ -76,6 +89,18 @@ int sconv1d_launch(const void* xp, const void* w, const void* bias,
     return (int)dispatch_conv1d_tile<true, __nv_bfloat16>(xp, w, bias, y, g,
                                                           st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K6's tensor-core path, bf16 only: xp [B, tp, cin] with t = tp - 2 rad a
+// multiple of stride, plan from kernels/sconv.py::sconv1d_tc_plan (conv1d's
+// on z). Returns a cudaError_t code (0 = launched).
+int sconv1d_tc_launch(const void* xp, const void* w, const void* bias,
+                      const int* offs, void* y, int batch, int tp, int cin,
+                      int cout, int k, int stride, int rad, const int* plan,
+                      int act, float slope, void* stream) {
+  return (int)igemm::launch_shifted(xp, batch, tp, rad, stride, cin, w, k,
+                                    cout, bias, offs, y, plan, act, slope,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // K7. Returns a cudaError_t code (0 = launched); ct [B, t_in, cin],

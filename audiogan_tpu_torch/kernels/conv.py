@@ -150,14 +150,16 @@ def convt_tensor_core(dtype, cin: int, cout: int, k: int,
 
 
 def tc_tile_shape(batch: int, t_lim: int, n_phase: int, cout: int,
-                  tile: int) -> tuple[int, int, int, int]:
+                  tile: int, stack_rows: int = 1
+                  ) -> tuple[int, int, int, int]:
     """(rows, nb, n_mt, blocks) of TC_TILES[tile]: t_lim output rows per
     element and phase; rows shorter than half the tile stack nb =
-    M // t_lim batch elements (each with its own zero halo), else one
-    element's rows in n_mt tiles of M, the ragged last one masked."""
+    M // t_lim batch elements (each with its own zero halo) where t_lim
+    is a multiple of stack_rows, else one element's rows in n_mt tiles of
+    M, the ragged last one masked."""
     nwg, bn = TC_TILES[tile]
     bm = 64 * nwg
-    nb = bm // t_lim if t_lim < bm else 1
+    nb = bm // t_lim if t_lim < bm and t_lim % stack_rows == 0 else 1
     if nb > 1:
         rows, n_mt, n_m = t_lim, 1, _cdiv(batch, nb)
     else:
@@ -166,14 +168,15 @@ def tc_tile_shape(batch: int, t_lim: int, n_phase: int, cout: int,
     return rows, nb, n_mt, n_m * n_phase * _cdiv(cout, bn)
 
 
-def tc_tile(batch: int, t_lim: int, n_phase: int, cout: int) -> int:
+def tc_tile(batch: int, t_lim: int, n_phase: int, cout: int,
+            stack_rows: int = 1) -> int:
     """N = 128 unless Cout <= 64 (half a 128-wide tile would multiply
     zeros); M = 128 unless that grid leaves more than a quarter of the
     SMs without a block, then M = 64; failing both, the tile with the
     most blocks. (The choice the flagship's timings of every tile on the
     card favour: PERF.md §6.)"""
     bn = 128 if cout > 64 else 64
-    blocks = [tc_tile_shape(batch, t_lim, n_phase, cout, i)[3]
+    blocks = [tc_tile_shape(batch, t_lim, n_phase, cout, i, stack_rows)[3]
               for i in range(len(TC_TILES))]
     for nwg in (2, 1):
         i = TC_TILES.index((nwg, bn))
@@ -183,15 +186,17 @@ def tc_tile(batch: int, t_lim: int, n_phase: int, cout: int) -> int:
 
 
 def tc_plan(batch: int, t_lim: int, s_out: int, y_len: int,
-            phases: list, cout: int, tile: int | None = None) -> np.ndarray:
+            phases: list, cout: int, tile: int | None = None,
+            stack_rows: int = 1) -> np.ndarray:
     """The int32 array the tensor-core kernel is launched with: tile,
     rows, nb, n_mt, t_lim, s_out, y_len, n_phase, n_steps, start[n_phase
     + 1], tap[n_steps], row[n_steps], pin[n_steps]. Output row t of phase
     p lands at y row t*s_out + p, masked against t_lim and y_len."""
     n_phase = len(phases)
     if tile is None:
-        tile = tc_tile(batch, t_lim, n_phase, cout)
-    rows, nb, n_mt, _ = tc_tile_shape(batch, t_lim, n_phase, cout, tile)
+        tile = tc_tile(batch, t_lim, n_phase, cout, stack_rows)
+    rows, nb, n_mt, _ = tc_tile_shape(batch, t_lim, n_phase, cout, tile,
+                                      stack_rows)
     steps = [st for ph in phases for st in ph]
     if n_phase > TC_MAX_PHASES or len(steps) > TC_MAX_STEPS:
         raise ValueError(f"{n_phase} phases, {len(steps)} k-steps: over "
@@ -205,12 +210,14 @@ def tc_plan(batch: int, t_lim: int, s_out: int, y_len: int,
 
 @functools.cache
 def conv1d_tc_plan(batch: int, t_in: int, cout: int, k: int, stride: int,
-                   pad_lo: int, pad_hi: int, tile: int | None = None
-                   ) -> np.ndarray:
-    """conv1d's plan (read-only; cached, the wrapper asks every call)."""
+                   pad_lo: int, pad_hi: int, tile: int | None = None,
+                   stack_rows: int = 1) -> np.ndarray:
+    """conv1d's plan (read-only; cached, the wrapper asks every call).
+    stack_rows: elements stack only where their output rows are a
+    multiple of it (K6's per-element boxes: 8, one swizzle period)."""
     t_out = conv1d_t_out(t_in, k, stride, pad_lo, pad_hi)
     plan = tc_plan(batch, t_out, 1, t_out, [conv1d_ksteps(k, stride, pad_lo)],
-                   cout, tile)
+                   cout, tile, stack_rows)
     plan.flags.writeable = False
     return plan
 

@@ -5,9 +5,13 @@ Port of audiogan_tpu/kernels/gru.py. ``csrc/gru_cell.cu`` replaces
 ``_gru_fwd_impl`` (K3, one fused cell step: both gate products, the gates
 and the blend, in f32, written in x's dtype); ``GruCell`` runs it forward
 and ``_gru_bwd2``'s plain math backward, as the reference's custom_vjp
-does. ``csrc/gru_scan.cu`` replaces ``_gru_scan_impl`` (K4, the whole
-scan, optionally emitting ``h_seq``) and ``_gru_scan_bwd`` (K5, its
-reverse-sweep backward). Per frame t:
+does. K3 has two paths, a pure function of dtype and shape
+(``gru_cell_tensor_core``): bf16 with B <= 64 and in, H multiples of 8
+runs the gate products on the tensor cores, the depth split across a
+thread-block cluster as ``gru_cell_plan`` says; f32 and the rest a
+CUDA-core kernel. ``csrc/gru_scan.cu`` replaces ``_gru_scan_impl`` (K4,
+the whole scan, optionally emitting ``h_seq``) and ``_gru_scan_bwd`` (K5,
+its reverse-sweep backward). Per frame t:
 
     x_t    = [feat_{t-1} @ w_ar, cond]          (feat_{-1} = 0)
     h_t    = GRUCell(x_t, h_{t-1})              (ops/gru.py, gates r, z, n)
@@ -84,41 +88,126 @@ def gru_cell_plain(x, h, w_i, w_h, b_i, b_h) -> torch.Tensor:
     return ((1.0 - z) * n + z * h32).to(x.dtype)
 
 
+# The tensor-core path of K3 (csrc/gru_cell.cu: gru_cell_tc_kernel): a block
+# owns GRU_CELL_UNITS hidden units and every batch row (one warp per m16
+# tile), and the depth, in k-steps of 16 (x's, then h's), is split across
+# the blocks of a cluster.
+GRU_CELL_UNITS = 16
+GRU_CELL_MAX_BATCH = 64
+GRU_CELL_MAX_SPLIT = 8       # a portable cluster
+GRU_CELL_MIN_BLOCKS = 256    # the split doubles until the grid has these
+                             # (two per SM: the split the timings of every
+                             # split on the card favour, PERF.md §6)
+
+
+def gru_cell_tensor_core(dtype, batch: int, in_dim: int, hid: int) -> bool:
+    """True iff gru_cell_fwd runs this cell on the tensor cores: bf16,
+    B <= 64 (four m-tiles), in and H multiples of 8 (16-byte copies)."""
+    return (dtype == torch.bfloat16 and 1 <= batch <= GRU_CELL_MAX_BATCH
+            and in_dim > 0 and hid > 0 and in_dim % 8 == 0
+            and hid % 8 == 0)
+
+
+@functools.cache
+def gru_cell_plan(batch: int, in_dim: int, hid: int,
+                  split: int | None = None) -> np.ndarray:
+    """The int32 array the tensor-core kernel is launched with (read-only;
+    cached, the wrapper asks every call): units, split D, kx, kt,
+    start[D + 1]. k-step s < kx covers x's columns (w_i's rows) [16 s,
+    16 s + 16), s >= kx h's (w_h's) at 16 (s - kx); cluster rank q sums
+    k-steps [start[q], start[q + 1]). Unless given, D doubles (up to 8,
+    and while every rank keeps a k-step) until H / 16 unit tiles x D
+    blocks reach GRU_CELL_MIN_BLOCKS: 32 x 8 at cond_gru_sc09's cell."""
+    kx, kt = _cdiv(in_dim, 16), _cdiv(in_dim, 16) + _cdiv(hid, 16)
+    tiles = _cdiv(hid, GRU_CELL_UNITS)
+    if split is None:
+        split = 1
+        while (split < GRU_CELL_MAX_SPLIT
+               and tiles * split < GRU_CELL_MIN_BLOCKS and 2 * split <= kt):
+            split *= 2
+    elif not 1 <= split <= min(GRU_CELL_MAX_SPLIT, kt):
+        raise ValueError(f"split {split} for {kt} k-steps")
+    plan = np.asarray([GRU_CELL_UNITS, split, kx, kt,
+                       *(q * kt // split for q in range(split + 1))],
+                      dtype=np.int32)
+    plan.flags.writeable = False
+    return plan
+
+
 @functools.cache
 def _cell_lib() -> ctypes.CDLL:
     """csrc/gru_cell.cu, built at first use, with its C signatures."""
     lib = _build.load("gru_cell")
-    lib.gru_cell_launch.argtypes = ([ctypes.c_void_p] * 7
-                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.gru_cell_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     lib.gru_cell_launch.restype = ctypes.c_int
     lib.gru_cell_error_string.argtypes = [ctypes.c_int]
     lib.gru_cell_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.cache
+def _c_cell_plan(batch: int, in_dim: int, hid: int,
+                 split: int | None = None):
+    """gru_cell_plan as the kernel's int32 pointer, with the array that
+    keeps it alive."""
+    plan = np.ascontiguousarray(gru_cell_plan(batch, in_dim, hid, split))
+    return plan, ctypes.cast(plan.ctypes.data, ctypes.POINTER(ctypes.c_int))
+
+
+def _gru_cell_tc(args, out, split: int | None = None) -> None:
+    """One launch of K3's tensor-core kernel (gru_cell_plan's split unless
+    given); not counted: the wrapper counts its own launches."""
+    ptrs = [t.data_ptr() for t in args]
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16:
+        raise ValueError("gru_cell: the tensor-core path needs 16-byte "
+                         "aligned x, h, w_i and w_h")
+    b, in_dim = args[0].shape
+    hid = args[1].shape[1]
+    lib = _cell_lib()
+    err = lib.gru_cell_launch(
+        *ptrs, out.data_ptr(), b, in_dim, hid, _DTYPES[torch.bfloat16],
+        _c_cell_plan(b, in_dim, hid, split)[1],
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("gru_cell kernel launch failed: "
+                           + lib.gru_cell_error_string(err).decode())
+
+
 def gru_cell_fwd(x, h, w_i, w_h, b_i, b_h) -> torch.Tensor:
     """K3: one GRU step -> h' [B, H] in x.dtype. A CPU tensor takes the
     plain form. A CUDA tensor launches the kernel (every input f32 or
-    every input bf16) or raises; it never falls back. Records no autograd
-    history (see GruCell)."""
+    every input bf16) or raises; it never falls back. Where
+    ``gru_cell_tensor_core`` holds, the tensor-core path runs (counted in
+    ``launches_tc``; its tensors must start 16-byte aligned), else the
+    CUDA-core kernel (``launches_cc``); ``launches`` counts both. Records
+    no autograd history (see GruCell)."""
     args = (x, h, w_i, w_h, b_i, b_h)
     b, in_dim, hid = _cell_dims(*args)
     if x.device.type == "cpu":
         return gru_cell_plain(*args)
     _check_kernel_args("gru_cell", args)
     out = torch.empty((b, hid), dtype=x.dtype, device=x.device)
-    lib = _cell_lib()
-    err = lib.gru_cell_launch(
-        *(t.data_ptr() for t in args), out.data_ptr(), b, in_dim, hid,
-        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("gru_cell kernel launch failed: "
-                           + lib.gru_cell_error_string(err).decode())
+    if gru_cell_tensor_core(x.dtype, b, in_dim, hid):
+        _gru_cell_tc(args, out)
+        gru_cell_fwd.launches_tc += 1
+    else:
+        lib = _cell_lib()
+        err = lib.gru_cell_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(), b, in_dim, hid,
+            _DTYPES[x.dtype], None,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError("gru_cell kernel launch failed: "
+                               + lib.gru_cell_error_string(err).decode())
+        gru_cell_fwd.launches_cc += 1
     gru_cell_fwd.launches += 1
     return out
 
 
-gru_cell_fwd.launches = 0
+gru_cell_fwd.launches = gru_cell_fwd.launches_tc = 0
+gru_cell_fwd.launches_cc = 0
 
 
 def gru_cell_bwd(g, x, h, w_i, w_h, b_i, b_h):

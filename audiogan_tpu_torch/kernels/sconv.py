@@ -16,6 +16,14 @@ The plain forms are exactly that composition (``sconv1d_ba_lowered`` and
 kernels' oracles. These wrappers record no autograd history:
 kernels/autograd.py wraps them in Functions.
 
+K6 has two paths, and which one a call takes is a pure function of dtype
+and shape (``sconv1d_tensor_core``): bf16 where conv1d takes the tensor
+cores on z (Cin, Cout >= 64, t % stride == 0) and 2 rad + 1 <= 9 runs
+K1''s implicit GEMM with one TMA view of xp per window offset
+(``csrc/igemm_tc.cuh``; its plan ``sconv1d_tc_plan`` is conv1d's on z),
+everything else, and K7, the CUDA-core tiles of
+``csrc/rowconv_tiles.cuh``.
+
 Layouts as the reference's contract: xp [B, t + 2 rad, Cin] (reflect-
 padded and masked, ops/sconv.py), offs [B] in [0, 2 rad], w [K, Cin,
 Cout], b [Cout] -> y [B, t_out, Cout]; ct [B, T', Cout], wf [K, Cout, Cin]
@@ -27,15 +35,43 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from audiogan_tpu_torch.kernels import _build
-from audiogan_tpu_torch.kernels.conv import (ACTS, _DTYPES, _check_conv1d,
+from audiogan_tpu_torch.kernels.conv import (ACTS, _DTYPES, _c_plan,
+                                             _check_conv1d,
                                              _check_kernel_args,
-                                             _check_shapes, conv1d_ba_plain,
-                                             conv1d_t_out,
+                                             _check_shapes,
+                                             _check_tc_alignment,
+                                             conv1d_ba_plain, conv1d_t_out,
+                                             conv1d_tc_plan,
+                                             conv1d_tensor_core,
                                              conv_transpose1d_ba_plain)
 from audiogan_tpu_torch.ops.sconv import window_place, window_select
+
+
+SCONV_TC_MAX_VIEWS = 9       # csrc/igemm_tc.cuh kMaxViews: 2 rad + 1
+SCONV_TC_STACK_ROWS = 8      # a stacked element's box starts a 1024-byte
+                             # swizzle period: rows a multiple of 8
+
+
+def sconv1d_tensor_core(dtype, t: int, cin: int, cout: int, k: int,
+                        stride: int, rad: int) -> bool:
+    """True iff sconv1d_ba runs this geometry on the tensor cores:
+    conv1d's predicate on z (t rows) and one view per window offset,
+    2 rad + 1 <= SCONV_TC_MAX_VIEWS."""
+    return (conv1d_tensor_core(dtype, t, cin, cout, k, stride)
+            and 0 <= rad and 2 * rad + 1 <= SCONV_TC_MAX_VIEWS)
+
+
+def sconv1d_tc_plan(batch: int, t: int, cout: int, k: int, stride: int,
+                    pad_lo: int, pad_hi: int, tile: int | None = None
+                    ) -> np.ndarray:
+    """K6's plan: conv1d's on z (t rows), elements stacked only where
+    their output rows are a multiple of SCONV_TC_STACK_ROWS."""
+    return conv1d_tc_plan(batch, t, cout, k, stride, pad_lo, pad_hi, tile,
+                          SCONV_TC_STACK_ROWS)
 
 
 def _check_offs(offs: torch.Tensor, batch: int, rad: int) -> None:
@@ -66,6 +102,11 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.sconv1d_launch.restype = ctypes.c_int
+    lib.sconv1d_tc_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+           ctypes.c_void_p])
+    lib.sconv1d_tc_launch.restype = ctypes.c_int
     lib.sconvt1d_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.sconvt1d_launch.restype = ctypes.c_int
@@ -86,6 +127,21 @@ def _device_offs(offs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return offs.to(torch.int32).contiguous()
 
 
+def _sconv1d_tc(xp, w, b, offs, y, stride, rad, plan, act, slope) -> None:
+    """One launch of K6's tensor-core kernel with the given plan; offs
+    int32 on the card."""
+    _check_tc_alignment("sconv1d", xp, w, b, y)
+    lib = _lib()
+    bsz, tp, cin = xp.shape
+    k, _, cout = w.shape
+    plan, ptr = _c_plan(plan)
+    err = lib.sconv1d_tc_launch(
+        xp.data_ptr(), w.data_ptr(), b.data_ptr(), offs.data_ptr(),
+        y.data_ptr(), bsz, tp, cin, cout, k, stride, rad, ptr, ACTS[act],
+        slope, torch.cuda.current_stream(xp.device).cuda_stream)
+    _raise_if(lib, err, "sconv1d")
+
+
 def sconv1d_ba(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                offs: torch.Tensor, stride: int, pad_lo: int, pad_hi: int,
                rad: int, act: str = "none", slope: float = 0.2
@@ -95,7 +151,9 @@ def sconv1d_ba(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     A CPU tensor takes the plain form. A CUDA tensor launches the kernel
     (f32 or bf16 in, f32 accumulate, xp.dtype out) or raises; it never
     falls back. offs must lie in [0, 2 rad]; the kernel never reads
-    outside xp whatever they hold.
+    outside xp whatever they hold. Where ``sconv1d_tensor_core`` holds,
+    the tensor-core path runs (counted in ``launches_tc``), else the
+    CUDA-core tiles (``launches_cc``); ``launches`` counts both.
     """
     if act not in ACTS:
         raise ValueError(f"act={act!r} not in {sorted(ACTS)}")
@@ -114,18 +172,25 @@ def sconv1d_ba(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     k, _, cout = w.shape
     t_out = conv1d_t_out(t, k, stride, pad_lo, pad_hi)
     y = torch.empty((bsz, t_out, cout), dtype=xp.dtype, device=xp.device)
-    lib = _lib()
-    err = lib.sconv1d_launch(
-        xp.data_ptr(), w.data_ptr(), b.data_ptr(), offs.data_ptr(),
-        y.data_ptr(), bsz, tp, cin, cout, k, stride, pad_lo, pad_hi, rad,
-        ACTS[act], slope, _DTYPES[xp.dtype],
-        torch.cuda.current_stream(xp.device).cuda_stream)
-    _raise_if(lib, err, "sconv1d")
+    if sconv1d_tensor_core(xp.dtype, t, cin, cout, k, stride, rad):
+        _sconv1d_tc(xp, w, b, offs, y, stride, rad,
+                    sconv1d_tc_plan(bsz, t, cout, k, stride, pad_lo, pad_hi),
+                    act, slope)
+        sconv1d_ba.launches_tc += 1
+    else:
+        lib = _lib()
+        err = lib.sconv1d_launch(
+            xp.data_ptr(), w.data_ptr(), b.data_ptr(), offs.data_ptr(),
+            y.data_ptr(), bsz, tp, cin, cout, k, stride, pad_lo, pad_hi,
+            rad, ACTS[act], slope, _DTYPES[xp.dtype],
+            torch.cuda.current_stream(xp.device).cuda_stream)
+        _raise_if(lib, err, "sconv1d")
+        sconv1d_ba.launches_cc += 1
     sconv1d_ba.launches += 1
     return y
 
 
-sconv1d_ba.launches = 0
+sconv1d_ba.launches = sconv1d_ba.launches_tc = sconv1d_ba.launches_cc = 0
 
 
 def sconvt1d(ct: torch.Tensor, wf: torch.Tensor, offs: torch.Tensor,

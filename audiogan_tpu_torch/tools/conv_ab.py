@@ -11,8 +11,11 @@ checkout under test; its kernels build into DIR/build) and times, with
 CUDA events (20 launches after 3 warm-up, as chip_smoke.py's timing
 phase): K6 and K7 at the four fused sites (bf16, 2B = 128), K1' and K1 in
 f32 at every flagship geometry, and K1' and K1 in bf16 at every flagship
-geometry (the one-channel ones on the CUDA-core tiles in any checkout).
-Run the two checkouts in turns (A, B, B, A) in one call. The second form
+geometry (the one-channel ones on the CUDA-core tiles in any checkout);
+then the flagship with every shuffle site fused (`--set
+model.fused_shuffle_sites=-1`), ms per training step through
+train.loop.train (chip_smoke.py's train phase: 2 warm-up steps, then 20
+timed). Run the two checkouts in turns (A, B, B, A) in one call. The second form
 averages each label's runs and prints, per timed call, the times and the
 ratio of the second label to the first (in the order the files are
 given).
@@ -77,6 +80,10 @@ def measure(tree: Path) -> dict:
             args = args_of(L)
             times[f"{name} bf16 {L['name']}"] = smoke.cuda_ms(
                 lambda: kernel(*tensors, offs, *args))
+    from audiogan_tpu_torch.cli import apply_overrides
+    fcfg = apply_overrides(cfg, ["model.fused_shuffle_sites=-1"]).validate()
+    times["wgan_gp_b64 fused_shuffle_sites=-1 ms per step"] = (
+        1e3 / smoke.train_phase(fcfg, dev, {}, {})["steps_per_s"])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

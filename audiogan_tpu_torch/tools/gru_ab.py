@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the GRU scan kernels and the two presets' step rates and samplers
-of one checkout of the port, for A/B runs of two checkouts on one card.
+"""Times the GRU kernels and the two presets' step rates and samplers of
+one checkout of the port, for A/B runs of two checkouts on one card.
 
     python3 audiogan_tpu_torch/tools/gru_ab.py --tree DIR --label NAME \\
         --out OUT/gru_ab_NAME_1.json
@@ -10,7 +10,10 @@ The first form imports audiogan_tpu_torch and chip_smoke.py from DIR (the
 checkout under test; its kernels build into DIR/build) and measures, bf16:
 K4 (without h_seq) and K5 through their wrappers at cond_gru_sc09's scan
 (B=64, H=512, F=256, 256 frames; CUDA events, 5 calls after 1 warm-up, as
-chip_smoke.py's timing phase), the training steps/s of cond_gru_sc09 and
+chip_smoke.py's timing phase), K3 at cond_gru_sc09's cell (x and h [64,
+512]; back-to-back launches, 50 after 3 warm-up, and one launch's device
+time, events around it queued behind a sleep kernel, median of 50) beside
+torch.nn.GRUCell's, the training steps/s of cond_gru_sc09 and
 of wgan_gp_b64 through train.loop.train (chip_smoke.py's train phase: 2
 warm-up steps, then 20 timed), and each preset's sampler, ms per batch of
 64 (chip_smoke.py's sampler_rate). Run the two checkouts in turns (A, B,
@@ -27,6 +30,25 @@ import sys
 from pathlib import Path
 
 SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell")
+
+
+def _queued_ms(fn, reps: int = 50) -> float:
+    """One call's device time: CUDA events around it, queued behind a
+    sleep kernel so the host's enqueue time is hidden; the median."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
 
 
 def measure(tree: Path) -> dict:
@@ -56,6 +78,18 @@ def measure(tree: Path) -> dict:
           "gru_scan_bwd bf16": smoke.cuda_ms(
               lambda: kgru.gru_scan_bwd(ct, *args, out, h_seq), iters=5,
               warmup=1)}
+    cell = smoke.gru_cell_inputs(gcfg, torch.bfloat16, dev)
+    lib = torch.nn.GRUCell(cell[0].shape[1], cell[1].shape[1], device=dev,
+                           dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p, v in ((lib.weight_ih, cell[2].T), (lib.weight_hh, cell[3].T),
+                     (lib.bias_ih, cell[4]), (lib.bias_hh, cell[5])):
+            p.copy_(v)
+        for name, fn in (("gru_cell bf16", lambda: kgru.gru_cell_fwd(*cell)),
+                         ("torch.nn.GRUCell bf16",
+                          lambda: lib(cell[0], cell[1]))):
+            ms[name] = smoke.cuda_ms(fn, iters=50)
+            ms[name + " device"] = _queued_ms(fn)
     for cfg in (gcfg, get_preset("wgan_gp_b64")):
         trained = smoke.train_phase(cfg, dev, {}, {})
         ms[f"{cfg.name} ms per step"] = 1e3 / trained["steps_per_s"]

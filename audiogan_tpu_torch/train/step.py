@@ -13,6 +13,17 @@ eps, the fake labels and the phase-shuffle shifts (2B from one draw when
 fused, as d_scores_real_fake does; B more for x-hat), then z, labels and
 shifts for the G update, all from utils.prng generators of (seed, step,
 role). ``draws=`` replaces that stream (tests inject the reference's).
+
+Every backward of the step runs on the calling thread
+(``torch.autograd.set_multithreading_enabled(False)``), so the step is a
+function of (seed, step) to the bit from a process's first step on. The
+autograd engine runs ready nodes in order of their sequence numbers,
+which count per thread; on the card the default engine runs backward on a
+worker thread, where the penalty's create_graph backward creates its
+nodes. The outer backward then interleaves nodes numbered by two counters,
+and where a gradient sums three or more terms the order of the sum
+depended on how far the worker's counter had come: a fresh process's
+first step differed from its later ones.
 """
 
 from __future__ import annotations
@@ -144,10 +155,11 @@ def build_train_step(cfg: Config, device=None) -> Callable:
         raw, labels = raw.to(dev), labels.to(dev)
         if draws is None:
             draws = draw_step(cfg, state.seed, state.step, raw.shape[1], dev)
-        d_metrics = [d_micro_step(state, raw[i], labels[i],
-                                  draws["critic"][i])
-                     for i in range(n_critic)]
-        g_loss = g_update(state, draws["generator"])
+        with torch.autograd.set_multithreading_enabled(False):
+            d_metrics = [d_micro_step(state, raw[i], labels[i],
+                                      draws["critic"][i])
+                         for i in range(n_critic)]
+            g_loss = g_update(state, draws["generator"])
         metrics = dict(d_metrics[-1])
         metrics["d_loss_mean"] = torch.stack(
             [m["d_loss"] for m in d_metrics]).mean()

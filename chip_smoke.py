@@ -27,12 +27,15 @@ non-zero:
             G's three convT layers and the critic are flagship geometries;
             in bf16 K4 and K5 must take the persistent path, in f32 the
             host loop);
-            sconv1d (K6) at the four fused sites' convs (2B) and sconvt1d
-            (K7) at their x-gradients, every offset in the batch; the GRU
-            cell (K3) at cond_gru_sc09's cell, x and h [64, 512], forward
-            and its Function's gradients. In bf16, 16 of the 20 convt1d
-            and conv1d geometries run the tensor-core path (each line
-            names its path); f32 and the one-channel layers the CUDA-core
+            sconv1d (K6) at the four fused sites' convs (2B and B) and
+            sconvt1d (K7) at their x-gradients (2B), every offset in the
+            batch and mixed offsets inside each stacked tile; the GRU cell
+            (K3) at cond_gru_sc09's cell, x and h [64, 512], and at a
+            ragged cell (B 7, in 24, H 40), forward, and its Function's
+            gradients. In bf16, 16 of the 20 convt1d and conv1d
+            geometries, every K6 geometry and both K3 cells run the
+            tensor-core path (each line names its path), two launches to
+            the same bits; f32 and the one-channel layers the CUDA-core
             tiles.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16) exported, loaded and served over HTTP on 127.0.0.1; a
@@ -48,12 +51,14 @@ non-zero:
             losses, steps/s, launches per step of each kernel (counts zeroed
             just before each path, read just after; K1', K1, their
             tensor-core launches (zero is a failure), K6 and K7 held to
-            the counts the step's structure gives, the unfused shuffle to
-            none, K4 6 and K5 1 per GRU step, all persistent),
-            peak device memory; one more step under torch.profiler for the
-            device time by kernel. Then the GRU cell's 256-frame recurrence,
-            forward and backward, against the same recurrence through the
-            plain cell.
+            the counts the step's structure gives, every K6 launch on the
+            tensor cores, the unfused shuffle to none, K4 6 and K5 1 per
+            GRU step, all persistent), peak device memory; one more step
+            under torch.profiler for the device time by kernel. Then the
+            GRU cell's 256-frame recurrence, f32 forward and backward
+            against the same recurrence through the plain cell, and bf16
+            forward (every launch on the tensor cores) against the plain
+            form's recurrence.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -61,7 +66,10 @@ non-zero:
             beside the card's
             bound; for K6 and K7, which no single PyTorch call computes,
             the unfused pair they replace (shuffle + conv1d kernel, convT
-            kernel + shuffle's transpose); the GRU scan's CUDA launches per
+            kernel + shuffle's transpose), and for K6 its CUDA-core tiles;
+            K3's device time (torch.profiler, and events around one launch
+            queued behind a sleep) beside its protocol time and
+            torch.nn.GRUCell's; the GRU scan's CUDA launches per
             call, its path, K5's three stages (recompute, sweep, weight
             gradients), the persistent kernels at each grid of gru_grids
             and the host loop on the same inputs; each sampler's clips/s.
@@ -118,6 +126,9 @@ BUILD_LIMIT_S = 180.0
 SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell")
 # K3 against torch.nn.GRUCell: alternating rounds of launches, medians
 K3_ROUNDS, K3_LAUNCHES = 5, 50
+# a cell ragged against K3's tensor-core tiles: B 7, in 24, H 40
+GRU_CELL_RAGGED = (7, 24, 40)
+SLEEP_CYCLES = 200_000        # about 0.1 ms of device time ahead of a call
 # a flagship step takes about 0.13 s on the tensor-core convs: 20 timed
 # steps keep the rate's window near 3 s
 TRAIN_WARMUP, TRAIN_TIMED = 2, 20
@@ -786,10 +797,20 @@ def sconvt_args(L):
     return (L["s"], L["pad_lo"], L["out_len"], L["rad"])
 
 
+def sconv_tensor_core(L: dict, dtype=torch.bfloat16) -> bool:
+    """Whether K6 runs geometry L on the tensor cores."""
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    return ksconv.sconv1d_tensor_core(dtype, L["t_in"], L["cin"], L["cout"],
+                                      L["k"], L["s"], L["rad"])
+
+
 def compare_sconv(transpose: bool, layers: list[dict], dev) -> dict:
     """K6 (or K7) against its plain form at each geometry, f32 and bf16,
-    within F32_REL_TOL / BF16_REL_TOL of the peak; returns {(name, dtype):
-    max abs err}."""
+    within F32_REL_TOL / BF16_REL_TOL of the peak; offs run through 0..2
+    rad along the batch, so every stacked tile mixes them. K6 must take
+    the path its predicate names (the tensor cores in bf16 at every fused
+    site), and a second launch must give the same bits. Returns
+    {(name, dtype): max abs err}."""
     from audiogan_tpu_torch.kernels import sconv as ksconv
     name = "sconvt1d" if transpose else "sconv1d"
     kernel, plain, args_of = (
@@ -800,21 +821,32 @@ def compare_sconv(transpose: bool, layers: list[dict], dev) -> dict:
                               (torch.bfloat16, "bf16", BF16_REL_TOL)):
         for i, L in enumerate(layers):
             *tensors, offs = sconv_inputs(L, dtype, dev, i, transpose)
+            tc = not transpose and sconv_tensor_core(L, dtype)
+            before = ksconv.sconv1d_ba.launches_tc
             got = kernel(*tensors, offs, *args_of(L))
+            again = kernel(*tensors, offs, *args_of(L))
             want = plain(*(t.float() for t in tensors), offs, *args_of(L))
             torch.cuda.synchronize()
             if got.dtype != dtype or got.shape != want.shape:
                 raise AssertionError(f"{name} {L['name']} {dname}: "
                                      f"{got.dtype} {tuple(got.shape)}")
+            if ksconv.sconv1d_ba.launches_tc - before != 2 * tc:
+                raise AssertionError(f"{name} {L['name']} {dname}: not on "
+                                     f"the path its predicate names")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} {L['name']} {dname}: two "
+                                     f"launches differ")
             err = (got.float() - want).abs().max().item()
             peak = want.abs().max().item()
             errs[(L["name"], dname)] = err
             print(json.dumps({"compare": name, "dtype": dname,
                               "geometry": L["name"],
+                              "path": "tensor_core" if tc else "cuda_core",
                               "x": list(tensors[0].shape),
                               "out": list(got.shape), "max_abs_err": err,
                               "max_rel_err": err / peak, "max_abs_y": peak,
-                              "tol_rel": tol}), flush=True)
+                              "tol_rel": tol, "repeat_bits_equal": True}),
+                  flush=True)
             if not err <= tol * peak:
                 raise AssertionError(f"{name} {L['name']} {dname}: max err "
                                      f"{err} > {tol} * {peak}")
@@ -832,29 +864,65 @@ def gru_cell_inputs(cfg, dtype, dev, seed: int = 2) -> list:
     return [a.to(dtype).contiguous() for a in (x, h0, w_i, w_h, b_i, b_h)]
 
 
+def ragged_cell_inputs(dtype, dev, shape=GRU_CELL_RAGGED, seed: int = 5):
+    """A cell ragged against every tile of K3's tensor-core path: B below
+    one m-tile, in and H not multiples of 16 (a part-filled last k-step
+    and unit tile)."""
+    b, in_dim, hid = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * scale
+    args = (r(b, in_dim), torch.tanh(r(b, hid)),
+            r(in_dim, 3 * hid, scale=in_dim ** -0.5),
+            r(hid, 3 * hid, scale=hid ** -0.5), r(3 * hid, scale=0.1),
+            r(3 * hid, scale=0.1))
+    return [a.to(dtype).contiguous() for a in args]
+
+
 def compare_gru_cell(cfg, dev) -> dict:
     """K3 against its plain form (f32 within F32_REL_TOL of the peak, bf16
     within one ulp of it: the same f32 values before the one rounding of
-    h'), and GruCell's gradients (K3 forward, plain backward) against
+    h') at cond_gru_sc09's cell and at a ragged one, on the path its
+    predicate names (bf16: the tensor cores), a second launch to the same
+    bits; and GruCell's gradients (K3 forward, plain backward) against
     autograd through the plain cell, f32, GRU_BWD_REL_L2 each."""
     from audiogan_tpu_torch.kernels import gru as kgru
     from audiogan_tpu_torch.ops.gru import gru_cell
     errs = {}
     for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        args = gru_cell_inputs(cfg, dtype, dev)
-        got = kgru.gru_cell_fwd(*args)
-        want = kgru.gru_cell_plain(*(a.float() for a in args))
-        torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        peak = want.abs().max().item()
-        tol = F32_REL_TOL * peak if dtype == torch.float32 else bf16_ulp(peak)
-        print(json.dumps({"compare": "gru_cell", "dtype": dname,
-                          "x": list(args[0].shape), "h": list(args[1].shape),
-                          "max_abs_err": err, "max_abs_y": peak,
-                          "tol_abs": tol}), flush=True)
-        if got.dtype != dtype or not err <= tol:
-            raise AssertionError(f"gru_cell {dname}: {err} > {tol}")
-        errs[("gru_cell", dname)] = err
+        for cell, args in (("gru_cell", gru_cell_inputs(cfg, dtype, dev)),
+                           ("gru_cell ragged", ragged_cell_inputs(dtype,
+                                                                  dev))):
+            tc = kgru.gru_cell_tensor_core(dtype, args[0].shape[0],
+                                           args[0].shape[1],
+                                           args[1].shape[1])
+            before = kgru.gru_cell_fwd.launches_tc
+            got = kgru.gru_cell_fwd(*args)
+            again = kgru.gru_cell_fwd(*args)
+            want = kgru.gru_cell_plain(*(a.float() for a in args))
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            peak = want.abs().max().item()
+            tol = (F32_REL_TOL * peak if dtype == torch.float32
+                   else bf16_ulp(peak))
+            print(json.dumps({"compare": cell, "dtype": dname,
+                              "path": "tensor_core" if tc else "cuda_core",
+                              "x": list(args[0].shape),
+                              "h": list(args[1].shape),
+                              "max_abs_err": err, "max_abs_y": peak,
+                              "tol_abs": tol, "repeat_bits_equal":
+                              torch.equal(got, again)}), flush=True)
+            if got.dtype != dtype or not err <= tol:
+                raise AssertionError(f"{cell} {dname}: {err} > {tol}")
+            if kgru.gru_cell_fwd.launches_tc - before != 2 * tc:
+                raise AssertionError(f"{cell} {dname}: not on the path its "
+                                     f"predicate names")
+            if dtype == torch.bfloat16 and not tc:
+                raise AssertionError(f"{cell} bf16 must run the tensor cores")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{cell} {dname}: two launches differ")
+            errs[(cell, dname)] = err
     args = [a.requires_grad_(True) for a in gru_cell_inputs(cfg,
                                                             torch.float32,
                                                             dev)]
@@ -881,7 +949,11 @@ def gru_cell_phase(cfg, dev, frames: int = 256) -> dict:
     at cond_gru_sc09's cell, f32, forward (K3, counted: zeroed just before,
     read just after) and backward; against the same recurrence through
     the plain cell (impl="xla") on the card: h_T within F32_REL_TOL of the
-    peak, every gradient within GRU_BWD_REL_L2 relative L2."""
+    peak, every gradient within GRU_BWD_REL_L2 relative L2. Then bf16,
+    forward: every launch on the tensor cores, h_T against the plain
+    form's recurrence within BF16_REL_TOL of the peak (each frame rounds
+    h' once; a rounding that flips in one frame moves the later ones by
+    about an ulp, which the cell's blend does not amplify)."""
     from audiogan_tpu_torch.kernels import gru as kgru
     from audiogan_tpu_torch.ops.gru import gru_cell
     x0, h0, *params = gru_cell_inputs(cfg, torch.float32, dev)
@@ -915,11 +987,62 @@ def gru_cell_phase(cfg, dev, frames: int = 256) -> dict:
             and max(rel.values()) <= GRU_BWD_REL_L2):
         raise AssertionError(f"gru_cell recurrence: h err {err} (peak "
                              f"{peak}), grads {rel}")
+
+    # bf16, forward: K3 on the tensor cores against the plain form's
+    # recurrence (the kernel's numerics) on the same inputs
+    xs16, h16 = xs.bfloat16(), h0.bfloat16()
+    p16 = [t.bfloat16() for t in params]
+    with torch.no_grad():
+        kgru.gru_cell_fwd.launches = kgru.gru_cell_fwd.launches_tc = 0
+        t0 = time.perf_counter()
+        hk = h16
+        for t in range(frames):
+            hk = gru_cell(xs16[t], hk, *p16, impl="pallas")
+        torch.cuda.synchronize()
+        seconds16 = time.perf_counter() - t0
+        launches16 = kgru.gru_cell_fwd.launches
+        launches16_tc = kgru.gru_cell_fwd.launches_tc
+        hp = h16
+        for t in range(frames):
+            hp = kgru.gru_cell_plain(xs16[t], hp, *p16)
+    if launches16 != frames or launches16_tc != frames:
+        raise AssertionError(f"bf16 gru_cell: {launches16} launches, "
+                             f"{launches16_tc} on the tensor cores, in "
+                             f"{frames} frames")
+    err16 = (hk.float() - hp.float()).abs().max().item()
+    peak16 = hp.float().abs().max().item()
+    if not (torch.isfinite(hk.float()).all()
+            and err16 <= BF16_REL_TOL * peak16):
+        raise AssertionError(f"bf16 gru_cell recurrence: h err {err16} "
+                             f"(peak {peak16})")
     return dict(frames=frames, batch=h0.shape[0], x=list(x0.shape),
                 h=list(h0.shape), dtype="float32", launches=launches,
                 seconds_fwd_bwd=seconds, h_max_abs_err=err, h_peak=peak,
                 grad_rel_l2=rel, tol_rel=F32_REL_TOL,
-                tol_grad_rel_l2=GRU_BWD_REL_L2)
+                tol_grad_rel_l2=GRU_BWD_REL_L2,
+                bf16=dict(launches=launches16,
+                          launches_tensor_core=launches16_tc,
+                          seconds_fwd=seconds16, h_max_abs_err=err16,
+                          h_peak=peak16, tol_rel=BF16_REL_TOL))
+
+
+def sconv_cuda_core(L: dict, xp, w, b, offs):
+    """K6's CUDA-core tiles (its path before the tensor cores, and still
+    f32's) launched directly at geometry L: the measured alternative.
+    Not a counted launch."""
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    lib = ksconv._lib()
+    y = torch.empty(L["b"], (L["t_in"] + L["lo"] + L["hi"] - L["k"])
+                    // L["s"] + 1, L["cout"], dtype=xp.dtype, device=xp.device)
+
+    def call():
+        err = lib.sconv1d_launch(
+            xp.data_ptr(), w.data_ptr(), b.data_ptr(), offs.data_ptr(),
+            y.data_ptr(), L["b"], xp.shape[1], L["cin"], L["cout"], L["k"],
+            L["s"], L["lo"], L["hi"], L["rad"], ksconv.ACTS[L["act"]], 0.2,
+            1, torch.cuda.current_stream(xp.device).cuda_stream)
+        ksconv._raise_if(lib, err, "sconv1d")
+    return call
 
 
 def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
@@ -934,6 +1057,7 @@ def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
         *tensors, offs = sconv_inputs(L, torch.bfloat16, dev, i, transpose)
         offs_l = offs.long()
         rad = L["rad"]
+        extra = {}
         if transpose:
             ct, wf = tensors
             zeros = torch.zeros(L["cout"], dtype=ct.dtype, device=dev)
@@ -954,10 +1078,15 @@ def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
                                            L["s"], L["lo"], L["hi"],
                                            L["act"], 0.2)
             flops, nbytes = sconv_work(L, 2)
+            extra = {"path": ("tensor_core" if sconv_tensor_core(L)
+                              else "cuda_core"),
+                     "cuda_core_ms": cuda_ms(sconv_cuda_core(L, xp, w, b,
+                                                             offs),
+                                             iters=5, warmup=1)}
         bound_ms, bound_by = bound(flops, nbytes)
         ms = cuda_ms(kernel)
         rows.append({
-            "geometry": L["name"], "x": list(tensors[0].shape),
+            "geometry": L["name"], "x": list(tensors[0].shape), **extra,
             "ms": ms, "tflops_per_s": flops / ms / 1e9,
             "plain_ms": cuda_ms(plain), "library_ms": None,
             "unfused_pair_ms": cuda_ms(pair),
@@ -970,15 +1099,68 @@ def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
     return rows
 
 
+def queued_device_ms(fn, reps: int = 50) -> float:
+    """One call's device time: CUDA events around it, queued behind a
+    sleep kernel so that the host's time to enqueue it is hidden; the
+    median of reps."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """One call's host time: the calls enqueue behind a sleep kernel, so
+    none waits on the device; host clock, per call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES * 50)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def profiled_device_ms(fn, iters: int = 50) -> float | None:
+    """torch.profiler's device time of the kernels fn launches, per call
+    (None where the profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3 if us > 0 else None
+
+
 def time_gru_cell(cfg, dev, errs: dict) -> dict:
-    """K3 at cond_gru_sc09's cell, bf16. Its library call is
-    torch.nn.GRUCell, the same r, z, n gates and blend over [3H, in]
-    weights (w_i.T and w_h.T, copied outside the timed call); it is first
-    held to the plain form in f32 (F32_REL_TOL of the peak). The two are
-    timed in K3_ROUNDS alternating rounds (K3, library, K3, ...) of
-    K3_LAUNCHES launches each, after one warm-up round of each; ms and
-    library_ms are the medians, with each one's spread (max - min over
-    its rounds) beside them."""
+    """K3 at cond_gru_sc09's cell, bf16 (the tensor-core path). Its
+    library call is torch.nn.GRUCell, the same r, z, n gates and blend
+    over [3H, in] weights (w_i.T and w_h.T, copied outside the timed
+    call); it is first held to the plain form in f32 (F32_REL_TOL of the
+    peak). Protocol time: the two timed in K3_ROUNDS alternating rounds
+    (K3, library, K3, ...) of K3_LAUNCHES back-to-back launches each,
+    after one warm-up round of each; ms and library_ms are the medians,
+    with each one's spread (max - min over its rounds) beside them.
+    Device time: torch.profiler's kernel time per call, and events around
+    one call queued behind a sleep (queued_device_ms), for both; and each
+    one's host time per call (host_ms), which sets the protocol time where
+    it exceeds the device time."""
     from audiogan_tpu_torch.kernels import gru as kgru
 
     def library(dtype):
@@ -1010,6 +1192,22 @@ def time_gru_cell(cfg, dev, errs: dict) -> dict:
                              ("library", lambda: cell(x, h))):
                 rounds[name].append(cuda_ms(fn, iters=K3_LAUNCHES,
                                             warmup=1 if i else 3))
+        device = {"device_ms_profiler": profiled_device_ms(
+                      lambda: kgru.gru_cell_fwd(*args)),
+                  "library_device_ms_profiler": profiled_device_ms(
+                      lambda: cell(x, h)),
+                  "device_ms_queued": queued_device_ms(
+                      lambda: kgru.gru_cell_fwd(*args)),
+                  "library_device_ms_queued": queued_device_ms(
+                      lambda: cell(x, h)),
+                  "host_ms": host_ms(lambda: kgru.gru_cell_fwd(*args)),
+                  "library_host_ms": host_ms(lambda: cell(x, h))}
+        # the tensor-core kernel at every cluster split: the measured
+        # alternatives to gru_cell_plan's (launched directly, not counted)
+        out = torch.empty_like(h)
+        split_ms = {d: profiled_device_ms(
+            lambda: kgru._gru_cell_tc(args, out, d))
+            for d in (1, 2, 4, 8)}
     ms = float(np.median(rounds["kernel"]))
     library_ms = float(np.median(rounds["library"]))
     row = {"geometry": f"x [{b},{in_dim}], h [{b},{hid}]", "ms": ms,
@@ -1020,6 +1218,10 @@ def time_gru_cell(cfg, dev, errs: dict) -> dict:
            f"alternating rounds of {K3_LAUNCHES} launches",
            "tflops_per_s": flops / ms / 1e9,
            "plain_ms": cuda_ms(lambda: kgru.gru_cell_plain(*args), iters=50),
+           "path": ("tensor_core" if kgru.gru_cell_tensor_core(
+               x.dtype, b, in_dim, hid) else "cuda_core"), **device,
+           "split": int(kgru.gru_cell_plan(b, in_dim, hid)[1]),
+           "split_device_ms_profiler": split_ms,
            "library_ms": library_ms, "library_f32_max_abs_err": lib_err,
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes, "max_abs_err": errs[("gru_cell", "bf16")]}
@@ -1512,7 +1714,9 @@ def main() -> int:
     wave_kernels = {k: counters[k] for k in ("convt1d", "conv1d", "ingest",
                                              "convt1d_tc", "conv1d_tc")}
     fused_kernels = {**wave_kernels, "sconv1d": ksconv.sconv1d_ba,
-                     "sconvt1d": ksconv.sconvt1d}
+                     "sconvt1d": ksconv.sconvt1d,
+                     "sconv1d_tc": PathCounter(ksconv.sconv1d_ba,
+                                               "launches_tc")}
 
     # 1. env ---------------------------------------------------------------
     t0 = time.time()
@@ -1557,10 +1761,12 @@ def main() -> int:
     d_fwd = critic_layers(cfg, 2 * BATCH)
     g_dx = generator_dx_layers(cfg, BATCH)
     s_fwd = fused_site_layers(cfg, 2 * BATCH)
+    s_fwd_b = [dict(L, name=L["name"] + " (B)")
+               for L in fused_site_layers(cfg, BATCH)]
     s_dx = fused_site_dx_layers(cfg, 2 * BATCH)
     errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx, dev),
             "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev),
-            "sconv1d": compare_sconv(False, s_fwd, dev),
+            "sconv1d": compare_sconv(False, s_fwd + s_fwd_b, dev),
             "sconvt1d": compare_sconv(True, s_dx, dev)}
     cases = ingest_cases(dev)
     errs["ingest"] = compare_ingest(cases, dev)
@@ -1615,8 +1821,10 @@ def main() -> int:
     t0 = time.time()
     k6_step, k7_step = fused_step_launches(fcfg)
     PShuf.calls = 0
+    # every K6 launch of the step on the tensor cores
     ftrained = train_phase(fcfg, dev, fused_kernels,
                            {"sconv1d": k6_step, "sconvt1d": k7_step,
+                            "sconv1d_tc": k6_step,
                             **conv_step_launches(fcfg)})
     if PShuf.calls:
         raise AssertionError(f"fused critic shuffled {PShuf.calls} times")
@@ -1720,6 +1928,10 @@ def main() -> int:
             "sum over the fused critic's 4 shuffled-input convs D1-D4 "
             "forward (2B=128), bf16", card,
             launches_per_train_step_fused=fper_step["sconv1d"],
+            launches_tensor_core=ftrained["launches"]["sconv1d_tc"],
+            launches_tensor_core_per_train_step_fused=fper_step[
+                "sconv1d_tc"],
+            cuda_core_ms=sum(r["cuda_core_ms"] for r in rows["sconv1d"]),
             unfused_pair_ms=sum(r["unfused_pair_ms"]
                                 for r in rows["sconv1d"])),
         kernel_entry(
@@ -1736,9 +1948,11 @@ def main() -> int:
             "gru_cell", "audiogan_tpu_torch/csrc/gru_cell.cu",
             "audiogan_tpu/kernels/gru.py:57",
             "_gru_fwd_impl (body _gru_kernel)",
-            cell_run["launches"], [rows["gru_cell"]],
+            cell_run["bf16"]["launches"], [rows["gru_cell"]],
             "one step of cond_gru_sc09's cell, x and h [64, 512], bf16", card,
-            launches_per_recurrence=cell_run["launches"]),
+            launches_per_recurrence=cell_run["bf16"]["launches"],
+            launches_tensor_core=cell_run["bf16"]["launches_tensor_core"],
+            launches_f32_recurrence=cell_run["launches"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

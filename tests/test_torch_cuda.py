@@ -365,6 +365,65 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
             (steps * (cfg.loss.n_critic + 1), steps)
 
 
+_FIRST_STEPS = """
+import dataclasses, hashlib, json, sys
+import torch
+sys.path.insert(0, {tests!r})
+import test_torch_cuda as t
+from audiogan_tpu_torch.train.state import create_train_state
+from audiogan_tpu_torch.train.step import build_train_step
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+batch, fused_sites, dtype = 16, {fused_sites!r}, {dtype!r}
+cfg = t._tiny_cfg()
+width = {{}} if dtype == "float32" else {{"model_dim": 64, "max_channels": 128}}
+cfg = cfg.replace(
+    model=dataclasses.replace(cfg.model, fused_shuffle_sites=fused_sites,
+                              **width),
+    train=dataclasses.replace(cfg.train, dtype=dtype, batch_size=batch))
+gen = torch.Generator().manual_seed(0)
+raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
+                   generator=gen) * 6000).clamp(-32768, 32767).to(torch.int16)
+labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
+hashes = []
+for _ in range(2):
+    state = create_train_state(cfg, device=dev)
+    step = build_train_step(cfg, dev)
+    step(state, raw, labels)
+    params = (*state.g.parameters(), *state.d.parameters())
+    hashes.append(hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes() for p in params)).hexdigest())
+print(json.dumps(hashes))
+"""
+
+
+@pytest.mark.parametrize("fused_sites,dtype", [(0, "float32"),
+                                               (-1, "bfloat16")])
+def test_first_train_step_of_a_fresh_process_is_bit_reproducible(
+        cuda_device, fused_sites, dtype):
+    """The first training step of a fresh process, run twice in it, and
+    in a second fresh process, gives the same parameters to the bit: the
+    first step of a process (its autograd engine, its libraries' first
+    calls) is no different from the later ones. Each process is its own
+    interpreter, so no earlier test can have warmed anything up."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    tests = Path(__file__).resolve().parent
+    script = _FIRST_STEPS.format(tests=str(tests), fused_sites=fused_sites,
+                                 dtype=dtype)
+    hashes = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", script],
+                             cwd=tests.parent, capture_output=True,
+                             text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        hashes += json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(set(hashes)) == 1, hashes
+
+
 # (B, H, F, n_frames): ragged against every gemm tile (32, 64, 128), a
 # batch that fills 64-row tiles, and one frame
 GRU_SCANS = [(3, 20, 12, 7), (64, 64, 32, 16), (5, 33, 17, 9), (2, 8, 4, 1),
@@ -661,3 +720,126 @@ def test_gru_cell_recurrence_on_card_matches_cpu(cuda_device):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     for gc, gg in zip(grads["cpu"], grads[str(cuda_device)]):
         assert (gg - gc).norm().item() <= 1e-4 * max(gc.norm().item(), 1e-12)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 512), (7, 512, 512),
+                                   (64, 512, 512), (7, 24, 40)], ids=str)
+def test_gru_cell_tensor_core_matches_plain_and_repeats_bit_for_bit(
+        cuda_device, shape):
+    """K3's tensor-core path (bf16) at cond_gru_sc09's cell width with B
+    1, 7, 64, and at a cell ragged against its tiles: within one bf16 ulp
+    of the plain form's peak (the same f32 values before the one rounding
+    of h'), and a second launch gives the same bits (the cluster's partial
+    sums are added in rank order)."""
+    b, in_dim, hid = shape
+    assert tgru.gru_cell_tensor_core(torch.bfloat16, b, in_dim, hid)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device=cuda_device)
+                * scale).bfloat16()
+    args = (r(b, in_dim), torch.tanh(r(b, hid)),
+            r(in_dim, 3 * hid, scale=in_dim ** -0.5),
+            r(hid, 3 * hid, scale=hid ** -0.5), r(3 * hid, scale=0.1),
+            r(3 * hid, scale=0.1))
+    before = tgru.gru_cell_fwd.launches_tc
+    first, second = tgru.gru_cell_fwd(*args), tgru.gru_cell_fwd(*args)
+    torch.cuda.synchronize()
+    assert tgru.gru_cell_fwd.launches_tc == before + 2
+    want = tgru.gru_cell_plain(*(a.float() for a in args))
+    err = (first.float() - want).abs().max().item()
+    assert err <= _bf16_ulp(want.abs().max().item()), err
+    assert torch.equal(first, second)
+
+
+def _site_geoms():
+    """The flagship's four fused sites (D1-D4's forwards: k 25, s 4, rad
+    2) at their widths and lengths."""
+    from audiogan_tpu_torch.kernels.conv import _same_pads
+    chans = [(64, 128), (128, 256), (256, 512), (512, 1024)]
+    out = []
+    for i, (cin, cout) in enumerate(chans):
+        t = 16384 // 4 ** (i + 1)
+        _, lo, hi = _same_pads(t, 25, 4)
+        out.append((t, cin, cout, lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("batch", [9, 64])
+@pytest.mark.parametrize("site", range(4))
+def test_sconv1d_tensor_core_sites_match_plain_and_repeat_bit_for_bit(
+        cuda_device, site, batch):
+    """K6 on the tensor cores at each fused site of the flagship, bf16:
+    offsets mixed along the batch (each stacked tile mixes them; 9 leaves
+    a stacked tile ragged), within one rounding of the output of the plain
+    form, two launches to the same bits; and offsets outside [0, 2 rad]
+    read as their clamped values."""
+    from audiogan_tpu_torch.ops.sconv import mask_reflect_pad
+    t, cin, cout, lo, hi = _site_geoms()[site]
+    rad = 2
+    assert tsconv.sconv1d_tensor_core(torch.bfloat16, t, cin, cout, 25, 4,
+                                      rad)
+    gen = torch.Generator(cuda_device).manual_seed(site)
+    y = torch.randn(batch, t, cin, generator=gen, device=cuda_device)
+    offs = torch.randint(0, 2 * rad + 1, (batch,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    xp = mask_reflect_pad(y, offs, rad).bfloat16()
+    w = (torch.randn(25, cin, cout, generator=gen, device=cuda_device)
+         / (25 * cin / 4) ** 0.5).bfloat16()
+    bias = (torch.randn(cout, generator=gen, device=cuda_device)
+            * 0.5).bfloat16()
+    before = tsconv.sconv1d_ba.launches_tc
+    first = tsconv.sconv1d_ba(xp, w, bias, offs, 4, lo, hi, rad,
+                              "leaky_relu", 0.2)
+    second = tsconv.sconv1d_ba(xp, w, bias, offs, 4, lo, hi, rad,
+                               "leaky_relu", 0.2)
+    torch.cuda.synchronize()
+    assert tsconv.sconv1d_ba.launches_tc == before + 2
+    want = tsconv.sconv1d_ba_plain(xp.float(), w.float(), bias.float(), offs,
+                                   4, lo, hi, rad, "leaky_relu", 0.2)
+    err = (first.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+    assert torch.equal(first, second)
+    wild = offs.clone()
+    wild[0], wild[-1] = -7, 2 * rad + 9
+    clamped = wild.clamp(0, 2 * rad)
+    got = tsconv.sconv1d_ba(xp, w, bias, wild, 4, lo, hi, rad, "leaky_relu",
+                            0.2)
+    assert torch.equal(got, tsconv.sconv1d_ba(xp, w, bias, clamped, 4, lo,
+                                              hi, rad, "leaky_relu", 0.2))
+
+
+def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
+    """The flagship's tiny step widened to 64 channels with every shuffle
+    site fused, bf16: K6 on the tensor cores (every launch), two runs of
+    two steps from one seed to the same parameters."""
+    import dataclasses
+
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    batch = 16
+    cfg = _tiny_cfg()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, fused_shuffle_sites=-1,
+                                  model_dim=64, max_channels=128),
+        train=dataclasses.replace(cfg.train, dtype="bfloat16",
+                                  batch_size=batch))
+    gen = torch.Generator().manual_seed(0)
+    raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
+                       generator=gen) * 6000).clamp(-32768, 32767)
+    raw = raw.to(torch.int16)
+    labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
+    before = (tsconv.sconv1d_ba.launches, tsconv.sconv1d_ba.launches_tc)
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, device=cuda_device)
+        step = build_train_step(cfg, cuda_device)
+        for _ in range(2):
+            step(state, raw, labels)
+        runs.append([p.detach().cpu() for p in (*state.g.parameters(),
+                                                *state.d.parameters())])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    launched = tsconv.sconv1d_ba.launches - before[0]
+    assert launched > 0
+    assert tsconv.sconv1d_ba.launches_tc - before[1] == launched

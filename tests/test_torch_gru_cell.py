@@ -151,3 +151,108 @@ def test_recurrence_matches_jax():
     for g, w in zip(torch.autograd.grad(val, targs), jgrads):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
                                    rtol=1e-4)
+
+
+def _emulate_tensor_core_cell(x, h, w_i, w_h, b_i, b_h):
+    """The order of K3's tensor-core path (csrc/gru_cell.cu,
+    gru_cell_tc_kernel) in torch, from the plan the kernel is launched
+    with: per unit tile of GRU_CELL_UNITS columns, each cluster rank's
+    f32 sums over its k-steps of 16 (x's against w_i, then h's against
+    w_h; r and z over both, i_n over x's, h_n over h's), the ranks'
+    partials added in rank order, the biases and gates in f32, one
+    rounding of h'. Columns no unit tile owns stay NaN."""
+    b, in_dim = x.shape
+    hid = h.shape[1]
+    units, split, kx, kt, *start = tgru.gru_cell_plan(b, in_dim, hid).tolist()
+    assert units == tgru.GRU_CELL_UNITS and len(start) == split + 1
+    f = [t.float() for t in (x, h, w_i, w_h, b_i, b_h)]
+    x32, h32, wi, wh, bi, bh = f
+    out = torch.full((b, hid), float("nan"))
+    for j0 in range(0, hid, units):
+        j = torch.arange(j0, min(j0 + units, hid))
+        parts = []
+        for q in range(split):
+            acc = torch.zeros(4, b, len(j))
+            for s in range(start[q], start[q + 1]):
+                part, k0 = (0, 16 * s) if s < kx else (1, 16 * (s - kx))
+                a, w = (x32, wi) if part == 0 else (h32, wh)
+                a, w = a[:, k0:k0 + 16], w[k0:k0 + 16]
+                acc[0] += a @ w[:, j]
+                acc[1] += a @ w[:, hid + j]
+                acc[2 + part] += a @ w[:, 2 * hid + j]
+            parts.append(acc)
+        tot = parts[0]
+        for p in parts[1:]:
+            tot = tot + p
+        r = torch.sigmoid(tot[0] + bi[j] + bh[j])
+        z = torch.sigmoid(tot[1] + bi[hid + j] + bh[hid + j])
+        n = torch.tanh(tot[2] + bi[2 * hid + j]
+                       + r * (tot[3] + bh[2 * hid + j]))
+        out[:, j] = (1 - z) * n + z * h32[:, j]
+    return out.to(x.dtype)
+
+
+def test_tensor_core_plan_emulation_matches_plain_and_jax():
+    """cond_gru_sc09's cell (B 64, in = H = 512), bf16: the tensor-core
+    path's order, emulated from its plan, against the plain form and the
+    Pallas cell (interpret mode) and the XLA cell in bf16, each within one
+    bf16 ulp of the peak (the same f32 values, summed in another order,
+    before the one rounding of h'). And a ragged cell (B 7, in 24, H 40:
+    part-filled k-steps and unit tiles) against the plain form."""
+    args = _params(7, 64, 512, 512, 0.05)
+    targs = [torch.from_numpy(a).bfloat16() for a in args]
+    got = _emulate_tensor_core_cell(*targs)
+    assert got.dtype == torch.bfloat16 and not got.float().isnan().any()
+    plain = tgru.gru_cell_plain(*targs)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in args]
+    for want in (plain.float().numpy(),
+                 np.asarray(jax_pallas_cell(*jargs), np.float32)):
+        peak = np.abs(want).max()
+        ulp = 2.0 ** (np.floor(np.log2(peak)) - 7)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=ulp)
+    xla = np.asarray(jax_xla_cell(*jargs), np.float32)
+    # the XLA cell rounds its gate products to bf16: a few ulps
+    np.testing.assert_allclose(got.float().numpy(), xla, rtol=0,
+                               atol=2e-2 * np.abs(xla).max())
+    ragged = [torch.from_numpy(a).bfloat16() for a in _params(8, 7, 24, 40)]
+    want = tgru.gru_cell_plain(*ragged).float()
+    ulp = 2.0 ** (np.floor(np.log2(want.abs().max().item())) - 7)
+    torch.testing.assert_close(_emulate_tensor_core_cell(*ragged).float(),
+                               want, rtol=0, atol=ulp)
+
+
+@pytest.mark.parametrize("shape", [(64, 512, 512), (7, 24, 40), (1, 512, 512),
+                                   (33, 520, 264), (130, 48, 16),
+                                   (17, 1, 7)], ids=str)
+def test_tensor_core_plan_covers_the_depth_once(shape):
+    """Every k-step of x || h belongs to exactly one cluster rank, every
+    rank has one, the split is a cluster's (at most 8) and the grid fills
+    the card where the width allows: 32 unit tiles x 8 ranks at
+    cond_gru_sc09's cell."""
+    b, in_dim, hid = shape
+    units, split, kx, kt, *start = tgru.gru_cell_plan(b, in_dim, hid).tolist()
+    assert (units, kx, kt) == (16, -(-in_dim // 16),
+                               -(-in_dim // 16) + -(-hid // 16))
+    assert 1 <= split <= tgru.GRU_CELL_MAX_SPLIT and len(start) == split + 1
+    assert start[0] == 0 and start[-1] == kt
+    assert all(a < b_ for a, b_ in zip(start, start[1:]))
+    tiles = -(-hid // 16)
+    assert (tiles * split >= tgru.GRU_CELL_MIN_BLOCKS
+            or split == tgru.GRU_CELL_MAX_SPLIT or 2 * split > kt)
+    if shape == (64, 512, 512):
+        assert (tiles, split) == (32, 8)
+
+
+@pytest.mark.parametrize("dtype,b,in_dim,hid,want", [
+    (torch.bfloat16, 64, 512, 512, True),    # cond_gru_sc09's cell
+    (torch.bfloat16, 1, 512, 512, True),
+    (torch.bfloat16, 7, 24, 40, True),       # ragged tiles
+    (torch.bfloat16, 65, 512, 512, False),   # five m-tiles
+    (torch.bfloat16, 64, 20, 512, False),    # in % 8
+    (torch.bfloat16, 64, 512, 33, False),    # H % 8
+    (torch.float32, 64, 512, 512, False),    # f32: the CUDA cores
+    (torch.float16, 64, 512, 512, False),
+], ids=str)
+def test_tensor_core_predicate(dtype, b, in_dim, hid, want):
+    assert tgru.gru_cell_tensor_core(dtype, b, in_dim, hid) is want

@@ -329,3 +329,24 @@ def test_cli_train_runs_on_the_cpu(tmp_path, capsys):
     assert (tmp_path / "synthetic_corpus" / "meta.json").exists()
     assert json.loads((tmp_path / "config.json").read_text())["name"] == \
         "tiny_sc09"
+
+
+def test_step_runs_every_backward_on_the_calling_thread(monkeypatch):
+    """The step turns off the autograd engine's worker threads: every
+    backward of it (the penalty's inner grad, the critic's and the
+    generator's updates) runs on the thread that called the step, so the
+    nodes the penalty's create_graph backward makes are numbered by the
+    same counter as the forward's, and the engine's order, which sets the
+    order of every gradient sum, is the same in every run and process."""
+    import audiogan_tpu_torch.kernels.autograd as kad
+    seen = []
+    real = kad.conv1d_wgrad
+
+    def spy(*a):
+        seen.append(torch._C._is_multithreading_enabled())
+        return real(*a)
+    monkeypatch.setattr(kad, "conv1d_wgrad", spy)
+    pcfg = _tiny_port_cfg(True)
+    _run_own(pcfg, 0, steps=1)
+    assert seen and not any(seen)
+    assert torch._C._is_multithreading_enabled()
