@@ -52,7 +52,15 @@
 //  * wgmma.m64nNk16 bf16 -> f32, four per 64-channel k-step, one group in
 //    flight behind the next;
 //  * epilogue in registers: bias + activation in f32, one bf16 rounding,
-//    masked stores at output row t*s_out + phase.
+//    masked stores at output row t*s_out + phase;
+//  * the placed epilogue (PLACED, K7 in csrc/sconv.cu): no bias, no
+//    activation, output row yr of element b stored at row yr + off_b of
+//    a [B, y_len + 2 rad, Cout] output (off_b = offs[b] clamped into
+//    [0, 2 rad]); the 2 rad rows outside each window are written as zeros
+//    by the block of phase 0 and m-tile 0 (every element of a stacked
+//    tile, its own BN columns), before its main loop. Window rows and
+//    zero rows are disjoint, so every output element is written once, by
+//    one block.
 // Each output is summed in one fixed order (k-steps, then channel chunks,
 // then the 16-deep slices), so two launches give the same bits; no split
 // over the depth, no atomics.
@@ -94,7 +102,11 @@ struct Plan {
   int act;
   float slope;
   const int* offs;  // K6: element b's A view is offs[b] (clamped to
-  int max_off;      // [0, max_off]); null for one view
+  int max_off;      // [0, max_off]); null for one view. K7 (PLACED):
+                    // element b's window starts at output row offs[b]
+                    // (clamped to [0, max_off = 2 rad])
+  int y_pitch;      // output rows per element: y_len, or (PLACED) y_len +
+                    // max_off
 };
 
 // The A operand's tensor maps: one, or (K6) one per window offset.
@@ -244,7 +256,7 @@ __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da, uint64_t db) {
   else wgmma_m64n64(d, da, db);
 }
 
-template <int NWG, int BN, int NV>
+template <int NWG, int BN, int NV, bool PLACED>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 igemm_kernel(const __grid_constant__ AViews<NV> a_views,
              const __grid_constant__ CUtensorMap b_map,
@@ -330,6 +342,26 @@ igemm_kernel(const __grid_constant__ AViews<NV> a_views,
     return;
   }
 
+  if constexpr (PLACED) {
+    // the rows outside each window, as zeros: the block of phase 0 and
+    // m-tile 0 (t0 == 0 in every stacked tile), for each element it holds
+    // and its own BN columns; 16-byte stores (cout % 8 == 0)
+    if (phase == 0 && t0 == 0) {
+      const int n_el = min(g.nb, g.batch - b0);
+      const int total = n_el * g.max_off * (BN / 8);
+      for (int e = threadIdx.x; e < total; e += NWG * 128) {
+        const int o = o0 + 8 * (e % (BN / 8));
+        const int zr = (e / (BN / 8)) % g.max_off;
+        const int b = b0 + e / ((BN / 8) * g.max_off);
+        if (o >= g.cout) continue;
+        const int off = min(max(__ldg(g.offs + b), 0), g.max_off);
+        const int row = zr < off ? zr : g.y_len + zr;
+        *reinterpret_cast<uint4*>(y + ((size_t)b * g.y_pitch + row) * g.cout +
+                                  o) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+
   // the consumers: warpgroup wg multiplies tile rows [64 wg, 64 wg + 64)
   const int wg = warp / 4;
   float acc[BN / 2];
@@ -368,17 +400,30 @@ igemm_kernel(const __grid_constant__ AViews<NV> a_views,
     const int yr = t * g.s_out + phase;
     if (seg >= g.nb || b >= g.batch || t >= g.t_lim || yr >= g.y_len)
       continue;
-    __nv_bfloat16* yrow = y + ((size_t)b * g.y_len + yr) * g.cout;
+    if constexpr (PLACED) {
+      const int off = min(max(__ldg(g.offs + b), 0), g.max_off);
+      __nv_bfloat16* yrow = y + ((size_t)b * g.y_pitch + yr + off) * g.cout;
 #pragma unroll
-    for (int c = 0; c < BN / 8; ++c) {
-      const int o = col + 8 * c;
-      if (o >= g.cout) continue;
-      const float v0 = rowconv::apply_act(
-          acc[4 * c + 2 * h] + __bfloat162float(bias[o]), g.act, g.slope);
-      const float v1 = rowconv::apply_act(
-          acc[4 * c + 2 * h + 1] + __bfloat162float(bias[o + 1]), g.act,
-          g.slope);
-      *reinterpret_cast<__nv_bfloat162*>(yrow + o) = __floats2bfloat162_rn(v0, v1);
+      for (int c = 0; c < BN / 8; ++c) {
+        const int o = col + 8 * c;
+        if (o >= g.cout) continue;
+        *reinterpret_cast<__nv_bfloat162*>(yrow + o) = __floats2bfloat162_rn(
+            acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+      }
+    } else {
+      __nv_bfloat16* yrow = y + ((size_t)b * g.y_len + yr) * g.cout;
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const int o = col + 8 * c;
+        if (o >= g.cout) continue;
+        const float v0 = rowconv::apply_act(
+            acc[4 * c + 2 * h] + __bfloat162float(bias[o]), g.act, g.slope);
+        const float v1 = rowconv::apply_act(
+            acc[4 * c + 2 * h + 1] + __bfloat162float(bias[o + 1]), g.act,
+            g.slope);
+        *reinterpret_cast<__nv_bfloat162*>(yrow + o) =
+            __floats2bfloat162_rn(v0, v1);
+      }
     }
   }
 }
@@ -436,7 +481,7 @@ struct AView {
   int n_views, view_step;
 };
 
-template <int NWG, int BN, int NV>
+template <int NWG, int BN, int NV, bool PLACED>
 cudaError_t launch_tile(const AView& av, const void* w, int k,
                         const void* bias, void* y, Plan g, const KSteps& ks,
                         cudaStream_t stream) {
@@ -475,7 +520,7 @@ cudaError_t launch_tile(const AView& av, const void* w, int k,
   if (!encode(&b_map, w, 3, b_dims, b_strides, b_box))
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)kStages * STAGE + 1024 + 16 * kStages;
-  auto kern = igemm_kernel<NWG, BN, NV>;
+  auto kern = igemm_kernel<NWG, BN, NV, PLACED>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -488,8 +533,9 @@ cudaError_t launch_tile(const AView& av, const void* w, int k,
 
 // Decodes kernels/conv.py::tc_plan's int32 array (tile, rows, nb, n_mt,
 // t_lim, s_out, y_len, n_phase, n_steps, start[n_phase + 1], tap[n_steps],
-// row[n_steps], pin[n_steps]) and launches its tile with NV views.
-template <int NV>
+// row[n_steps], pin[n_steps]; PLACED: then y_pitch, kernels/sconv.py::
+// sconvt1d_tc_plan) and launches its tile with NV views.
+template <int NV, bool PLACED = false>
 cudaError_t launch_plan(const AView& av, int batch, int cin, const void* w,
                         int k, int cout, const void* bias, void* y,
                         const int* plan, int act, float slope,
@@ -515,6 +561,13 @@ cudaError_t launch_plan(const AView& av, int batch, int cin, const void* w,
   const int* tap = start + g.n_phase + 1;
   const int* row = tap + n;
   const int* pin = row + n;
+  g.y_pitch = g.y_len;
+  if constexpr (PLACED) {
+    g.y_pitch = pin[n];
+    if (offs == nullptr || bias != nullptr || act != rowconv::ACT_NONE ||
+        max_off < 0 || g.y_pitch != g.y_len + max_off)
+      return cudaErrorInvalidValue;
+  }
   for (int p = 0; p <= g.n_phase; ++p) {
     ks.start[p] = start[p];
     if (start[p] < 0 || start[p] > n || (p > 0 && start[p] < start[p - 1]))
@@ -527,10 +580,14 @@ cudaError_t launch_plan(const AView& av, int batch, int cin, const void* w,
     ks.tap[e] = tap[e]; ks.row[e] = row[e]; ks.pin[e] = pin[e];
   }
   switch (tile) {
-    case 0: return launch_tile<2, 128, NV>(av, w, k, bias, y, g, ks, stream);
-    case 1: return launch_tile<2, 64, NV>(av, w, k, bias, y, g, ks, stream);
-    case 2: return launch_tile<1, 128, NV>(av, w, k, bias, y, g, ks, stream);
-    case 3: return launch_tile<1, 64, NV>(av, w, k, bias, y, g, ks, stream);
+    case 0:
+      return launch_tile<2, 128, NV, PLACED>(av, w, k, bias, y, g, ks, stream);
+    case 1:
+      return launch_tile<2, 64, NV, PLACED>(av, w, k, bias, y, g, ks, stream);
+    case 2:
+      return launch_tile<1, 128, NV, PLACED>(av, w, k, bias, y, g, ks, stream);
+    case 3:
+      return launch_tile<1, 64, NV, PLACED>(av, w, k, bias, y, g, ks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -563,6 +620,20 @@ inline cudaError_t launch_shifted(const void* xp, int batch, int tp, int rad,
   const AView av = {xp, t / stride, stride, tp, 2 * rad + 1, 1};
   return launch_plan<kMaxViews>(av, batch, cin, w, k, cout, bias, y, plan,
                                 act, slope, offs, 2 * rad, stream);
+}
+
+// K7's tensor-core launch (sconv.cu): convT of ct [batch, t_in, cin]
+// (K1's view [B, T', 1, Cin]) with the placed epilogue: plan from
+// kernels/sconv.py::sconvt1d_tc_plan (convT's, then y_pitch = y_len +
+// 2 rad), y [batch, y_pitch, cout], offs [batch] clamped into [0, 2 rad].
+inline cudaError_t launch_placed(const void* ct, int batch, int t_in,
+                                 int cin, const void* w, int k, int cout,
+                                 const int* offs, int rad, void* y,
+                                 const int* plan, cudaStream_t stream) {
+  if (rad < 0 || offs == nullptr) return cudaErrorInvalidValue;
+  const AView av = {ct, t_in, 1, t_in, 1, 0};
+  return launch_plan<1, true>(av, batch, cin, w, k, cout, nullptr, y, plan,
+                              rowconv::ACT_NONE, 0.f, offs, 2 * rad, stream);
 }
 
 }  // namespace igemm

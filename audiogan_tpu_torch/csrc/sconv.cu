@@ -35,9 +35,9 @@
 // What bounds them on an H100 (989 TFLOP/s bf16 tensor, 3.35 TB/s HBM): at
 // the critic's four fused sites (Cin >= 64) both do hundreds of flops per
 // byte and are bound by operations, as the unfused D1-D4 fwd / dx convs.
-// This file holds only the entry points. Two paths for K6, chosen by
-// kernels/sconv.py::sconv1d_tensor_core, a pure function of dtype and
-// shape:
+// This file holds only the entry points. Two paths for each, chosen by
+// kernels/sconv.py::sconv1d_tensor_core and sconvt1d_tensor_core, pure
+// functions of dtype and shape. K6:
 //  * sconv1d_tc_launch: bf16 with conv1d's tensor-core shapes on z
 //    (Cin, Cout >= 64, T % s == 0) and 2 rad + 1 <= 9: K1′'s implicit GEMM
 //    of csrc/igemm_tc.cuh with one TMA view of xp per window offset o in
@@ -50,9 +50,19 @@
 //  * sconv1d_launch: f32, and the rest, the CUDA-core tiles of
 //    csrc/rowconv_tiles.cuh in their offset form (f32 FMAs over tiles
 //    staged as f32, the z-space mask applied while staging).
-// K7 keeps the CUDA-core offset form (the stores move by offs[b], and the
-// first m-tile's blocks write the zero rows); its tensor-core path would
-// move the window to the epilogue's stores.
+// K7:
+//  * sconvt1d_tc_launch: bf16 with convT's tensor-core shapes (Cc, Co >=
+//    64, multiples of 8, s <= 16): K1's implicit GEMM of csrc/igemm_tc.cuh
+//    on ct itself (no window on the input side: K1's view [B, T', 1, Cc]
+//    and K1's plan, one phase per output phase) with the placed epilogue:
+//    no bias, no activation, output row yr of element b stored at row yr
+//    + offs[b] (clamped into [0, 2 rad], so nothing is written outside
+//    the output whatever offs holds), and the 2 rad rows outside the
+//    window written as zeros by the block of phase 0 and m-tile 0. Every
+//    output element is written once, by one block: no memset, no atomics;
+//  * sconvt1d_launch: f32, and the rest, the CUDA-core polyphase tiles in
+//    their offset form (the stores move by offs[b], the first m-tile's
+//    blocks write the zero rows).
 
 #include "igemm_tc.cuh"
 #include "rowconv_tiles.cuh"
@@ -127,6 +137,18 @@ int sconvt1d_launch(const void* ct, const void* wf, const int* offs, void* y,
     return (int)dispatch_convt1d_tile<true, __nv_bfloat16>(ct, wf, nullptr, y,
                                                            batch, g, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K7's tensor-core path, bf16 only: ct [B, t_in, cin], wf [k, cin, cout],
+// out [B, out_len + 2 rad, cout], plan from kernels/sconv.py::
+// sconvt1d_tc_plan (convT's, then the output pitch out_len + 2 rad).
+// Returns a cudaError_t code (0 = launched).
+int sconvt1d_tc_launch(const void* ct, const void* wf, const int* offs,
+                       void* y, int batch, int t_in, int cin, int cout, int k,
+                       int rad, const int* plan, void* stream) {
+  return (int)igemm::launch_placed(ct, batch, t_in, cin, wf, k, cout, offs,
+                                   rad, y, plan,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* sconv_error_string(int code) {

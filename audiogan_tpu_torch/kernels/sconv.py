@@ -16,13 +16,17 @@ The plain forms are exactly that composition (``sconv1d_ba_lowered`` and
 kernels' oracles. These wrappers record no autograd history:
 kernels/autograd.py wraps them in Functions.
 
-K6 has two paths, and which one a call takes is a pure function of dtype
-and shape (``sconv1d_tensor_core``): bf16 where conv1d takes the tensor
-cores on z (Cin, Cout >= 64, t % stride == 0) and 2 rad + 1 <= 9 runs
-K1''s implicit GEMM with one TMA view of xp per window offset
-(``csrc/igemm_tc.cuh``; its plan ``sconv1d_tc_plan`` is conv1d's on z),
-everything else, and K7, the CUDA-core tiles of
-``csrc/rowconv_tiles.cuh``.
+Each has two paths, and which one a call takes is a pure function of
+dtype and shape (``sconv1d_tensor_core``, ``sconvt1d_tensor_core``). K6:
+bf16 where conv1d takes the tensor cores on z (Cin, Cout >= 64, t %
+stride == 0) and 2 rad + 1 <= 9 runs K1''s implicit GEMM with one TMA
+view of xp per window offset (``csrc/igemm_tc.cuh``; its plan
+``sconv1d_tc_plan`` is conv1d's on z). K7: bf16 where convT takes the
+tensor cores runs K1's implicit GEMM on ct with the placed epilogue, which
+stores row yr of element b at row yr + offs[b] and writes the 2 rad rows
+outside the window as zeros (its plan ``sconvt1d_tc_plan`` is convT's
+with the output pitch t + 2 rad). Everything else takes the CUDA-core
+tiles of ``csrc/rowconv_tiles.cuh``.
 
 Layouts as the reference's contract: xp [B, t + 2 rad, Cin] (reflect-
 padded and masked, ops/sconv.py), offs [B] in [0, 2 rad], w [K, Cin,
@@ -47,7 +51,9 @@ from audiogan_tpu_torch.kernels.conv import (ACTS, _DTYPES, _c_plan,
                                              conv1d_ba_plain, conv1d_t_out,
                                              conv1d_tc_plan,
                                              conv1d_tensor_core,
-                                             conv_transpose1d_ba_plain)
+                                             conv_transpose1d_ba_plain,
+                                             convt_tc_plan,
+                                             convt_tensor_core)
 from audiogan_tpu_torch.ops.sconv import window_place, window_select
 
 
@@ -72,6 +78,28 @@ def sconv1d_tc_plan(batch: int, t: int, cout: int, k: int, stride: int,
     their output rows are a multiple of SCONV_TC_STACK_ROWS."""
     return conv1d_tc_plan(batch, t, cout, k, stride, pad_lo, pad_hi, tile,
                           SCONV_TC_STACK_ROWS)
+
+
+def sconvt1d_tensor_core(dtype, cc: int, co: int, k: int, stride: int,
+                         rad: int) -> bool:
+    """True iff sconvt1d runs this geometry on the tensor cores: convT's
+    predicate (ct's Cc in, Co out) and rad >= 0; the zero rows are
+    written with 16-byte stores, which Co % 8 == 0 (in convT's predicate)
+    allows."""
+    return convt_tensor_core(dtype, cc, co, k, stride) and rad >= 0
+
+
+@functools.cache
+def sconvt1d_tc_plan(batch: int, co: int, k: int, stride: int,
+                     pad_lo_t: int, t: int, rad: int,
+                     tile: int | None = None) -> np.ndarray:
+    """K7's plan (read-only; cached, the wrapper asks every call): K1's
+    convT plan to t rows, then the output pitch t + 2 rad, the rows per
+    element of the placed output."""
+    plan = np.append(convt_tc_plan(batch, co, k, stride, pad_lo_t, t, tile),
+                     np.int32(t + 2 * rad))
+    plan.flags.writeable = False
+    return plan
 
 
 def _check_offs(offs: torch.Tensor, batch: int, rad: int) -> None:
@@ -110,6 +138,10 @@ def _lib() -> ctypes.CDLL:
     lib.sconvt1d_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.sconvt1d_launch.restype = ctypes.c_int
+    lib.sconvt1d_tc_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lib.sconvt1d_tc_launch.restype = ctypes.c_int
     lib.sconv_error_string.argtypes = [ctypes.c_int]
     lib.sconv_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,6 +172,21 @@ def _sconv1d_tc(xp, w, b, offs, y, stride, rad, plan, act, slope) -> None:
         y.data_ptr(), bsz, tp, cin, cout, k, stride, rad, ptr, ACTS[act],
         slope, torch.cuda.current_stream(xp.device).cuda_stream)
     _raise_if(lib, err, "sconv1d")
+
+
+def _sconvt1d_tc(ct, wf, offs, y, rad, plan) -> None:
+    """One launch of K7's tensor-core kernel with the given plan; offs
+    int32 on the card."""
+    _check_tc_alignment("sconvt1d", ct, wf, y)
+    lib = _lib()
+    bsz, t_in, cc = ct.shape
+    k, _, co = wf.shape
+    plan, ptr = _c_plan(plan)
+    err = lib.sconvt1d_tc_launch(
+        ct.data_ptr(), wf.data_ptr(), offs.data_ptr(), y.data_ptr(), bsz,
+        t_in, cc, co, k, rad, ptr,
+        torch.cuda.current_stream(ct.device).cuda_stream)
+    _raise_if(lib, err, "sconvt1d")
 
 
 def sconv1d_ba(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -201,7 +248,9 @@ def sconvt1d(ct: torch.Tensor, wf: torch.Tensor, offs: torch.Tensor,
     A CPU tensor takes the plain form. A CUDA tensor launches the kernel
     (f32 or bf16 in, f32 accumulate, ct.dtype out) or raises; it never
     falls back. offs must lie in [0, 2 rad]; the kernel never writes
-    outside the output whatever they hold.
+    outside the output whatever they hold. Where ``sconvt1d_tensor_core``
+    holds, the tensor-core path runs (counted in ``launches_tc``), else
+    the CUDA-core tiles (``launches_cc``); ``launches`` counts both.
     """
     if wf.dim() != 3:
         raise ValueError(f"want wf [K, Cout, Cin], got {tuple(wf.shape)}")
@@ -215,14 +264,20 @@ def sconvt1d(ct: torch.Tensor, wf: torch.Tensor, offs: torch.Tensor,
     bsz, t_in, cc = ct.shape
     k, _, co = wf.shape
     y = torch.empty((bsz, t + 2 * rad, co), dtype=ct.dtype, device=ct.device)
-    lib = _lib()
-    err = lib.sconvt1d_launch(
-        ct.data_ptr(), wf.data_ptr(), offs.data_ptr(), y.data_ptr(), bsz,
-        t_in, cc, co, k, stride, pad_lo_t, t, rad, _DTYPES[ct.dtype],
-        torch.cuda.current_stream(ct.device).cuda_stream)
-    _raise_if(lib, err, "sconvt1d")
+    if sconvt1d_tensor_core(ct.dtype, cc, co, k, stride, rad):
+        _sconvt1d_tc(ct, wf, offs, y, rad,
+                     sconvt1d_tc_plan(bsz, co, k, stride, pad_lo_t, t, rad))
+        sconvt1d.launches_tc += 1
+    else:
+        lib = _lib()
+        err = lib.sconvt1d_launch(
+            ct.data_ptr(), wf.data_ptr(), offs.data_ptr(), y.data_ptr(), bsz,
+            t_in, cc, co, k, stride, pad_lo_t, t, rad, _DTYPES[ct.dtype],
+            torch.cuda.current_stream(ct.device).cuda_stream)
+        _raise_if(lib, err, "sconvt1d")
+        sconvt1d.launches_cc += 1
     sconvt1d.launches += 1
     return y
 
 
-sconvt1d.launches = 0
+sconvt1d.launches = sconvt1d.launches_tc = sconvt1d.launches_cc = 0

@@ -12,6 +12,12 @@ CUDA events (20 launches after 3 warm-up, as chip_smoke.py's timing
 phase): K6 and K7 at the four fused sites (bf16, 2B = 128), K1' and K1 in
 f32 at every flagship geometry, and K1' and K1 in bf16 at every flagship
 geometry (the one-channel ones on the CUDA-core tiles in any checkout);
+for each bf16 geometry also the device time (torch.profiler's kernel
+time per call, which the host's time per call cannot pace);
+K2 at chip_smoke.py's two ingest geometries ([64, 16384] store = clip,
+and store 20000 with random offsets; peak mode): its protocol time (20
+back-to-back wrapper calls) and its device time (torch.profiler's kernel
+time per call, and events around one call queued behind a sleep);
 then the flagship with every shuffle site fused (`--set
 model.fused_shuffle_sites=-1`), ms per training step through
 train.loop.train (chip_smoke.py's train phase: 2 warm-up steps, then 20
@@ -66,8 +72,11 @@ def measure(tree: Path) -> dict:
             for i, L in enumerate(layers):
                 x, w, b = smoke.conv_inputs(L, dtype, dev, seed=i)
                 args = args_of(L)
-                times[f"{family} {dname} {L['name']}"] = smoke.cuda_ms(
-                    lambda: kernel(x, w, b, *args))
+                call = lambda: kernel(x, w, b, *args)
+                times[f"{family} {dname} {L['name']}"] = smoke.cuda_ms(call)
+                if dtype == torch.bfloat16:
+                    times[f"{family} {dname} {L['name']} device"] = (
+                        smoke.profiled_device_ms(call))
     for transpose, layers in ((False, smoke.fused_site_layers(cfg, 2 * BATCH)),
                               (True, smoke.fused_site_dx_layers(
                                   cfg, 2 * BATCH))):
@@ -78,8 +87,19 @@ def measure(tree: Path) -> dict:
             *tensors, offs = smoke.sconv_inputs(L, torch.bfloat16, dev, i,
                                                 transpose)
             args = args_of(L)
-            times[f"{name} bf16 {L['name']}"] = smoke.cuda_ms(
-                lambda: kernel(*tensors, offs, *args))
+            call = lambda: kernel(*tensors, offs, *args)
+            times[f"{name} bf16 {L['name']}"] = smoke.cuda_ms(call)
+            times[f"{name} bf16 {L['name']} device"] = (
+                smoke.profiled_device_ms(call))
+    from audiogan_tpu_torch.kernels import ingest as king
+    for c in smoke.ingest_cases(dev):
+        args = (c["raw"], c["offs"], c["clip"], "peak")
+        call = lambda: king.ingest_fused(*args)
+        times[f"ingest protocol {c['name']}"] = smoke.cuda_ms(call)
+        times[f"ingest device (profiler) {c['name']}"] = (
+            smoke.profiled_device_ms(call))
+        times[f"ingest device (queued) {c['name']}"] = (
+            smoke.queued_device_ms(call))
     from audiogan_tpu_torch.cli import apply_overrides
     fcfg = apply_overrides(cfg, ["model.fused_shuffle_sites=-1"]).validate()
     times["wgan_gp_b64 fused_shuffle_sites=-1 ms per step"] = (

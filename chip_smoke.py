@@ -28,15 +28,17 @@ non-zero:
             in bf16 K4 and K5 must take the persistent path, in f32 the
             host loop);
             sconv1d (K6) at the four fused sites' convs (2B and B) and
-            sconvt1d (K7) at their x-gradients (2B), every offset in the
-            batch and mixed offsets inside each stacked tile; the GRU cell
+            sconvt1d (K7) at their x-gradients (2B and B), every offset in
+            the batch and mixed offsets inside each stacked tile (K7 also
+            wild offsets, which must act as their clamped values, into
+            memory that held NaN just before); the GRU cell
             (K3) at cond_gru_sc09's cell, x and h [64, 512], and at a
             ragged cell (B 7, in 24, H 40), forward, and its Function's
             gradients. In bf16, 16 of the 20 convt1d and conv1d
-            geometries, every K6 geometry and both K3 cells run the
+            geometries, every K6 and K7 geometry and both K3 cells run the
             tensor-core path (each line names its path), two launches to
             the same bits; f32 and the one-channel layers the CUDA-core
-            tiles.
+            tiles. Ingest (K2) two launches to the same bits too.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16) exported, loaded and served over HTTP on 127.0.0.1; a
             few requests (with labels for the GRU), each kernel's launches
@@ -51,8 +53,9 @@ non-zero:
             losses, steps/s, launches per step of each kernel (counts zeroed
             just before each path, read just after; K1', K1, their
             tensor-core launches (zero is a failure), K6 and K7 held to
-            the counts the step's structure gives, every K6 launch on the
-            tensor cores, the unfused shuffle to none, K4 6 and K5 1 per
+            the counts the step's structure gives, every K6 and K7 launch
+            on the tensor cores, the unfused shuffle to none, K4 6 and K5 1
+            per
             GRU step, all persistent), peak device memory; one more step
             under torch.profiler for the device time by kernel. Then the
             GRU cell's 256-frame recurrence, f32 forward and backward
@@ -66,10 +69,12 @@ non-zero:
             beside the card's
             bound; for K6 and K7, which no single PyTorch call computes,
             the unfused pair they replace (shuffle + conv1d kernel, convT
-            kernel + shuffle's transpose), and for K6 its CUDA-core tiles;
+            kernel + shuffle's transpose), their CUDA-core tiles and (K7)
+            the convT kernel alone and each tensor-core tile; K2's and
             K3's device time (torch.profiler, and events around one launch
-            queued behind a sleep) beside its protocol time and
-            torch.nn.GRUCell's; the GRU scan's CUDA launches per
+            queued behind a sleep) beside their protocol time (K2 at both
+            cluster sizes; K3 beside torch.nn.GRUCell's); the GRU scan's
+            CUDA launches per
             call, its path, K5's three stages (recompute, sweep, weight
             gradients), the persistent kernels at each grid of gru_grids
             and the host loop on the same inputs; each sampler's clips/s.
@@ -480,16 +485,21 @@ def compare_ingest(cases: list[dict], dev) -> dict:
     for c in cases:
         for mode in ("peak", "rms"):
             got = king.ingest_fused(c["raw"], c["offs"], c["clip"], mode)
+            again = king.ingest_fused(c["raw"], c["offs"], c["clip"], mode)
             want = king.ingest_fused_plain(c["raw"], c["offs"], c["clip"],
                                            mode)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"ingest {c['name']} {mode}: two "
+                                     f"launches differ")
             err = (got - want).abs().max().item()
             errs[(c["name"], mode)] = err
             print(json.dumps({"compare": "ingest", "geometry": c["name"],
                               "mode": mode, "raw": list(c["raw"].shape),
-                              "max_abs_err": err,
-                              "tol_abs": INGEST_ABS_TOL}), flush=True)
+                              "cluster": king.ingest_cluster(c["clip"]),
+                              "max_abs_err": err, "tol_abs": INGEST_ABS_TOL,
+                              "repeat_bits_equal": True}), flush=True)
             if got.dtype != torch.float32 or not err <= INGEST_ABS_TOL:
                 raise AssertionError(f"ingest {c['name']} {mode}: {err}")
     return errs
@@ -804,14 +814,26 @@ def sconv_tensor_core(L: dict, dtype=torch.bfloat16) -> bool:
                                       L["k"], L["s"], L["rad"])
 
 
+def sconvt_tensor_core(L: dict, dtype=torch.bfloat16) -> bool:
+    """Whether K7 runs geometry L (a dx layer) on the tensor cores."""
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    return ksconv.sconvt1d_tensor_core(dtype, L["cin"], L["cout"], L["k"],
+                                       L["s"], L["rad"])
+
+
 def compare_sconv(transpose: bool, layers: list[dict], dev) -> dict:
     """K6 (or K7) against its plain form at each geometry, f32 and bf16,
     within F32_REL_TOL / BF16_REL_TOL of the peak; offs run through 0..2
-    rad along the batch, so every stacked tile mixes them. K6 must take
+    rad along the batch, so every stacked tile mixes them. Each must take
     the path its predicate names (the tensor cores in bf16 at every fused
-    site), and a second launch must give the same bits. Returns
-    {(name, dtype): max abs err}."""
+    site), and a second launch must give the same bits. K7 writes into
+    memory that held NaN just before (a zero row it forgot shows) and must
+    leave zeros outside each window; on the tensor cores it takes offsets
+    outside [0, 2 rad] as their clamped values (the CUDA-core tiles only
+    keep their stores inside the output). Returns {(name, dtype): max abs
+    err}."""
     from audiogan_tpu_torch.kernels import sconv as ksconv
+    from audiogan_tpu_torch.ops.sconv import _live
     name = "sconvt1d" if transpose else "sconv1d"
     kernel, plain, args_of = (
         (ksconv.sconvt1d, ksconv.sconvt1d_plain, sconvt_args) if transpose
@@ -821,8 +843,14 @@ def compare_sconv(transpose: bool, layers: list[dict], dev) -> dict:
                               (torch.bfloat16, "bf16", BF16_REL_TOL)):
         for i, L in enumerate(layers):
             *tensors, offs = sconv_inputs(L, dtype, dev, i, transpose)
-            tc = not transpose and sconv_tensor_core(L, dtype)
-            before = ksconv.sconv1d_ba.launches_tc
+            tc = (sconvt_tensor_core if transpose else sconv_tensor_core)(
+                L, dtype)
+            before = kernel.launches_tc
+            if transpose:
+                poison = torch.full((L["b"], L["out_len"] + 2 * L["rad"],
+                                     L["cout"]), float("nan"), dtype=dtype,
+                                    device=dev)
+                del poison
             got = kernel(*tensors, offs, *args_of(L))
             again = kernel(*tensors, offs, *args_of(L))
             want = plain(*(t.float() for t in tensors), offs, *args_of(L))
@@ -830,12 +858,27 @@ def compare_sconv(transpose: bool, layers: list[dict], dev) -> dict:
             if got.dtype != dtype or got.shape != want.shape:
                 raise AssertionError(f"{name} {L['name']} {dname}: "
                                      f"{got.dtype} {tuple(got.shape)}")
-            if ksconv.sconv1d_ba.launches_tc - before != 2 * tc:
+            if kernel.launches_tc - before != 2 * tc:
                 raise AssertionError(f"{name} {L['name']} {dname}: not on "
                                      f"the path its predicate names")
             if not torch.equal(got, again):
                 raise AssertionError(f"{name} {L['name']} {dname}: two "
                                      f"launches differ")
+            if transpose:
+                live = _live(offs, L["out_len"], L["rad"])
+                if torch.where(live, 0.0, got.float()).any() or \
+                        not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{name} {L['name']} {dname}: a "
+                                         f"row outside a window not zero")
+            if transpose and tc:
+                wild = offs.clone()
+                wild[0], wild[-1] = -3, 2 * L["rad"] + 5
+                if not torch.equal(
+                        kernel(*tensors, wild, *args_of(L)),
+                        kernel(*tensors, wild.clamp(0, 2 * L["rad"]),
+                               *args_of(L))):
+                    raise AssertionError(f"{name} {L['name']} {dname}: "
+                                         f"wild offsets not clamped")
             err = (got.float() - want).abs().max().item()
             peak = want.abs().max().item()
             errs[(L["name"], dname)] = err
@@ -1045,10 +1088,49 @@ def sconv_cuda_core(L: dict, xp, w, b, offs):
     return call
 
 
+def sconvt_cuda_core(L: dict, ct, wf, offs):
+    """K7's CUDA-core tiles (its path before the tensor cores, and still
+    f32's) launched directly at geometry L: the measured alternative.
+    Not a counted launch."""
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    lib = ksconv._lib()
+    y = torch.empty(L["b"], L["out_len"] + 2 * L["rad"], L["cout"],
+                    dtype=ct.dtype, device=ct.device)
+
+    def call():
+        err = lib.sconvt1d_launch(
+            ct.data_ptr(), wf.data_ptr(), offs.data_ptr(), y.data_ptr(),
+            L["b"], L["t_in"], L["cin"], L["cout"], L["k"], L["s"],
+            L["pad_lo"], L["out_len"], L["rad"], 1,
+            torch.cuda.current_stream(ct.device).cuda_stream)
+        ksconv._raise_if(lib, err, "sconvt1d")
+    return call
+
+
+def sconvt_tile_times(L: dict, ct, wf, offs) -> dict:
+    """K7's tensor-core kernel at each tile of kernels/conv.py TC_TILES,
+    launched with that tile's plan: the measured alternatives to the tile
+    the wrapper picks. Not counted launches."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    from audiogan_tpu_torch.kernels import sconv as ksconv
+    y = torch.empty(L["b"], L["out_len"] + 2 * L["rad"], L["cout"],
+                    dtype=ct.dtype, device=ct.device)
+    out = {}
+    for tile, (nwg, bn) in enumerate(kconv.TC_TILES):
+        plan = ksconv.sconvt1d_tc_plan(L["b"], L["cout"], L["k"], L["s"],
+                                       L["pad_lo"], L["out_len"], L["rad"],
+                                       tile)
+        out[f"{64 * nwg}x{bn}"] = cuda_ms(
+            lambda: ksconv._sconvt1d_tc(ct, wf, offs, y, L["rad"], plan))
+    return out
+
+
 def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
     """K6 (or K7) per geometry, bf16: kernel, plain form, and the unfused
     pair it replaces (PShuf's gather + the conv1d kernel for K6; the convT
-    kernel + PShufT for K7), which no single PyTorch call matches."""
+    kernel + PShufT for K7), which no single PyTorch call matches; their
+    CUDA-core tiles; for K7 also the convT kernel (K1) alone, the tile its
+    plan takes and each tile's time."""
     from audiogan_tpu_torch.kernels import conv as kconv
     from audiogan_tpu_torch.kernels import sconv as ksconv
     from audiogan_tpu_torch.ops.phase_shuffle import _pshuf, _pshuft
@@ -1068,6 +1150,21 @@ def time_sconv(transpose: bool, layers: list[dict], dev, errs: dict) -> list:
                 ct, wf, zeros, L["s"], L["pad_lo"], L["out_len"]),
                 offs_l, rad)
             flops, nbytes = sconvt_work(L, 2)
+            plan = ksconv.sconvt1d_tc_plan(L["b"], L["cout"], L["k"],
+                                           L["s"], L["pad_lo"],
+                                           L["out_len"], rad)
+            nwg, bn = kconv.TC_TILES[int(plan[0])]
+            extra = {"path": ("tensor_core" if sconvt_tensor_core(L)
+                              else "cuda_core"),
+                     "tile": f"{64 * nwg}x{bn}", "nb": int(plan[2]),
+                     "tile_ms": sconvt_tile_times(L, ct, wf, offs),
+                     "convt1d_ms": cuda_ms(
+                         lambda: kconv.conv_transpose1d_ba(
+                             ct, wf, zeros, L["s"], L["pad_lo"],
+                             L["out_len"])),
+                     "cuda_core_ms": cuda_ms(sconvt_cuda_core(L, ct, wf,
+                                                              offs),
+                                             iters=5, warmup=1)}
         else:
             xp, w, b = tensors
             y = xp[:, rad:xp.shape[1] - rad].contiguous()
@@ -1630,6 +1727,14 @@ def time_conv(family: str, layers: list[dict], dev, errs: dict) -> list:
 
 
 def time_ingest(cases: list[dict], errs: dict) -> list:
+    """K2 per geometry, peak mode: the protocol time (ms: 20 back-to-back
+    wrapper calls, which the host's time per call can pace) beside the
+    device time (torch.profiler's kernel time per call, and events around
+    one call queued behind a sleep), at the wrapper's cluster size and
+    the other one (launched directly, not counted), and the host time of
+    one wrapper call. Beside the flagship's, what bounds it: the same
+    launch without its reduction (mode none) and without mu-law, a fill_
+    of its 4 MB output (the stores alone), and the batch of 640 rows."""
     from audiogan_tpu_torch.kernels import ingest as king
     rows = []
     for c in cases:
@@ -1637,9 +1742,41 @@ def time_ingest(cases: list[dict], errs: dict) -> list:
         bound_ms, bound_by = bound(0, nbytes)
         args = (c["raw"], c["offs"], c["clip"], "peak")
         ms = cuda_ms(lambda: king.ingest_fused(*args))
+        device_ms = profiled_device_ms(lambda: king.ingest_fused(*args))
+        cluster_ms = {}
+        for cl in king.INGEST_CLUSTERS:
+            call = lambda: king._ingest_launch(*args, 0.999, 255.0, 1e-8, cl)
+            cluster_ms[cl] = {"device_ms_profiler": profiled_device_ms(call),
+                              "device_ms_queued": queued_device_ms(call)}
+        limits = {}
+        if c is cases[0]:
+            cl = king.ingest_cluster(c["clip"])
+            out = torch.empty(c["raw"].shape[0], c["clip"],
+                              device=c["raw"].device)
+            big = c["raw"].repeat(10, 1)
+            limits = {"device_ms_mode_none": profiled_device_ms(
+                          lambda: king._ingest_launch(
+                              *args[:3], "none", 0.999, 255.0, 1e-8, cl)),
+                      "device_ms_mu0": profiled_device_ms(
+                          lambda: king._ingest_launch(
+                              *args, 0.999, 0.0, 1e-8, cl)),
+                      "store_fill_device_ms": profiled_device_ms(
+                          lambda: out.fill_(0.0)),
+                      "device_ms_batch640": profiled_device_ms(
+                          lambda: king._ingest_launch(
+                              big, c["offs"].repeat(10), c["clip"], "peak",
+                              0.999, 255.0, 1e-8, cl))}
         rows.append({
             "geometry": c["name"], "raw": list(c["raw"].shape),
-            "ms": ms, "share_of_hbm_rate": bound_ms / ms,
+            "cluster": king.ingest_cluster(c["clip"]),
+            "ms": ms, "device_ms": device_ms,
+            "device_ms_queued": queued_device_ms(
+                lambda: king.ingest_fused(*args)),
+            "host_ms": host_ms(lambda: king.ingest_fused(*args)),
+            "cluster_device_ms": cluster_ms, **limits,
+            "share_of_hbm_rate": bound_ms / ms,
+            "device_share_of_hbm_rate": (bound_ms / device_ms
+                                         if device_ms else None),
             "plain_ms": cuda_ms(lambda: king.ingest_fused_plain(*args)),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "max_abs_err": errs[(c["name"], "peak")],
@@ -1716,7 +1853,9 @@ def main() -> int:
     fused_kernels = {**wave_kernels, "sconv1d": ksconv.sconv1d_ba,
                      "sconvt1d": ksconv.sconvt1d,
                      "sconv1d_tc": PathCounter(ksconv.sconv1d_ba,
-                                               "launches_tc")}
+                                               "launches_tc"),
+                     "sconvt1d_tc": PathCounter(ksconv.sconvt1d,
+                                                "launches_tc")}
 
     # 1. env ---------------------------------------------------------------
     t0 = time.time()
@@ -1764,10 +1903,12 @@ def main() -> int:
     s_fwd_b = [dict(L, name=L["name"] + " (B)")
                for L in fused_site_layers(cfg, BATCH)]
     s_dx = fused_site_dx_layers(cfg, 2 * BATCH)
+    s_dx_b = [dict(L, name=L["name"] + " (B)")
+              for L in fused_site_dx_layers(cfg, BATCH)]
     errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx, dev),
             "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev),
             "sconv1d": compare_sconv(False, s_fwd + s_fwd_b, dev),
-            "sconvt1d": compare_sconv(True, s_dx, dev)}
+            "sconvt1d": compare_sconv(True, s_dx + s_dx_b, dev)}
     cases = ingest_cases(dev)
     errs["ingest"] = compare_ingest(cases, dev)
     errs["gru"] = compare_gru(gcfg, dev)
@@ -1821,10 +1962,10 @@ def main() -> int:
     t0 = time.time()
     k6_step, k7_step = fused_step_launches(fcfg)
     PShuf.calls = 0
-    # every K6 launch of the step on the tensor cores
+    # every K6 and K7 launch of the step on the tensor cores
     ftrained = train_phase(fcfg, dev, fused_kernels,
                            {"sconv1d": k6_step, "sconvt1d": k7_step,
-                            "sconv1d_tc": k6_step,
+                            "sconv1d_tc": k6_step, "sconvt1d_tc": k7_step,
                             **conv_step_launches(fcfg)})
     if PShuf.calls:
         raise AssertionError(f"fused critic shuffled {PShuf.calls} times")
@@ -1899,6 +2040,7 @@ def main() -> int:
             "one flagship ingest, int16 [64, 16384] -> f32 (store = clip)",
             card, launches_per_train_step=per_step["ingest"],
             launches_per_train_step_gru=gper_step["ingest"],
+            device_ms=rows["ingest"][0]["device_ms"],
             slack=rows["ingest"][1]),
         kernel_entry(
             "gru_scan", "audiogan_tpu_torch/csrc/gru_scan.cu",
@@ -1942,6 +2084,11 @@ def main() -> int:
             "sum over the x-gradients of the fused critic's 4 shuffled-input "
             "convs (2B=128), bf16", card,
             launches_per_train_step_fused=fper_step["sconvt1d"],
+            launches_tensor_core=ftrained["launches"]["sconvt1d_tc"],
+            launches_tensor_core_per_train_step_fused=fper_step[
+                "sconvt1d_tc"],
+            cuda_core_ms=sum(r["cuda_core_ms"] for r in rows["sconvt1d"]),
+            convt1d_ms=sum(r["convt1d_ms"] for r in rows["sconvt1d"]),
             unfused_pair_ms=sum(r["unfused_pair_ms"]
                                 for r in rows["sconvt1d"])),
         kernel_entry(

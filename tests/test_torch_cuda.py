@@ -239,6 +239,45 @@ def test_ingest_kernel_matches_plain(cuda_device, store, clip, mode, mu):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("cluster", [4, 8])
+@pytest.mark.parametrize("mu", [255.0, 0.0])
+@pytest.mark.parametrize("mode", ["peak", "rms", "none"])
+@pytest.mark.parametrize("store", [16384, 20000])
+def test_ingest_cluster_kernel_repeats_bit_for_bit(cuda_device, store, mode,
+                                                   mu, cluster):
+    """K2 at the flagship's geometry (store = clip) and the slack one
+    (store 20000, random offsets of every residue mod 8), at both cluster
+    sizes: within 1e-5 of the plain form, two launches to the same bits;
+    and on a view that starts off a 16-byte boundary (its unaligned head
+    and tail) the same, and for peak and none the same bits as on its
+    aligned copy (an RMS sum takes another order there)."""
+    gen = torch.Generator(cuda_device).manual_seed(store + cluster)
+    raw = (torch.randn(64, store, generator=gen, device=cuda_device) * 7000
+           ).clamp(-32768, 32767).to(torch.int16)
+    offs = torch.randint(0, store - 16384 + 1, (64,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+
+    def launch(r):
+        return tingest._ingest_launch(r, offs, 16384, mode, 0.999, mu, 1e-8,
+                                      cluster)
+    first, second = launch(raw), launch(raw)
+    want = tingest.ingest_fused_plain(raw, offs, 16384, mode, 0.999, mu)
+    assert (first - want).abs().max().item() <= 1e-5
+    assert torch.equal(first, second)
+    view = torch.empty(64 * store + 3, dtype=torch.int16,
+                       device=cuda_device)[3:].view(64, store)
+    view.copy_(raw)
+    assert view.data_ptr() % 16
+    got = launch(view)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, launch(view))
+    if mode != "rms":
+        assert torch.equal(got, first)
+    if cluster == tingest.ingest_cluster(16384):
+        assert torch.equal(tingest.ingest_fused(raw, offs, 16384, mode,
+                                                0.999, mu), first)
+
+
 def _tiny_cfg():
     from audiogan_tpu_torch.config import Config, DataCfg, ModelCfg
     return Config(data=DataCfg(clip_len=1024, store_len=1280),
@@ -809,10 +848,56 @@ def test_sconv1d_tensor_core_sites_match_plain_and_repeat_bit_for_bit(
                                               hi, rad, "leaky_relu", 0.2))
 
 
+@pytest.mark.parametrize("batch", [9, 64])
+@pytest.mark.parametrize("site", range(4))
+def test_sconvt1d_tensor_core_sites_match_plain_and_repeat_bit_for_bit(
+        cuda_device, site, batch):
+    """K7 on the tensor cores at each fused site's x-gradient, bf16:
+    offsets mixed along the batch (9 leaves a stacked tile ragged), into
+    memory that held NaN just before (a zero row the kernel forgot
+    shows), within one rounding of the output of the plain form, zero
+    outside each window, two launches to the same bits; and offsets
+    outside [0, 2 rad] place the window at their clamped values."""
+    from audiogan_tpu_torch.ops.sconv import _live
+    t, cin, cout, lo, _ = _site_geoms()[site]
+    rad, k, s = 2, 25, 4
+    cc, co = cout, cin             # the dx of D(site+1): ct has its Cout
+    t_out = t // s
+    assert tsconv.sconvt1d_tensor_core(torch.bfloat16, cc, co, k, s, rad)
+    gen = torch.Generator(cuda_device).manual_seed(10 + site)
+    ct = torch.randn(batch, t_out, cc, generator=gen,
+                     device=cuda_device).bfloat16()
+    wf = (torch.randn(k, cc, co, generator=gen, device=cuda_device)
+          / (k * cc / 4) ** 0.5).bfloat16()
+    offs = torch.randint(0, 2 * rad + 1, (batch,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    offs[:5] = torch.arange(5, device=cuda_device, dtype=torch.int32)
+    args = (s, k - 1 - lo, t, rad)
+    before = tsconv.sconvt1d.launches_tc
+    poison = torch.full((batch, t + 2 * rad, co), float("nan"),
+                        dtype=torch.bfloat16, device=cuda_device)
+    del poison                   # the caching allocator hands it out next
+    first = tsconv.sconvt1d(ct, wf, offs, *args)
+    second = tsconv.sconvt1d(ct, wf, offs, *args)
+    torch.cuda.synchronize()
+    assert tsconv.sconvt1d.launches_tc == before + 2
+    want = tsconv.sconvt1d_plain(ct.float(), wf.float(), offs, *args)
+    assert torch.isfinite(first.float()).all()
+    err = (first.float() - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+    assert not torch.where(_live(offs, t, rad), 0.0, first.float()).any()
+    assert torch.equal(first, second)
+    wild = offs.clone()
+    wild[0], wild[-1] = -3, 2 * rad + 5
+    got = tsconv.sconvt1d(ct, wf, wild, *args)
+    assert torch.equal(got, tsconv.sconvt1d(ct, wf, wild.clamp(0, 2 * rad),
+                                            *args))
+
+
 def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
     """The flagship's tiny step widened to 64 channels with every shuffle
-    site fused, bf16: K6 on the tensor cores (every launch), two runs of
-    two steps from one seed to the same parameters."""
+    site fused, bf16: K6 and K7 on the tensor cores (every launch), two
+    runs of two steps from one seed to the same parameters."""
     import dataclasses
 
     from audiogan_tpu_torch.train.state import create_train_state
@@ -829,7 +914,8 @@ def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
                        generator=gen) * 6000).clamp(-32768, 32767)
     raw = raw.to(torch.int16)
     labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
-    before = (tsconv.sconv1d_ba.launches, tsconv.sconv1d_ba.launches_tc)
+    before = (tsconv.sconv1d_ba.launches, tsconv.sconv1d_ba.launches_tc,
+              tsconv.sconvt1d.launches, tsconv.sconvt1d.launches_tc)
     runs = []
     for _ in range(2):
         state = create_train_state(cfg, device=cuda_device)
@@ -843,3 +929,6 @@ def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
     launched = tsconv.sconv1d_ba.launches - before[0]
     assert launched > 0
     assert tsconv.sconv1d_ba.launches_tc - before[1] == launched
+    launched = tsconv.sconvt1d.launches - before[2]
+    assert launched > 0
+    assert tsconv.sconvt1d.launches_tc - before[3] == launched
