@@ -1,33 +1,46 @@
 """CLI of the port: train a preset's GAN (the WaveGAN or the GRU
-generator against the WaveGAN critic); sample / export / serve its
-generator.
+generator against the WaveGAN critic), resuming from its workdir's
+checkpoints; sample / export / serve a generator.
 
 Usage:
-    python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 --steps 10 \\
-        --workdir /tmp/run
-    python -m audiogan_tpu_torch.cli train --preset cond_gru_sc09 \\
-        --steps 10 --workdir /tmp/gru
     python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 \\
-        --set model.fused_shuffle_sites=-1 --steps 10 --workdir /tmp/fused
-    python -m audiogan_tpu_torch.cli sample --preset cond_gru_sc09 \\
-        --init-seed 0 --seed 0 --labels 0,1,2 --out_dir /tmp/wavs
+        --total_steps 1000 --workdir /tmp/run
+    python -m audiogan_tpu_torch.cli train --preset cond_gru_sc09 \\
+        --total_steps 10 --workdir /tmp/gru
+    python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 \\
+        --set model.fused_shuffle_sites=-1 --total_steps 10 --workdir /tmp/f
+    python -m audiogan_tpu_torch.cli sample --workdir /tmp/run --num 8 \\
+        --seed 0
+    python -m audiogan_tpu_torch.cli sample --workdir /tmp/gru --step 10 \\
+        --seed 0 --labels 0,1,2
+    python -m audiogan_tpu_torch.cli export --workdir /tmp/run --num 64
+    python -m audiogan_tpu_torch.cli serve --workdir /tmp/run --port 8765
     python -m audiogan_tpu_torch.cli sample --preset wgan_gp_b64 \\
         --init-seed 0 --num 8 --seed 0 --out_dir /tmp/wavs
     python -m audiogan_tpu_torch.cli export --preset wgan_gp_b64 \\
-        --weights state.pt --num 64 --out_dir /tmp/art
+        --weights g.pt --num 64 --out_dir /tmp/art
     python -m audiogan_tpu_torch.cli serve --artifact /tmp/art --port 8765
     python -m audiogan_tpu_torch.cli serve --preset cond_gru_sc09 \\
         --init-seed 0 --num 64 --port 8766
 
-``train`` takes --steps WGAN-GP steps from a fresh seeded init on the
-synthetic SC09 fixture (or --data_dir), printing one JSON line of metrics
-per log_every steps; ``--set KEY=VALUE`` overrides any config field by
-dotted path, as the JAX CLI's does (the flags above it win). Weights for the others come from ``--weights`` (a
-state dict saved with torch.save, e.g. converted with
-convert.params_from_jax) or from ``--init-seed`` (random init, as flax
-initializes). A conditional preset takes ``--labels`` in ``sample`` and
-``"labels"`` in a ``/generate`` request. Everything runs on the card
-unless ``--device cpu``.
+``train`` runs WGAN-GP steps on the synthetic SC09 fixture (or
+--data_dir) up to --total_steps (alias --steps; default the preset's
+train.total_steps), from the workdir's latest checkpoint unless
+--no_resume. It writes ``config.json``, ``ckpt/<step>.pt`` every
+train.ckpt_every steps and at the end, ``metrics.jsonl`` and, every
+train.sample_every steps, ``samples/``, and prints one JSON line of
+metrics per log_every steps. ``--set KEY=VALUE`` overrides any config
+field by dotted path, as the JAX CLI's does (the flags above it win).
+
+The generator of ``sample``, ``export`` and ``serve`` comes from
+``--workdir`` (its config.json and latest checkpoint, or ``--step``),
+or from ``--preset`` with ``--weights`` (a state dict saved with
+torch.save, e.g. converted with convert.params_from_jax) or
+``--init-seed`` (random init, as flax initializes). ``sample`` writes to
+--out_dir (default <workdir>/generated), ``export`` to --out_dir
+(default <workdir>/export). A conditional preset takes ``--labels`` in
+``sample`` and ``"labels"`` in a ``/generate`` request. Everything runs
+on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -90,20 +103,39 @@ def _add_device_flag(sp) -> None:
                     help="torch device (default cuda; cpu only if asked)")
 
 
-def _add_model_flags(sp) -> None:
-    sp.add_argument("--preset", default="tiny_sc09", choices=sorted(PRESETS))
+def _add_model_flags(sp, *, source_required: bool = True) -> None:
+    sp.add_argument("--preset", default=None, choices=sorted(PRESETS),
+                    help="with --weights or --init-seed (default tiny_sc09)")
     _add_device_flag(sp)
-    src = sp.add_mutually_exclusive_group(required=True)
+    src = sp.add_mutually_exclusive_group(required=source_required)
+    src.add_argument("--workdir", default=None,
+                     help="train workdir: its config and checkpoint")
     src.add_argument("--weights", default=None,
                      help="generator state dict (torch.save)")
     src.add_argument("--init-seed", type=int, default=None,
                      help="random glorot init from this seed")
+    sp.add_argument("--step", type=int, default=None,
+                    help="checkpoint step, with --workdir (default latest)")
 
 
 def _load_model(args, device) -> tuple[Config, dict[str, torch.Tensor]]:
+    """G's config and state dict on ``device`` from --workdir (and --step)
+    or from --preset with --weights or --init-seed."""
     from audiogan_tpu_torch.models import build_generator
     from audiogan_tpu_torch.models.init import init_params
-    cfg = get_preset(args.preset)
+    if args.workdir is not None:
+        if args.preset is not None:
+            raise SystemExit("--workdir takes its config from the workdir: "
+                             "drop --preset")
+        from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
+        workdir = Path(args.workdir)
+        cfg = Config.from_json((workdir / "config.json").read_text())
+        mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts)
+        params = ckpt_lib.load(mngr, args.step)["g"]
+        return cfg, {k: v.to(device) for k, v in params.items()}
+    if args.step is not None:
+        raise SystemExit("--step names a checkpoint of --workdir")
+    cfg = get_preset(args.preset or "tiny_sc09")
     if args.weights:
         params = torch.load(args.weights, map_location=device,
                             weights_only=True)
@@ -111,6 +143,14 @@ def _load_model(args, device) -> tuple[Config, dict[str, torch.Tensor]]:
         g = init_params(build_generator(cfg, device=device), args.init_seed)
         params = g.state_dict()
     return cfg, params
+
+
+def _out_dir(args, default: str) -> Path:
+    if args.out_dir is not None:
+        return Path(args.out_dir)
+    if args.workdir is None:
+        raise SystemExit("--out_dir is needed without --workdir")
+    return Path(args.workdir) / default
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -123,18 +163,26 @@ def main(argv: list[str] | None = None) -> int:
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--labels", default=None,
                    help="comma-separated class labels (conditional models)")
-    s.add_argument("--out_dir", required=True)
+    s.add_argument("--out_dir", default=None,
+                   help="default <workdir>/generated")
 
     x = sub.add_parser("export", help="write a sampler artifact")
     _add_model_flags(x)
     x.add_argument("--num", type=int, default=8,
                    help="serving batch of the artifact")
-    x.add_argument("--out_dir", required=True)
+    x.add_argument("--out_dir", default=None,
+                   help="default <workdir>/export")
 
-    t = sub.add_parser("train", help="train from a fresh init")
+    t = sub.add_parser("train", help="train, resuming from the workdir")
     t.add_argument("--preset", default="tiny_sc09", choices=sorted(PRESETS))
     _add_device_flag(t)
-    t.add_argument("--steps", type=int, required=True)
+    t.add_argument("--total_steps", "--steps", dest="total_steps", type=int,
+                   default=None, help="train up to this step (default: the "
+                   "config's train.total_steps)")
+    t.add_argument("--no_resume", action="store_true",
+                   help="start from step 0 even if ckpt/ holds a step")
+    t.add_argument("--no_tensorboard", action="store_true",
+                   help="write no TensorBoard scalars")
     t.add_argument("--workdir", required=True)
     t.add_argument("--data_dir", default=None,
                    help="wav tree or packed corpus (default: synthetic)")
@@ -146,17 +194,12 @@ def main(argv: list[str] | None = None) -> int:
 
     v = sub.add_parser("serve", help="HTTP inference server")
     v.add_argument("--artifact", default=None,
-                   help="artifact dir written by `export`")
-    v.add_argument("--preset", default=None, choices=sorted(PRESETS),
-                   help="instead of --artifact: export this preset's G in "
-                        "memory (--weights or --init-seed), then serve")
-    v.add_argument("--weights", default=None,
-                   help="generator state dict (torch.save), with --preset")
-    v.add_argument("--init-seed", type=int, default=None,
-                   help="random init from this seed, with --preset")
+                   help="artifact dir written by `export`; instead, "
+                        "--workdir or --preset (with --weights or "
+                        "--init-seed) exports in memory, then serves")
+    _add_model_flags(v, source_required=False)
     v.add_argument("--num", type=int, default=8,
-                   help="serving batch when exporting from --preset")
-    _add_device_flag(v)
+                   help="serving batch when exporting in memory")
     v.add_argument("--host", default="127.0.0.1")
     v.add_argument("--port", type=int, default=8765)
 
@@ -168,13 +211,16 @@ def main(argv: list[str] | None = None) -> int:
         cfg = apply_overrides(get_preset(args.preset), args.set or [])
         tr = {k: v for k, v in (("batch_size", args.batch_size),
                                 ("log_every", args.log_every),
-                                ("seed", args.seed)) if v is not None}
+                                ("seed", args.seed),
+                                ("total_steps", args.total_steps))
+              if v is not None}
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **tr))
         if args.data_dir is not None:
             cfg = cfg.replace(data=dataclasses.replace(
                 cfg.data, data_dir=args.data_dir))
-        train(cfg.validate(), args.workdir, args.steps, device=device,
-              log=lambda line: print(line, flush=True))
+        train(cfg.validate(), args.workdir, resume=not args.no_resume,
+              device=device, log=lambda line: print(line, flush=True),
+              tensorboard=not args.no_tensorboard)
         return 0
 
     if args.cmd == "sample":
@@ -182,12 +228,12 @@ def main(argv: list[str] | None = None) -> int:
 
         from audiogan_tpu_torch.data.wavio import write_wav
         from audiogan_tpu_torch.train.sample import generate
+        out = _out_dir(args, "generated")
         cfg, params = _load_model(args, device)
         labels = (np.array([int(v) for v in args.labels.split(",")])
                   if args.labels else None)
         num = len(labels) if labels is not None else args.num
         waves = generate(cfg, params, num, args.seed, labels, device=device)
-        out = Path(args.out_dir)
         out.mkdir(parents=True, exist_ok=True)
         for j, w in enumerate(waves):
             tag = f"_y{labels[j]}" if labels is not None else ""
@@ -198,8 +244,9 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.cmd == "export":
         from audiogan_tpu_torch.serve import export_sampler
+        out = _out_dir(args, "export")
         cfg, params = _load_model(args, device)
-        print(export_sampler(cfg, params, args.num, args.out_dir))
+        print(export_sampler(cfg, params, args.num, out))
         return 0
 
     if args.cmd == "serve":
@@ -208,14 +255,15 @@ def main(argv: list[str] | None = None) -> int:
 
         from audiogan_tpu_torch.serve import (export_sampler, load_sampler,
                                               make_server)
-        if (args.artifact is None) == (args.preset is None):
-            raise SystemExit("serve needs exactly one of --artifact or "
-                             "--preset")
+        in_memory = (args.workdir, args.weights, args.init_seed) != \
+            (None, None, None)
+        if (args.artifact is None) != in_memory or (
+                args.artifact and args.preset):
+            raise SystemExit("serve needs exactly one of --artifact, "
+                             "--workdir, or --preset with --weights or "
+                             "--init-seed")
         art, tmp = args.artifact, None
-        if args.preset:
-            if (args.weights is None) == (args.init_seed is None):
-                raise SystemExit("serve --preset needs exactly one of "
-                                 "--weights or --init-seed")
+        if in_memory:
             cfg, params = _load_model(args, device)
             tmp = tempfile.mkdtemp(prefix="audiogan_torch_export_")
             art = export_sampler(cfg, params, args.num, tmp)

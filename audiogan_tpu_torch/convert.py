@@ -18,12 +18,23 @@ sep="/")``.
 ``load_adam_state`` carries an optax ``adam`` state (its ``count``, ``mu``
 and ``nu``, each flattened the same way) into a ``torch.optim.Adam`` over
 a module's parameters, so a step from a non-initial state can be compared.
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` (both nets,
+both Adam states, the step) into a port ``TrainState`` that
+``utils/checkpoint.py::save`` can write, so a run trained by the JAX
+package can be sampled and resumed by the port. The JAX state keeps a PRNG
+key where the port keeps a seed, so the caller names the seed.
 """
 
 from __future__ import annotations
 
+from typing import Mapping
+
 import numpy as np
 import torch
+
+from audiogan_tpu_torch.config import Config
+from audiogan_tpu_torch.train.state import TrainState, create_train_state
 
 
 def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -47,3 +58,21 @@ def load_adam_state(opt: torch.optim.Optimizer, module: torch.nn.Module,
         st["step"] = torch.tensor(float(count))
         st["exp_avg"] = mu_t[name].to(p.device).clone()
         st["exp_avg_sq"] = nu_t[name].to(p.device).clone()
+
+
+def train_state_from_jax(cfg: Config, params_g: dict[str, np.ndarray],
+                         params_d: dict[str, np.ndarray],
+                         opt_g: Mapping, opt_d: Mapping, step: int, seed: int,
+                         device=None) -> TrainState:
+    """A port TrainState on ``device`` (the card unless named) holding the
+    JAX state's leaves: flat params as params_from_jax takes them, each
+    optimizer as {"count", "mu", "nu"} of its optax adam state (mu and nu
+    flattened the same way), the step and the seed to draw from."""
+    st = create_train_state(cfg, seed=seed, device=device)
+    for mod, opt, params, adam in ((st.g, st.opt_g, params_g, opt_g),
+                                   (st.d, st.opt_d, params_d, opt_d)):
+        mod.load_state_dict(params_from_jax(params))
+        load_adam_state(opt, mod, int(adam["count"]), adam["mu"],
+                        adam["nu"])
+    st.step = int(step)
+    return st

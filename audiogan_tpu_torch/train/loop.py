@@ -1,10 +1,23 @@
-"""Minimal training loop of the port (audiogan_tpu/train/loop.py without
-checkpoints, evaluation, sample dumps or TensorBoard, which come later).
+"""Training loop of the port, audiogan_tpu/train/loop.py on one device.
 
 Resolves or builds the corpus (data_dir '' -> the seeded synthetic SC09
 fixture in the workdir), ships its int16 clips to the device once, then
 runs the resident-corpus step: the host sends only the (seed, step)-pure
-clip indices per step. One JSON line of metrics every log_every steps.
+clip indices per step (a config with data.device_corpus off trains the
+same way: the reference's host batcher gives the same batches).
+
+Crash-only, as the reference: a checkpoint every ckpt_every steps and at
+the last one; ``resume`` picks up the latest complete checkpoint; the data
+stream and every draw of a step are functions of (seed, step), so a
+resumed run gives the same bits as an uninterrupted one. Every log_every
+steps one JSON line of metrics (with ``seconds`` since the loop started)
+goes to ``log`` and one record, with ``steps_per_sec`` and
+``train_audio_sec_per_sec``, to ``<workdir>/metrics.jsonl``; every
+sample_every steps four clips go to ``samples/step_%08d/``.
+
+The save is synchronous: the reference's asynchronous one (``_AsyncCkpt``)
+hides a slow host link that this card does not have. Its seconds and bytes
+go to ``log``, and the step rate of the window after it leaves it out.
 """
 
 from __future__ import annotations
@@ -20,10 +33,14 @@ import torch
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.data.corpus import Corpus, batch_indices, build_corpus
 from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
+from audiogan_tpu_torch.data.wavio import write_wav
 from audiogan_tpu_torch.device import resolve_device
 from audiogan_tpu_torch.train.state import (TrainState, create_train_state,
                                             param_count)
+from audiogan_tpu_torch.train.sample import generate
 from audiogan_tpu_torch.train.step import build_train_step, wrap_device_corpus
+from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
+from audiogan_tpu_torch.utils.metrics import MetricsWriter
 
 
 def resolve_corpus(cfg: Config, workdir: Path) -> Corpus:
@@ -62,12 +79,29 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
                              f"data.{field}={want}")
 
 
-def train(cfg: Config, workdir: str | Path, steps: int, device=None,
-          log: Callable[[str], None] = print) -> tuple[TrainState, dict]:
-    """Runs ``steps`` steps from a fresh state; returns the state and the
-    last step's metrics as floats."""
+def check_ported(cfg: Config) -> None:
+    """Raises for the reference loop's options the port has not ported."""
+    t = cfg.train
+    for name, on in (("train.profile_dir", bool(t.profile_dir)),
+                     ("train.dump_hlo", t.dump_hlo),
+                     ("train.debug_nans", t.debug_nans)):
+        if on:
+            raise NotImplementedError(f"{name} is not ported to "
+                                      f"audiogan_tpu_torch")
+
+
+def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
+          resume: bool = True, device=None,
+          log: Callable[[str], None] = print,
+          tensorboard: bool = True) -> tuple[TrainState, dict]:
+    """Runs from the latest checkpoint (or step 0, or always from 0 without
+    ``resume``) up to step ``steps`` (default cfg.train.total_steps);
+    returns the state and the last logged step's metrics as floats.
+    ``tensorboard=False`` skips the TensorBoard scalars."""
     dev = resolve_device(device)
     cfg.validate()
+    check_ported(cfg)
+    total = cfg.train.total_steps if steps is None else steps
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     (workdir / "config.json").write_text(cfg.to_json())
@@ -81,21 +115,73 @@ def train(cfg: Config, workdir: str | Path, steps: int, device=None,
                              "d_params": param_count(state.d),
                              "corpus_clips": len(corpus),
                              "device": str(dev)}}))
+    mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts,
+                                 config=cfg)
+    if resume and ckpt_lib.latest_step(mngr) is not None:
+        ckpt_lib.restore(mngr, state)
+        log(json.dumps({"resume": {"step": state.step}}))
     step_fn = wrap_device_corpus(build_train_step(cfg, dev))
-    b, n_views = cfg.train.batch_size, cfg.loss.n_critic
-    every = max(cfg.train.log_every, 1)
+    writer = MetricsWriter(workdir, also_tensorboard=tensorboard)
+    t = cfg.train
+    b, n_views = t.batch_size, cfg.loss.n_critic
+    every = max(t.log_every, 1)
     metrics: dict = {}
-    t0 = time.perf_counter()
-    for i in range(steps):
-        idx = torch.from_numpy(batch_indices(
-            len(corpus), b, n_views, cfg.train.seed, state.step)).to(dev)
-        out = step_fn(state, clips, idx, all_labels[idx])
-        if (i + 1) % every == 0 or i + 1 == steps:
-            metrics = {k: float(v) for k, v in out.items()}
-            bad = [k for k, v in metrics.items() if not np.isfinite(v)]
-            log(json.dumps({"step": state.step, **metrics,
-                            "seconds": time.perf_counter() - t0}))
-            if bad:
-                raise FloatingPointError(f"non-finite {bad} at step "
-                                         f"{state.step}")
+    t0 = t_log = time.perf_counter()
+    last_logged = state.step
+    try:
+        for step in range(state.step, total):
+            idx = torch.from_numpy(batch_indices(
+                len(corpus), b, n_views, t.seed, step)).to(dev)
+            out = step_fn(state, clips, idx, all_labels[idx])
+            done = step + 1
+            if done % every == 0 or done == total:
+                metrics = {k: float(v) for k, v in out.items()}  # sync
+                now = time.perf_counter()
+                # the steps timed since the last log: a resume from a
+                # step off the log grid would otherwise inflate the rate
+                sps = (done - last_logged) / max(now - t_log, 1e-9)
+                audio = (sps * b * n_views * cfg.data.clip_len
+                         / cfg.data.sample_rate)
+                log(json.dumps({"step": done, **metrics,
+                                "seconds": now - t0}))
+                writer.write(done, {**metrics, "steps_per_sec": sps,
+                                    "train_audio_sec_per_sec": audio})
+                bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+                if bad:
+                    raise FloatingPointError(f"non-finite {bad} at step "
+                                             f"{done}")
+                last_logged, t_log = done, time.perf_counter()
+            if (t.ckpt_every and done % t.ckpt_every == 0) or done == total:
+                t_save = time.perf_counter()
+                nbytes = ckpt_lib.save(
+                    mngr, state, metrics if last_logged == done else None)
+                log(json.dumps({"ckpt": {
+                    "step": done, "bytes": nbytes,
+                    "seconds": time.perf_counter() - t_save}}))
+                t_log += time.perf_counter() - t_save
+            if t.sample_every and done % t.sample_every == 0:
+                t_dump = time.perf_counter()
+                dump_samples(cfg, state, workdir, done, dev)
+                t_log += time.perf_counter() - t_dump
+    finally:
+        writer.close()
     return state, metrics
+
+
+def dump_samples(cfg: Config, state: TrainState, workdir: Path, step: int,
+                 device, num: int = 4) -> Path:
+    """``num`` clips of G at ``step`` from seed train.seed + step, labels
+    arange(num) % num_classes for a conditional G, into
+    samples/step_%08d/sample_{i}[_y{label}].wav (the reference's
+    ``_dump_samples``)."""
+    labels = None
+    if cfg.data.num_classes:
+        labels = np.arange(num, dtype=np.int64) % cfg.data.num_classes
+    waves = generate(cfg, state.g.state_dict(), num, cfg.train.seed + step,
+                     labels, device=device)
+    out = workdir / "samples" / f"step_{step:08d}"
+    out.mkdir(parents=True, exist_ok=True)
+    for i, w in enumerate(waves):
+        tag = f"_y{labels[i]}" if labels is not None else ""
+        write_wav(out / f"sample_{i}{tag}.wav", cfg.data.sample_rate, w)
+    return out

@@ -61,7 +61,18 @@ non-zero:
             GRU cell's 256-frame recurrence, f32 forward and backward
             against the same recurrence through the plain cell, and bf16
             forward (every launch on the tensor cores) against the plain
-            form's recurrence.
+            form's recurrence. The loop checkpoints its last step after
+            that step's line, outside the timed window (checked).
+6b. resume  `cli train --total_steps 6 --set train.ckpt_every=3` in
+            subprocesses for the flagship, the fused flagship and
+            cond_gru_sc09 (B=64, bf16): once uninterrupted, once sent
+            SIGKILL when it logs its step-3 checkpoint and run again; the
+            second run must restore step 3, and its step-6 metrics.jsonl
+            record (but time and rates) and step-6 checkpoint must equal
+            the uninterrupted run's to the bit. Then, on the flagship's
+            and the GRU's workdirs, `cli sample --workdir --seed 0` twice
+            (the same bytes) and `cli serve --workdir` (one /generate).
+            Each run's seconds, each save's bytes and seconds.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -92,6 +103,7 @@ import dataclasses
 import io
 import json
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -137,6 +149,13 @@ SLEEP_CYCLES = 200_000        # about 0.1 ms of device time ahead of a call
 # a flagship step takes about 0.13 s on the tensor-core convs: 20 timed
 # steps keep the rate's window near 3 s
 TRAIN_WARMUP, TRAIN_TIMED = 2, 20
+# the resume phase: `cli train --total_steps 6`, a checkpoint every 3 steps;
+# one run uninterrupted, one killed after its step-3 checkpoint and resumed
+RESUME_STEPS, RESUME_KILL_AT = 6, 3
+RESUME_RUNS = (("wgan_gp_b64", ()),
+               ("wgan_gp_b64", ("model.fused_shuffle_sites=-1",)),
+               ("cond_gru_sc09", ()))
+CLI_TIMEOUT_S = 600
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -1602,6 +1621,14 @@ def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
         bad = [k for k, v in ln.items() if not np.isfinite(v)]
         if bad:
             raise AssertionError(f"non-finite {bad} at step {ln['step']}")
+    # the loop checkpoints its last step after that step's line: outside
+    # the timed window
+    saves = [i for i, ln in enumerate(lines) if "ckpt" in ln]
+    last_line = max(i for i, ln in enumerate(lines) if "step" in ln)
+    if [lines[i]["ckpt"]["step"] for i in saves] != [n_steps] or \
+            saves[0] < last_line:
+        raise AssertionError(f"want one checkpoint, of step {n_steps}, "
+                             f"after the last step's line: {saves}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched in training")
@@ -1621,7 +1648,7 @@ def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
                 launches_per_step={k: v // n_steps
                                    for k, v in launches.items()},
                 peak_memory_gib=peak / 2**30, first=steps[0], last=last,
-                profile=profile,
+                profile=profile, ckpt=lines[saves[0]]["ckpt"],
                 init=[ln for ln in lines if "init" in ln][0]["init"])
 
 
@@ -1659,6 +1686,225 @@ def profile_step(cfg, dev, state) -> dict:
             "device_idle_share": max(1.0 - device_ms / wall_ms, 0.0),
             "top": [{"name": k[:140], "ms": v, "share": v / device_ms}
                     for k, v in top]}
+
+
+# -- resume: `cli train` killed and resumed ------------------------------------
+
+def cli_cmd(*args) -> list[str]:
+    return [sys.executable, "-m", "audiogan_tpu_torch.cli",
+            *map(str, args)]
+
+
+def json_lines(text: str) -> list[dict]:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def run_cli(cmd: list[str]) -> tuple[list[dict], float]:
+    """cmd to its end: its JSON lines and its seconds."""
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    if proc.returncode:
+        raise RuntimeError(f"{' '.join(cmd[2:])} exited {proc.returncode}:"
+                           f"\n{proc.stderr[-3000:]}")
+    return json_lines(proc.stdout), time.time() - t0
+
+
+def killed_run(cmd: list[str]) -> tuple[list[dict], float]:
+    """cmd sent SIGKILL as soon as it logs its step-RESUME_KILL_AT
+    checkpoint (the loop logs it after the file is in place, before the
+    next step); fails if cmd ends by itself."""
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    out, killed = [], False
+    try:
+        for raw in proc.stdout:
+            out.append(raw)
+            if raw.startswith('{"ckpt"') and \
+                    json.loads(raw)["ckpt"]["step"] == RESUME_KILL_AT:
+                proc.send_signal(signal.SIGKILL)
+                killed = True
+                break
+    finally:
+        if proc.poll() is None and not killed:
+            proc.kill()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+    if not killed or proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the run was not killed after its step-"
+                             f"{RESUME_KILL_AT} checkpoint (exit "
+                             f"{proc.returncode}):\n{''.join(out)[-3000:]}")
+    return json_lines("".join(out)), time.time() - t0
+
+
+def step_record(workdir: Path, step: int) -> dict:
+    recs = [json.loads(ln) for ln in
+            (workdir / "metrics.jsonl").read_text().splitlines()]
+    return [r for r in recs if r["step"] == step][-1]
+
+
+def same_checkpoint(a: Path, b: Path) -> int:
+    """Every tensor and number of two checkpoints equal to the bit; the
+    count of tensors compared."""
+    ca = torch.load(a, map_location="cpu", weights_only=True)
+    cb = torch.load(b, map_location="cpu", weights_only=True)
+    n = 0
+
+    def walk(x, y, path):
+        nonlocal n
+        if isinstance(x, dict):
+            if x.keys() != y.keys():
+                raise AssertionError(f"{path}: keys differ")
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(y):
+                raise AssertionError(f"{path}: lengths differ")
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}/{i}")
+        elif isinstance(x, torch.Tensor):
+            n += 1
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{path}: tensors differ")
+        elif x != y:
+            raise AssertionError(f"{path}: {x!r} != {y!r}")
+    for part in ("step", "seed", "g", "d", "opt_g", "opt_d"):
+        walk(ca[part], cb[part], part)
+    return n
+
+
+def resume_case(preset: str, sets: tuple, base: Path) -> dict:
+    """(a) uninterrupted to RESUME_STEPS; (b) killed after its
+    RESUME_KILL_AT checkpoint, then run again: the same step record
+    (but time and rates) and the same last checkpoint, to the bit."""
+    tag = preset + "".join("_" + s.split("=")[0].split(".")[-1]
+                           for s in sets)
+    runs = {k: base / f"{tag}_{k}" for k in ("a", "b")}
+
+    def train(workdir):
+        cmd = cli_cmd("train", "--preset", preset, "--total_steps",
+                      RESUME_STEPS, "--set",
+                      f"train.ckpt_every={RESUME_KILL_AT}", "--set",
+                      "train.log_every=1", "--no_tensorboard",
+                      "--workdir", workdir)
+        for item in sets:
+            cmd += ["--set", item]
+        return cmd
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fa = pool.submit(run_cli, train(runs["a"]))
+        fb = pool.submit(killed_run, train(runs["b"]))
+        (a_lines, a_s), (k_lines, k_s) = fa.result(), fb.result()
+    left = sorted(int(q.stem) for q in (runs["b"] / "ckpt").glob("*.pt"))
+    if left != [RESUME_KILL_AT]:
+        raise AssertionError(f"{tag}: the killed run left {left}")
+    r_lines, r_s = run_cli(train(runs["b"]))
+    restored = [ln["resume"]["step"] for ln in r_lines if "resume" in ln]
+    if restored != [RESUME_KILL_AT]:
+        raise AssertionError(f"{tag}: the second run restored {restored}")
+    ra, rb = (step_record(runs[k], RESUME_STEPS) for k in ("a", "b"))
+    keys = sorted(k for k in ra if k != "time" and "per_sec" not in k)
+    if keys != sorted(k for k in rb if k != "time" and "per_sec" not in k) \
+            or any(ra[k] != rb[k] for k in keys):
+        raise AssertionError(f"{tag}: step {RESUME_STEPS} differs after "
+                             f"the resume: {ra} != {rb}")
+    last = f"ckpt/{RESUME_STEPS}.pt"
+    tensors = same_checkpoint(runs["a"] / last, runs["b"] / last)
+    return {"preset": preset, "sets": list(sets), "workdir": runs["b"],
+            "seconds": {"uninterrupted": a_s, "killed": k_s,
+                        "resumed": r_s},
+            "restored_step": restored[0],
+            "ckpts": {"uninterrupted": [ln["ckpt"] for ln in a_lines
+                                        if "ckpt" in ln],
+                      "killed": [ln["ckpt"] for ln in k_lines
+                                 if "ckpt" in ln],
+                      "resumed": [ln["ckpt"] for ln in r_lines
+                                  if "ckpt" in ln]},
+            "compared_keys": keys, "tensors_equal": tensors,
+            "w_dist": rb["w_dist"]}
+
+
+def sample_twice(cfg, workdir: Path) -> dict:
+    """`cli sample --workdir --seed 0` twice: the same bytes."""
+    outs = [workdir / f"generated_{i}" for i in (0, 1)]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        secs = [s for _, s in pool.map(run_cli, [
+            cli_cmd("sample", "--workdir", workdir, "--seed", 0,
+                    "--out_dir", out) for out in outs])]
+    names = sorted(q.name for q in outs[0].glob("*.wav"))
+    if not names or names != sorted(q.name for q in outs[1].glob("*.wav")):
+        raise AssertionError(f"sample wrote {names}")
+    for name in names:
+        if (outs[0] / name).read_bytes() != (outs[1] / name).read_bytes():
+            raise AssertionError(f"sample --seed 0 twice: {name} differs")
+        with wave.open(str(outs[0] / name)) as f:
+            if (f.getframerate(), f.getnframes()) != (
+                    cfg.data.sample_rate, cfg.data.clip_len):
+                raise AssertionError(f"{name}: {f.getframerate()} Hz, "
+                                     f"{f.getnframes()} frames")
+    return {"files": len(names), "seconds": secs}
+
+
+def serve_workdir(cfg, workdir: Path) -> dict:
+    """`cli serve --workdir` answers one /generate with WAVs of the
+    preset's rate and length."""
+    t0 = time.time()
+    proc = subprocess.Popen(cli_cmd("serve", "--workdir", workdir,
+                                    "--port", 0, "--num", SMALL),
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("[serve] "):
+            raise AssertionError(f"serve --workdir: {line}"
+                                 f"{proc.stdout.read()[-3000:]}")
+        url = line.split(" on ", 1)[1].split()[0]
+        body = {"seed": 1, "num": 2}
+        if cfg.data.num_classes:
+            body["labels"] = [3, 7]
+        code, out = http_json(f"{url}/generate", body)
+        if code != 200 or len(out["wavs"]) != 2:
+            raise AssertionError(f"/generate: {code} {str(out)[:300]}")
+        for b64 in out["wavs"]:
+            rate, pcm = decode_wav(b64)
+            if (rate, pcm.size) != (cfg.data.sample_rate, cfg.data.clip_len):
+                raise AssertionError(f"served {rate} Hz, {pcm.size} "
+                                     f"samples")
+        return {"seconds": time.time() - t0, "url": url}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.stdout.close()
+
+
+def resume_phase() -> dict:
+    """Each of RESUME_RUNS killed and resumed (all started together), then
+    `cli sample` and `cli serve` on each preset's killed-and-resumed
+    workdir."""
+    from audiogan_tpu_torch.config import Config
+    base = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    with concurrent.futures.ThreadPoolExecutor(len(RESUME_RUNS)) as pool:
+        cases = list(pool.map(lambda r: resume_case(*r, base), RESUME_RUNS))
+    plain = [c for c in cases if not c["sets"]]
+    cfgs = [Config.from_json((c["workdir"] / "config.json").read_text())
+            for c in plain]
+    with concurrent.futures.ThreadPoolExecutor(2 * len(plain)) as pool:
+        samples = [pool.submit(sample_twice, cfg, c["workdir"])
+                   for cfg, c in zip(cfgs, plain)]
+        served = [pool.submit(serve_workdir, cfg, c["workdir"])
+                  for cfg, c in zip(cfgs, plain)]
+        for c, fs, fv in zip(plain, samples, served):
+            c["sample"], c["serve"] = fs.result(), fv.result()
+    for c in cases:
+        c["workdir"] = str(c["workdir"].relative_to(ROOT))
+    return {"steps": RESUME_STEPS, "killed_after": RESUME_KILL_AT,
+            "cases": cases}
 
 
 # -- timing ---------------------------------------------------------------------
@@ -1982,6 +2228,10 @@ def main() -> int:
     t0 = time.time()
     cell_run = gru_cell_phase(gcfg, dev)
     phase("gru_cell", t0, card=card, **cell_run)
+
+    # 6b. `cli train` killed and resumed, then sample / serve --workdir -----
+    t0 = time.time()
+    phase("resume", t0, card=card, **resume_phase())
 
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()

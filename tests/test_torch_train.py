@@ -37,7 +37,7 @@ from audiogan_tpu.train.state import create_train_state as jcreate
 from audiogan_tpu.train.step import build_train_step as jbuild_step
 from audiogan_tpu.utils.prng import split_for_step
 from audiogan_tpu_torch.config import Config
-from audiogan_tpu_torch.convert import load_adam_state, params_from_jax
+from audiogan_tpu_torch.convert import params_from_jax, train_state_from_jax
 from audiogan_tpu_torch.data.corpus import Corpus, batch_indices, build_corpus
 from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
 from audiogan_tpu_torch.data.wavio import read_wav
@@ -132,17 +132,18 @@ def _reference_draws(cfg, state1, shifts):
     return {"critic": critic, "generator": gen}
 
 
+def _adam_leaves(opt_state):
+    adam = opt_state[0]
+    return {"count": int(adam.count), "mu": _flat(adam.mu),
+            "nu": _flat(adam.nu)}
+
+
 def _port_state(cfg, jstate):
     pcfg = Config.from_json(cfg.to_json()).validate()
-    st = create_train_state(pcfg, device="cpu")
-    st.g.load_state_dict(params_from_jax(_flat(jstate.params_g)))
-    st.d.load_state_dict(params_from_jax(_flat(jstate.params_d)))
-    for opt, mod, ost in ((st.opt_g, st.g, jstate.opt_g),
-                          (st.opt_d, st.d, jstate.opt_d)):
-        adam = ost[0]
-        load_adam_state(opt, mod, int(adam.count), _flat(adam.mu),
-                        _flat(adam.nu))
-    st.step = int(jstate.step)
+    st = train_state_from_jax(
+        pcfg, _flat(jstate.params_g), _flat(jstate.params_d),
+        _adam_leaves(jstate.opt_g), _adam_leaves(jstate.opt_d),
+        int(jstate.step), pcfg.train.seed, device="cpu")
     return pcfg, st
 
 
