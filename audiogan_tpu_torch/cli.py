@@ -1,6 +1,7 @@
 """CLI of the port: train a preset's GAN (the WaveGAN or the GRU
-generator against the WaveGAN critic), resuming from its workdir's
-checkpoints; sample / export / serve a generator.
+generator against the WaveGAN critic, or against the dual wave + STFT
+critic), resuming from its workdir's checkpoints; sample / export /
+serve / evaluate a generator; pack a wav tree; print a config.
 
 Usage:
     python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 \\
@@ -9,6 +10,12 @@ Usage:
         --total_steps 10 --workdir /tmp/gru
     python -m audiogan_tpu_torch.cli train --preset wgan_gp_b64 \\
         --set model.fused_shuffle_sites=-1 --total_steps 10 --workdir /tmp/f
+    python -m audiogan_tpu_torch.cli train --preset dual_stft \\
+        --total_steps 10 --workdir /tmp/dual
+    python -m audiogan_tpu_torch.cli train --config /tmp/run/config.json \\
+        --total_steps 2000 --workdir /tmp/run
+    python -m audiogan_tpu_torch.cli eval --workdir /tmp/dual --num 64 \\
+        --seed 0
     python -m audiogan_tpu_torch.cli sample --workdir /tmp/run --num 8 \\
         --seed 0
     python -m audiogan_tpu_torch.cli sample --workdir /tmp/gru --step 10 \\
@@ -22,6 +29,9 @@ Usage:
     python -m audiogan_tpu_torch.cli serve --artifact /tmp/art --port 8765
     python -m audiogan_tpu_torch.cli serve --preset cond_gru_sc09 \\
         --init-seed 0 --num 64 --port 8766
+    python -m audiogan_tpu_torch.cli build-corpus --wav_dir data/sc09 \\
+        --out_dir data/packed --store_len 16384
+    python -m audiogan_tpu_torch.cli info --preset dual_stft
 
 ``train`` runs WGAN-GP steps on the synthetic SC09 fixture (or
 --data_dir) up to --total_steps (alias --steps; default the preset's
@@ -29,8 +39,10 @@ train.total_steps), from the workdir's latest checkpoint unless
 --no_resume. It writes ``config.json``, ``ckpt/<step>.pt`` every
 train.ckpt_every steps and at the end, ``metrics.jsonl`` and, every
 train.sample_every steps, ``samples/``, and prints one JSON line of
-metrics per log_every steps. ``--set KEY=VALUE`` overrides any config
-field by dotted path, as the JAX CLI's does (the flags above it win).
+metrics per log_every steps. ``--config PATH`` (a config.json) takes the
+place of ``--preset``; ``--set KEY=VALUE`` overrides any config field by
+dotted path, as the JAX CLI's does (the flags above it win). ``info``
+prints the resolved config's JSON.
 
 The generator of ``sample``, ``export`` and ``serve`` comes from
 ``--workdir`` (its config.json and latest checkpoint, or ``--step``),
@@ -39,8 +51,11 @@ torch.save, e.g. converted with convert.params_from_jax) or
 ``--init-seed`` (random init, as flax initializes). ``sample`` writes to
 --out_dir (default <workdir>/generated), ``export`` to --out_dir
 (default <workdir>/export). A conditional preset takes ``--labels`` in
-``sample`` and ``"labels"`` in a ``/generate`` request. Everything runs
-on the card unless ``--device cpu``.
+``sample`` and ``"labels"`` in a ``/generate`` request. ``eval`` restores
+``--workdir``'s latest checkpoint (or ``--step``) and prints one JSON line
+of train/evaluate.py's metrics and the ``step``. ``build-corpus`` packs a
+wav tree into clips.npy, labels.npy and meta.json. Everything runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -96,6 +111,23 @@ def apply_overrides(cfg: Config, sets: list[str]) -> Config:
             new = dataclasses.replace(obj, **{name: new})
         cfg = new
     return cfg
+
+
+def _load_cfg(args) -> Config:
+    """--config's config.json, else --preset's, with the --set items."""
+    if args.config:
+        cfg = Config.from_json(Path(args.config).read_text())
+    else:
+        cfg = get_preset(args.preset)
+    return apply_overrides(cfg, args.set or [])
+
+
+def _add_cfg_flags(sp) -> None:
+    sp.add_argument("--preset", default="tiny_sc09", choices=sorted(PRESETS))
+    sp.add_argument("--config", default=None,
+                    help="path to a config.json (overrides --preset)")
+    sp.add_argument("--set", action="append", metavar="KEY=VALUE",
+                    help="override any config field by dotted path")
 
 
 def _add_device_flag(sp) -> None:
@@ -174,7 +206,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="default <workdir>/export")
 
     t = sub.add_parser("train", help="train, resuming from the workdir")
-    t.add_argument("--preset", default="tiny_sc09", choices=sorted(PRESETS))
+    _add_cfg_flags(t)
     _add_device_flag(t)
     t.add_argument("--total_steps", "--steps", dest="total_steps", type=int,
                    default=None, help="train up to this step (default: the "
@@ -189,8 +221,6 @@ def main(argv: list[str] | None = None) -> int:
     t.add_argument("--batch_size", type=int, default=None)
     t.add_argument("--log_every", type=int, default=None)
     t.add_argument("--seed", type=int, default=None)
-    t.add_argument("--set", action="append", metavar="KEY=VALUE",
-                   help="override any config field by dotted path")
 
     v = sub.add_parser("serve", help="HTTP inference server")
     v.add_argument("--artifact", default=None,
@@ -203,12 +233,39 @@ def main(argv: list[str] | None = None) -> int:
     v.add_argument("--host", default="127.0.0.1")
     v.add_argument("--port", type=int, default=8765)
 
+    e = sub.add_parser("eval", help="objective metrics: generated vs "
+                                    "corpus")
+    e.add_argument("--workdir", required=True)
+    e.add_argument("--num", type=int, default=64)
+    e.add_argument("--seed", type=int, default=0)
+    e.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default latest)")
+    _add_device_flag(e)
+
+    b = sub.add_parser("build-corpus", help="pack a wav tree into a corpus")
+    b.add_argument("--wav_dir", required=True)
+    b.add_argument("--out_dir", required=True)
+    b.add_argument("--store_len", type=int, required=True)
+
+    i = sub.add_parser("info", help="print the resolved config")
+    _add_cfg_flags(i)
+
     args = p.parse_args(argv)
+
+    if args.cmd == "info":
+        print(_load_cfg(args).validate().to_json())
+        return 0
+
+    if args.cmd == "build-corpus":
+        from audiogan_tpu_torch.data.corpus import build_corpus
+        print(build_corpus(args.wav_dir, args.out_dir, args.store_len))
+        return 0
+
     device = resolve_device(args.device)
 
     if args.cmd == "train":
         from audiogan_tpu_torch.train.loop import train
-        cfg = apply_overrides(get_preset(args.preset), args.set or [])
+        cfg = _load_cfg(args)
         tr = {k: v for k, v in (("batch_size", args.batch_size),
                                 ("log_every", args.log_every),
                                 ("seed", args.seed),
@@ -240,6 +297,20 @@ def main(argv: list[str] | None = None) -> int:
             path = out / f"gen_seed{args.seed}_{j}{tag}.wav"
             write_wav(path, cfg.data.sample_rate, w)
             print(path)
+        return 0
+
+    if args.cmd == "eval":
+        from audiogan_tpu_torch.train.evaluate import evaluate
+        from audiogan_tpu_torch.train.loop import resolve_corpus
+        from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
+        workdir = Path(args.workdir)
+        cfg = Config.from_json((workdir / "config.json").read_text())
+        mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts)
+        blob = ckpt_lib.load(mngr, args.step)
+        out = evaluate(cfg, blob["g"], resolve_corpus(cfg, workdir),
+                       num=args.num, seed=args.seed, device=device)
+        out["step"] = int(blob["step"])
+        print(json.dumps(out))
         return 0
 
     if args.cmd == "export":

@@ -3,12 +3,14 @@
 The fields, their defaults and the JSON form are those of
 ``audiogan_tpu/config.py``, so a ``config.json`` or an exported
 ``meta.json`` written by either package loads in the other. Fields of
-parts not ported yet (the STFT critic, resampling, meshes, the JAX
-kernel tiers) are carried so the JSON round-trips, and ``validate``
+parts not ported yet (resampling, meshes, the JAX kernel tiers) are
+carried so the JSON round-trips, and ``validate``
 rejects what the reference's ``validate`` rejects.
 
-Presets: ``tiny_sc09`` (CPU-sized), ``wgan_gp_b64`` (the flagship) and
-``cond_gru_sc09`` (the class-conditional GRU generator).
+Presets: ``tiny_sc09`` (CPU-sized), ``wgan_gp_b64`` (the flagship),
+``cond_gru_sc09`` (the class-conditional GRU generator) and ``dual_stft``
+(the flagship's G against the wave and STFT critics, with G's
+multi-resolution spectral term).
 """
 
 from __future__ import annotations
@@ -298,10 +300,26 @@ def cond_gru_sc09() -> Config:
     ).validate()
 
 
+def dual_stft() -> Config:
+    """Dual discriminator: the flagship's WaveGAN G against the WaveGAN
+    critic plus an STFT-spectrogram critic (scores summed), and G's
+    batch spectral-matching term over three STFT resolutions."""
+    return Config(
+        name="dual_stft",
+        data=DataCfg(num_classes=0, device_corpus=True),
+        model=ModelCfg(generator="wavegan", model_dim=64, use_stft_critic=True,
+                       fused_shuffle_sites=0, shuffle_impl="prim"),
+        loss=LossCfg(n_critic=5, stft_loss_weight=1.0),
+        train=TrainCfg(batch_size=64, kernels="auto", wgrad_form="conv",
+                       dtype="bfloat16", fused_d_views=True),
+    ).validate()
+
+
 PRESETS = {
     "tiny_sc09": tiny_sc09,
     "wgan_gp_b64": wgan_gp_b64,
     "cond_gru_sc09": cond_gru_sc09,
+    "dual_stft": dual_stft,
 }
 
 

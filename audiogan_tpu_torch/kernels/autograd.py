@@ -40,6 +40,8 @@ critic's weight gradients.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -73,6 +75,18 @@ def as_compute(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype) if t.dtype != dtype else t.view_as(t)
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block; the caller's
+    setting is restored after it."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def _zeros_bias(w: torch.Tensor) -> torch.Tensor:
     return torch.zeros(w.shape[2], dtype=w.dtype, device=w.device)
 
@@ -102,14 +116,10 @@ def conv1d_wgrad(x: torch.Tensor, ct: torch.Tensor, stride: int,
     t_out = ct.shape[1]
     hi = (t_out - 1) * stride + k - x.shape[1] - pad_lo
     xp = _pad_time(x, pad_lo, hi).transpose(1, 2)
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with cudnn_deterministic():
         dw = torch.nn.grad.conv1d_weight(
             xp, (ct.shape[2], x.shape[2], k), ct.transpose(1, 2).to(x.dtype),
             stride=stride)
-    finally:
-        torch.backends.cudnn.deterministic = saved
     return dw.permute(2, 1, 0).contiguous()
 
 

@@ -6,6 +6,7 @@ import torch
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.models.gru import GRUGenerator
+from audiogan_tpu_torch.models.stft_critic import DualDiscriminator
 from audiogan_tpu_torch.models.wavegan import (WaveGANDiscriminator,
                                                 WaveGANGenerator)
 
@@ -33,19 +34,22 @@ def build_generator(cfg: Config,
         dtype=DTYPES[cfg.train.dtype], device=device)
 
 
-def build_discriminator(cfg: Config, device=None) -> WaveGANDiscriminator:
-    """The WaveGAN critic with uninitialised f32 parameters on ``device``,
-    its first ``model.fused_shuffle_sites`` shuffle sites (-1: all) fused
-    into their consuming convs."""
+def build_discriminator(cfg: Config, device=None
+                        ) -> WaveGANDiscriminator | DualDiscriminator:
+    """The critic with uninitialised f32 parameters on ``device``: the
+    WaveGAN critic, its first ``model.fused_shuffle_sites`` shuffle sites
+    (-1: all) fused into their consuming convs, or, with
+    ``model.use_stft_critic``, that critic beside an STFT critic at the
+    first of ``model.stft_resolutions``."""
     cfg.validate()
     m, d = cfg.model, cfg.data
+    common = dict(clip_len=d.clip_len, model_dim=m.model_dim,
+                  kernel_size=m.kernel_size, strides=m.strides,
+                  phase_shuffle_rad=m.phase_shuffle,
+                  num_classes=d.num_classes, max_channels=m.max_channels,
+                  fused_shuffle_sites=m.fused_shuffle_sites,
+                  dtype=DTYPES[cfg.train.dtype], device=device)
     if m.use_stft_critic:
-        raise NotImplementedError(
-            "the STFT critic is not ported to audiogan_tpu_torch yet")
-    return WaveGANDiscriminator(
-        clip_len=d.clip_len, model_dim=m.model_dim,
-        kernel_size=m.kernel_size, strides=m.strides,
-        phase_shuffle_rad=m.phase_shuffle, num_classes=d.num_classes,
-        max_channels=m.max_channels,
-        fused_shuffle_sites=m.fused_shuffle_sites,
-        dtype=DTYPES[cfg.train.dtype], device=device)
+        return DualDiscriminator(stft_resolution=m.stft_resolutions[0],
+                                 **common)
+    return WaveGANDiscriminator(**common)

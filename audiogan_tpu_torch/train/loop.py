@@ -38,7 +38,8 @@ from audiogan_tpu_torch.device import resolve_device
 from audiogan_tpu_torch.train.state import (TrainState, create_train_state,
                                             param_count)
 from audiogan_tpu_torch.train.sample import generate
-from audiogan_tpu_torch.train.step import build_train_step, wrap_device_corpus
+from audiogan_tpu_torch.train.step import (build_train_step, num_views,
+                                           wrap_device_corpus)
 from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
 from audiogan_tpu_torch.utils.metrics import MetricsWriter
 
@@ -123,7 +124,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     step_fn = wrap_device_corpus(build_train_step(cfg, dev))
     writer = MetricsWriter(workdir, also_tensorboard=tensorboard)
     t = cfg.train
-    b, n_views = t.batch_size, cfg.loss.n_critic
+    b, n_views = t.batch_size, num_views(cfg)
     every = max(t.log_every, 1)
     metrics: dict = {}
     t0 = t_log = time.perf_counter()
@@ -140,7 +141,8 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                 # the steps timed since the last log: a resume from a
                 # step off the log grid would otherwise inflate the rate
                 sps = (done - last_logged) / max(now - t_log, 1e-9)
-                audio = (sps * b * n_views * cfg.data.clip_len
+                # the critic's views, as the reference counts them
+                audio = (sps * b * cfg.loss.n_critic * cfg.data.clip_len
                          / cfg.data.sample_rate)
                 log(json.dumps({"step": done, **metrics,
                                 "seconds": now - t0}))

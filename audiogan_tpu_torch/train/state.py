@@ -19,6 +19,7 @@ from audiogan_tpu_torch.device import resolve_device
 from audiogan_tpu_torch.models import build_discriminator, build_generator
 from audiogan_tpu_torch.models.gru import GRUGenerator
 from audiogan_tpu_torch.models.init import init_params
+from audiogan_tpu_torch.models.stft_critic import DualDiscriminator
 from audiogan_tpu_torch.models.wavegan import (WaveGANDiscriminator,
                                                WaveGANGenerator)
 from audiogan_tpu_torch.utils.prng import role_seed
@@ -30,7 +31,7 @@ ADAM_EPS = 1e-8
 class TrainState:
     step: int
     g: WaveGANGenerator | GRUGenerator
-    d: WaveGANDiscriminator
+    d: WaveGANDiscriminator | DualDiscriminator
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     seed: int

@@ -5,13 +5,18 @@ the device through the fused ingest kernel), with the fakes from a G
 forward under no_grad, the real and fake scores (one 2B call when
 train.fused_d_views, else two B calls), the gradient penalty's double
 backprop and one Adam update; then one generator update through the
-critic just updated. It runs eagerly; every conv of it, forward and
-backward, is a kernel launch on the card.
+critic just updated. With loss.stft_loss_weight > 0 the generator's loss
+adds that weight times the batch spectral-matching loss of its fakes
+against one more real view (ingested the same way), so the step takes
+num_views(cfg) = n_critic + 1 views. It runs eagerly; every 1D conv of
+it, forward and backward, is a kernel launch on the card; the STFT
+critic's 2D convs (with the dual critic) are cuDNN's.
 
 Randomness: per critic micro-step i the crop offsets, z, the penalty's
 eps, the fake labels and the phase-shuffle shifts (2B from one draw when
 fused, as d_scores_real_fake does; B more for x-hat), then z, labels and
-shifts for the G update, all from utils.prng generators of (seed, step,
+shifts for the G update (and the crop offsets of its real view when the
+spectral term is on), all from utils.prng generators of (seed, step,
 role). ``draws=`` replaces that stream (tests inject the reference's).
 
 Every backward of the step runs on the calling thread
@@ -23,7 +28,11 @@ worker thread, where the penalty's create_graph backward creates its
 nodes. The outer backward then interleaves nodes numbered by two counters,
 and where a gradient sums three or more terms the order of the sum
 depended on how far the worker's counter had come: a fresh process's
-first step differed from its later ones.
+first step differed from its later ones. Every cuDNN call of the step
+(the 1D weight gradients; with the dual critic the STFT critic's conv2d,
+its input and weight gradients and their double backward, which the
+autograd engine runs outside any model code) uses cuDNN's deterministic
+algorithms (``cudnn_deterministic``).
 """
 
 from __future__ import annotations
@@ -34,13 +43,22 @@ import torch
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.device import resolve_device
-from audiogan_tpu_torch.losses import (gradient_penalty, wgan_d_loss,
+from audiogan_tpu_torch.kernels.autograd import cudnn_deterministic
+from audiogan_tpu_torch.losses import (batch_spectral_matching_loss,
+                                       gradient_penalty, wgan_d_loss,
                                        wgan_g_loss)
 from audiogan_tpu_torch.ops.framing import crop_offsets
 from audiogan_tpu_torch.ops.ingest import ingest_batch
 from audiogan_tpu_torch.ops.phase_shuffle import draw_shifts
 from audiogan_tpu_torch.train.state import TrainState
 from audiogan_tpu_torch.utils import prng
+
+
+def num_views(cfg: Config) -> int:
+    """Real views per step: one per critic micro-step, and one for the
+    generator's spectral term when it is on."""
+    return cfg.loss.n_critic + (1 if cfg.loss.stft_loss_weight > 0 else 0)
+
 
 def d_scores_real_fake(d, real, fake, lab_r, lab_f, shifts, fused: bool):
     """Critic scores on the real and fake views of one micro-step.
@@ -90,25 +108,24 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
     g = {"z": torch.randn(batch, m.latent_dim, generator=gen, device=device),
          "labels": labels(gen),
          "shifts": draw_shifts(gen, sites, batch, rad, device)}
+    if cfg.loss.stft_loss_weight > 0:
+        g["offsets"] = crop_offsets(gen, batch, max_off, device)
     return {"critic": critic, "generator": g}
 
 
 def build_train_step(cfg: Config, device=None) -> Callable:
-    """step_fn(state, raw [n_critic, B, store_len] int16, labels
-    [n_critic, B], draws=None) -> metrics (0-d tensors on the device);
+    """step_fn(state, raw [num_views, B, store_len] int16, labels
+    [num_views, B], draws=None) -> metrics (0-d tensors on the device);
     updates ``state`` in place. Runs on the card unless ``device`` says
     otherwise."""
     dev = resolve_device(device)
-    if cfg.loss.stft_loss_weight > 0:
-        raise NotImplementedError(
-            "the STFT spectral-matching loss is not ported to "
-            "audiogan_tpu_torch yet")
     if cfg.loss.gp_batch_chunks > 1:
         raise NotImplementedError(
             "gp_batch_chunks > 1 is not ported to audiogan_tpu_torch yet")
     n_critic = cfg.loss.n_critic
     gp_lambda = cfg.loss.gp_lambda
     drift = cfg.loss.drift_epsilon
+    stft_w = cfg.loss.stft_loss_weight
     conditional = cfg.data.num_classes > 0
     fused = cfg.train.fused_d_views
 
@@ -140,30 +157,39 @@ def build_train_step(cfg: Config, device=None) -> Callable:
         return {"d_loss": loss.detach(), "w_dist": w_dist.detach(),
                 "gp": gp.detach(), "gp_grad_norm": gnorm.detach()}
 
-    def g_update(state: TrainState, dr) -> torch.Tensor:
+    def g_update(state: TrainState, raw, dr) -> dict[str, torch.Tensor]:
         lab = on_dev(dr["labels"]) if conditional else None
         fake = state.g(on_dev(dr["z"]), lab)
         loss = wgan_g_loss(state.d(fake, lab, on_dev(dr["shifts"])))
+        out = {}
+        if stft_w > 0:
+            real = ingest_batch(raw, cfg.data, offsets=on_dev(dr["offsets"]))
+            out["stft_loss"] = batch_spectral_matching_loss(
+                fake[..., 0], real, cfg.model.stft_resolutions)
+            loss = loss + stft_w * out["stft_loss"]
         state.opt_g.zero_grad(set_to_none=True)
         # the critic's weight gradients are not computed (kernels/autograd)
         loss.backward(inputs=list(state.g.parameters()))
         state.opt_g.step()
-        return loss.detach()
+        return {"g_loss": loss.detach(),
+                **{k: v.detach() for k, v in out.items()}}
 
     def step_fn(state: TrainState, raw: torch.Tensor, labels: torch.Tensor,
                 draws: dict | None = None) -> dict[str, torch.Tensor]:
         raw, labels = raw.to(dev), labels.to(dev)
         if draws is None:
             draws = draw_step(cfg, state.seed, state.step, raw.shape[1], dev)
-        with torch.autograd.set_multithreading_enabled(False):
+        with torch.autograd.set_multithreading_enabled(False), \
+                cudnn_deterministic():
             d_metrics = [d_micro_step(state, raw[i], labels[i],
                                       draws["critic"][i])
                          for i in range(n_critic)]
-            g_loss = g_update(state, draws["generator"])
+            g_metrics = g_update(state, raw[n_critic] if stft_w > 0
+                                 else None, draws["generator"])
         metrics = dict(d_metrics[-1])
         metrics["d_loss_mean"] = torch.stack(
             [m["d_loss"] for m in d_metrics]).mean()
-        metrics["g_loss"] = g_loss
+        metrics.update(g_metrics)
         state.step += 1
         return metrics
 
@@ -172,7 +198,7 @@ def build_train_step(cfg: Config, device=None) -> Callable:
 
 def wrap_device_corpus(inner: Callable) -> Callable:
     """(state, corpus_clips [N, store_len] int16 resident on the device,
-    idx [n_critic, B], labels [n_critic, B], draws=None) -> metrics: the
+    idx [num_views, B], labels [num_views, B], draws=None) -> metrics: the
     step gathers its raw views from the resident corpus by index, so the
     host ships only indices per step (step.py:82-142)."""
 

@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Three paths, each driven through the user's entry points: the flagship
+Four paths, each driven through the user's entry points: the flagship
 WaveGAN (wgan_gp_b64), the same preset trained with every phase-shuffle
 site fused into its consuming conv (`cli train --set
-model.fused_shuffle_sites=-1`), and the class-conditional GRU generator
-(cond_gru_sc09); beside them the fused GRU cell (`ops/gru.py::gru_cell`,
-impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
+model.fused_shuffle_sites=-1`), the class-conditional GRU generator
+(cond_gru_sc09), and the flagship's G against the dual wave + STFT critic
+with G's spectral term (dual_stft); beside them the fused GRU cell
+(`ops/gru.py::gru_cell`, impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
 line with its own ``seconds``; any failure raises and the script exits
 non-zero:
 
@@ -40,13 +41,16 @@ non-zero:
             the same bits; f32 and the one-channel layers the CUDA-core
             tiles. Ingest (K2) two launches to the same bits too.
 4. serve    each generator at full width (random weights from init seed 0,
-            bf16) exported, loaded and served over HTTP on 127.0.0.1; a
-            few requests (with labels for the GRU), each kernel's launches
-            per request, the served audio against a CPU reference.
+            bf16; dual_stft's G is the flagship's) exported, loaded and
+            served over HTTP on 127.0.0.1; a few requests (with labels for
+            the GRU), each kernel's launches per request, the served audio
+            against a CPU reference.
 5. parity   one f32 training step of each preset (and of the fused
-            flagship) at full width, batch 2, on the card (kernels) and on
-            the CPU (plain forms), from one state and the same draws:
-            metrics, parameters, Adam moments.
+            flagship) at full width, batch 2, on the card (kernels; the
+            STFT critic's conv2d in cuDNN, its DFT in cuBLAS, both without
+            TF32) and on the CPU (plain forms), from one state and the
+            same draws: metrics (dual_stft's stft_loss too), parameters,
+            Adam moments.
 6. train    each preset, and the fused flagship, through train.loop.train
             (what `cli train` runs): B=64, bf16, n_critic 5, fused views,
             resident synthetic corpus; warm-up steps then timed ones, finite
@@ -56,22 +60,29 @@ non-zero:
             the counts the step's structure gives, every K6 and K7 launch
             on the tensor cores, the unfused shuffle to none, K4 6 and K5 1
             per
-            GRU step, all persistent), peak device memory; one more step
-            under torch.profiler for the device time by kernel. Then the
+            GRU step, all persistent; dual_stft's K1' and K1 as the
+            flagship's and K2 6: five critic views and G's real view),
+            peak device memory; one more step under torch.profiler for the
+            device time by kernel and by span (the generator, the wave
+            critic, the STFT critic's spectrogram, its DFT matmuls and its
+            conv2d, the spectral loss; a backward op counts to the span
+            whose forward made it). Then the
             GRU cell's 256-frame recurrence, f32 forward and backward
             against the same recurrence through the plain cell, and bf16
             forward (every launch on the tensor cores) against the plain
             form's recurrence. The loop checkpoints its last step after
             that step's line, outside the timed window (checked).
 6b. resume  `cli train --total_steps 6 --set train.ckpt_every=3` in
-            subprocesses for the flagship, the fused flagship and
-            cond_gru_sc09 (B=64, bf16): once uninterrupted, once sent
-            SIGKILL when it logs its step-3 checkpoint and run again; the
-            second run must restore step 3, and its step-6 metrics.jsonl
-            record (but time and rates) and step-6 checkpoint must equal
-            the uninterrupted run's to the bit. Then, on the flagship's
-            and the GRU's workdirs, `cli sample --workdir --seed 0` twice
-            (the same bytes) and `cli serve --workdir` (one /generate).
+            subprocesses for the flagship, the fused flagship,
+            cond_gru_sc09 and dual_stft (B=64, bf16): once uninterrupted,
+            once sent SIGKILL when it logs its step-3 checkpoint and run
+            again; the second run must restore step 3, and its step-6
+            metrics.jsonl record (but time and rates) and step-6
+            checkpoint must equal the uninterrupted run's to the bit.
+            Then, on the flagship's, the GRU's and dual_stft's workdirs,
+            `cli sample --workdir --seed 0` twice (the same bytes) and
+            `cli serve --workdir` (one /generate); on dual_stft's, `cli
+            eval --workdir` twice: the same JSON line, every value finite.
             Each run's seconds, each save's bytes and seconds.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
@@ -99,7 +110,9 @@ from __future__ import annotations
 
 import base64
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import io
 import json
 import shutil
@@ -154,7 +167,9 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 20
 RESUME_STEPS, RESUME_KILL_AT = 6, 3
 RESUME_RUNS = (("wgan_gp_b64", ()),
                ("wgan_gp_b64", ("model.fused_shuffle_sites=-1",)),
-               ("cond_gru_sc09", ()))
+               ("cond_gru_sc09", ()), ("dual_stft", ()))
+# `cli eval` on these presets' resumed workdirs, twice
+EVAL_PRESETS = ("dual_stft",)
 CLI_TIMEOUT_S = 600
 
 
@@ -1503,11 +1518,12 @@ def parity_phase(cfg, dev, batch: int) -> dict:
     deterministic algorithms, kernels/autograd.py::conv1d_wgrad), so the
     compared state, and the result, is the same in every run."""
     from audiogan_tpu_torch.train.state import create_train_state
-    from audiogan_tpu_torch.train.step import build_train_step, draw_step
+    from audiogan_tpu_torch.train.step import (build_train_step, draw_step,
+                                               num_views)
     cfg = cfg.replace(train=dataclasses.replace(
         cfg.train, dtype="float32", batch_size=batch))
     cpu = torch.device("cpu")
-    n_views = cfg.loss.n_critic
+    n_views = num_views(cfg)
     card = create_train_state(cfg, device=dev)
     step_card = build_train_step(cfg, dev)
     raw0, lab0 = random_raw(cfg, n_views, batch, seed=10)
@@ -1652,28 +1668,114 @@ def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
                 init=[ln for ln in lines if "init" in ln][0]["init"])
 
 
+# profiler ranges around the models' parts (innermost wins): the method
+# or module function each wraps while a step is profiled
+SPANS = (("generator", "audiogan_tpu_torch.models.wavegan",
+          "WaveGANGenerator.forward"),
+         ("generator", "audiogan_tpu_torch.models.gru",
+          "GRUGenerator.forward"),
+         ("wave_critic", "audiogan_tpu_torch.models.wavegan",
+          "WaveGANDiscriminator.forward"),
+         ("stft_critic", "audiogan_tpu_torch.models.stft_critic",
+          "STFTCritic.forward"),
+         ("stft_critic.spectrogram", "audiogan_tpu_torch.models.stft_critic",
+          "stft_magnitude"),
+         ("stft_critic.conv2d", "audiogan_tpu_torch.models.stft_critic",
+          "conv2d_same"),
+         ("stft_loss.spectrogram", "audiogan_tpu_torch.losses.stft_loss",
+          "stft_magnitude"))
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm")
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+@contextlib.contextmanager
+def profiler_spans():
+    """Each of SPANS wrapped in torch.profiler.record_function; the
+    originals are put back after."""
+    import importlib
+    from torch.profiler import record_function
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return spanned
+    saved = []
+    for name, module, attr in SPANS:
+        owner = importlib.import_module(module)
+        *path, leaf = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        saved.append((owner, leaf, getattr(owner, leaf)))
+        setattr(owner, leaf, wrap(name, getattr(owner, leaf)))
+    try:
+        yield
+    finally:
+        for owner, leaf, fn in reversed(saved):
+            setattr(owner, leaf, fn)
+
+
+def span_device_ms(prof) -> dict:
+    """Device ms of the profiled kernels by span. A kernel counts to the
+    innermost span around the op that launched it; an op the autograd
+    engine runs in backward counts to the span of the forward op that
+    made its node (the same sequence number), and what that backward
+    records for a double backward inherits the span. Also the part of
+    each span that cuBLAS GEMMs (aten::mm, bmm, addmm) took: in the STFT
+    spans, the DFT matmuls."""
+    from torch.autograd import DeviceType
+    names = {name for name, _, _ in SPANS}
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CPU),
+                    key=lambda e: (e.time_range.start, -e.time_range.end))
+    span_of, seq_span = {}, {}
+    total, gemm = {}, {}
+    for e in events:
+        parent = span_of.get(id(e.cpu_parent))
+        backward = e.name.startswith(BACKWARD_NODE)
+        if e.name in names:
+            span = e.name
+        elif backward:
+            span = seq_span.get(e.sequence_nr, parent)
+        else:
+            span = parent
+        span_of[id(e)] = span
+        if span is not None and not backward and e.sequence_nr >= 0:
+            seq_span.setdefault(e.sequence_nr, span)
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if ms:
+            key = span or "rest"
+            total[key] = total.get(key, 0.0) + ms
+            if e.name in GEMM_OPS:
+                gemm[key] = gemm.get(key, 0.0) + ms
+    return {k: {"ms": v, "gemm_ms": gemm.get(k, 0.0)}
+            for k, v in sorted(total.items(), key=lambda kv: -kv[1])}
+
+
 def profile_step(cfg, dev, state) -> dict:
     """One more training step under torch.profiler: the device time of the
     step by kernel (device events only: an op's own entry repeats the time
-    of the kernels it launched), against the step's wall time, which the
-    profiler itself lengthens."""
+    of the kernels it launched) and by span (span_device_ms), against the
+    step's wall time, which the profiler itself lengthens."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from audiogan_tpu_torch.train.step import build_train_step
+    from audiogan_tpu_torch.train.step import build_train_step, num_views
     step = build_train_step(cfg, dev)
-    raw, labels = random_raw(cfg, cfg.loss.n_critic, cfg.train.batch_size,
-                             12)
+    raw, labels = random_raw(cfg, num_views(cfg), cfg.train.batch_size, 12)
     raw, labels = raw.to(dev), labels.to(dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler_spans(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, raw, labels)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    spans = {name for name, _, _ in SPANS}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a span also shows as a device-side range around its kernels
+        if e.device_type != DeviceType.CUDA or e.key in spans:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1685,7 +1787,8 @@ def profile_step(cfg, dev, state) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": max(1.0 - device_ms / wall_ms, 0.0),
             "top": [{"name": k[:140], "ms": v, "share": v / device_ms}
-                    for k, v in top]}
+                    for k, v in top],
+            "by_span": span_device_ms(prof)}
 
 
 # -- resume: `cli train` killed and resumed ------------------------------------
@@ -1881,10 +1984,25 @@ def serve_workdir(cfg, workdir: Path) -> dict:
         proc.stdout.close()
 
 
+def eval_twice(workdir: Path) -> dict:
+    """`cli eval --workdir` twice: the same JSON line, every value
+    finite."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = list(pool.map(run_cli, [cli_cmd("eval", "--workdir",
+                                                workdir)] * 2))
+    (a, a_s), (b, b_s) = runs
+    if len(a) != 1 or a != b:
+        raise AssertionError(f"eval twice: {a} != {b}")
+    bad = [k for k, v in a[0].items() if not np.isfinite(v)]
+    if bad or a[0]["step"] != RESUME_STEPS:
+        raise AssertionError(f"eval: non-finite {bad} or step: {a[0]}")
+    return {"metrics": a[0], "seconds": [a_s, b_s]}
+
+
 def resume_phase() -> dict:
     """Each of RESUME_RUNS killed and resumed (all started together), then
     `cli sample` and `cli serve` on each preset's killed-and-resumed
-    workdir."""
+    workdir, and `cli eval` on EVAL_PRESETS'."""
     from audiogan_tpu_torch.config import Config
     base = ROOT / "build" / "chip_smoke_resume"
     shutil.rmtree(base, ignore_errors=True)
@@ -1894,13 +2012,17 @@ def resume_phase() -> dict:
     plain = [c for c in cases if not c["sets"]]
     cfgs = [Config.from_json((c["workdir"] / "config.json").read_text())
             for c in plain]
-    with concurrent.futures.ThreadPoolExecutor(2 * len(plain)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3 * len(plain)) as pool:
         samples = [pool.submit(sample_twice, cfg, c["workdir"])
                    for cfg, c in zip(cfgs, plain)]
         served = [pool.submit(serve_workdir, cfg, c["workdir"])
                   for cfg, c in zip(cfgs, plain)]
+        evals = {c["preset"]: pool.submit(eval_twice, c["workdir"])
+                 for c in plain if c["preset"] in EVAL_PRESETS}
         for c, fs, fv in zip(plain, samples, served):
             c["sample"], c["serve"] = fs.result(), fv.result()
+            if c["preset"] in evals:
+                c["eval"] = evals[c["preset"]].result()
     for c in cases:
         c["workdir"] = str(c["workdir"].relative_to(ROOT))
     return {"steps": RESUME_STEPS, "killed_after": RESUME_KILL_AT,
@@ -2078,6 +2200,7 @@ def main() -> int:
     from audiogan_tpu_torch.kernels import ingest as king
     from audiogan_tpu_torch.kernels import sconv as ksconv
     from audiogan_tpu_torch.ops.phase_shuffle import PShuf
+    from audiogan_tpu_torch.train.step import num_views
 
     # the plain oracle in full f32: cuDNN's TF32 default would blur it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2141,6 +2264,7 @@ def main() -> int:
     # the fused configuration, as `cli train --set` reaches it
     fcfg = apply_overrides(cfg, ["model.fused_shuffle_sites=-1"]).validate()
     gcfg = get_preset("cond_gru_sc09")
+    dcfg = get_preset("dual_stft")
     g_fwd = generator_layers(cfg, BATCH)
     d_dx = critic_dx_layers(cfg, 2 * BATCH)
     d_fwd = critic_layers(cfg, 2 * BATCH)
@@ -2185,9 +2309,16 @@ def main() -> int:
                                     {"gru_scan": 1, "gru_scan_persistent": 1,
                                      "convt1d": 3, "convt1d_tc": 2})
     phase("serve", t0, **gserved)
+    t0 = time.time()
+    # dual_stft's G is the flagship's WaveGAN G
+    dsampler, dserved = serve_phase(
+        dcfg, dev, counters,
+        {"convt1d": len(g_fwd),
+         "convt1d_tc": sum(tensor_core("convt1d", L) for L in g_fwd)})
+    phase("serve", t0, **dserved)
 
     # 5. one full-width f32 step of each preset, card vs CPU ---------------
-    for c in (cfg, fcfg, gcfg):
+    for c in (cfg, fcfg, gcfg, dcfg):
         t0 = time.time()
         phase("parity", t0, preset=c.name,
               fused_shuffle_sites=c.model.fused_shuffle_sites,
@@ -2197,8 +2328,10 @@ def main() -> int:
     t0 = time.time()
     PShuf.calls = ksconv.sconv1d_ba.launches = ksconv.sconvt1d.launches = 0
     # K1' 85 and K1 80 per flagship step, 68 each on the tensor cores;
-    # the fused flagship 21 and 36, 4 and 24
-    trained = train_phase(cfg, dev, wave_kernels, conv_step_launches(cfg))
+    # the fused flagship 21 and 36, 4 and 24; K2 one per real view
+    trained = train_phase(cfg, dev, wave_kernels,
+                          {**conv_step_launches(cfg),
+                           "ingest": num_views(cfg)})
     unfused_shuffles = PShuf.calls
     if not unfused_shuffles or ksconv.sconv1d_ba.launches \
             or ksconv.sconvt1d.launches:
@@ -2212,6 +2345,7 @@ def main() -> int:
     ftrained = train_phase(fcfg, dev, fused_kernels,
                            {"sconv1d": k6_step, "sconvt1d": k7_step,
                             "sconv1d_tc": k6_step, "sconvt1d_tc": k7_step,
+                            "ingest": num_views(fcfg),
                             **conv_step_launches(fcfg)})
     if PShuf.calls:
         raise AssertionError(f"fused critic shuffled {PShuf.calls} times")
@@ -2221,10 +2355,20 @@ def main() -> int:
     # K4 6 and K5 1 per step, every one on the persistent path in bf16
     gtrained = train_phase(gcfg, dev, counters,
                            {"gru_scan": 1 + gcfg.loss.n_critic,
-                            "gru_scan_bwd": 1,
+                            "gru_scan_bwd": 1, "ingest": num_views(gcfg),
                             "gru_scan_persistent": 1 + gcfg.loss.n_critic,
                             "gru_scan_bwd_persistent": 1})
     phase("train", t0, card=card, **gtrained)
+    t0 = time.time()
+    # the dual critic's wave critic and G run the flagship's convs; K2 6:
+    # five critic views and G's real view for its spectral term
+    PShuf.calls = 0
+    dtrained = train_phase(dcfg, dev, wave_kernels,
+                           {**conv_step_launches(dcfg),
+                            "ingest": num_views(dcfg)})
+    if "stft_loss" not in dtrained["last"] or not PShuf.calls:
+        raise AssertionError("dual_stft: no stft_loss or no shuffle")
+    phase("train", t0, card=card, **dtrained)
     t0 = time.time()
     cell_run = gru_cell_phase(gcfg, dev)
     phase("gru_cell", t0, card=card, **cell_run)
@@ -2244,16 +2388,19 @@ def main() -> int:
             "sconvt1d": time_sconv(True, s_dx, dev, errs["sconvt1d"]),
             "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"])}
     samplers = {cfg.name: sampler_rate(sampler, cfg),
-                gcfg.name: sampler_rate(gsampler, gcfg)}
+                gcfg.name: sampler_rate(gsampler, gcfg),
+                dcfg.name: sampler_rate(dsampler, dcfg)}
     phase("timing", t0, samplers=samplers,
           train_steps_per_s={cfg.name: trained["steps_per_s"],
                              cfg.name + " fused_shuffle_sites=-1":
                                  ftrained["steps_per_s"],
-                             gcfg.name: gtrained["steps_per_s"]}, card=card)
+                             gcfg.name: gtrained["steps_per_s"],
+                             dcfg.name: dtrained["steps_per_s"]}, card=card)
 
     per_step = trained["launches_per_step"]
     fper_step = ftrained["launches_per_step"]
     gper_step = gtrained["launches_per_step"]
+    dper_step = dtrained["launches_per_step"]
     gru_per = ("one scan of cond_gru_sc09's G (B=64, H=512, F=256, 256 "
                "frames), bf16")
     kernels = [
@@ -2266,6 +2413,7 @@ def main() -> int:
             "layers (2B=128), bf16", card,
             launches_per_train_step=per_step["convt1d"],
             launches_per_train_step_gru=gper_step["convt1d"],
+            launches_per_train_step_dual=dper_step["convt1d"],
             launches_serve=served["launches"]["convt1d"],
             launches_serve_gru=gserved["launches"]["convt1d"],
             launches_tensor_core=trained["launches"]["convt1d_tc"],
@@ -2280,6 +2428,7 @@ def main() -> int:
             "layers (B=64), bf16", card,
             launches_per_train_step=per_step["conv1d"],
             launches_per_train_step_gru=gper_step["conv1d"],
+            launches_per_train_step_dual=dper_step["conv1d"],
             launches_tensor_core=trained["launches"]["conv1d_tc"],
             launches_tensor_core_per_train_step=per_step["conv1d_tc"],
             launches_tensor_core_per_train_step_gru=gper_step["conv1d_tc"]),
@@ -2290,6 +2439,7 @@ def main() -> int:
             "one flagship ingest, int16 [64, 16384] -> f32 (store = clip)",
             card, launches_per_train_step=per_step["ingest"],
             launches_per_train_step_gru=gper_step["ingest"],
+            launches_per_train_step_dual=dper_step["ingest"],
             device_ms=rows["ingest"][0]["device_ms"],
             slack=rows["ingest"][1]),
         kernel_entry(

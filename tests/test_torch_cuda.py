@@ -1,9 +1,10 @@
 """The CUDA kernels (convt1d, conv1d, ingest, gru_scan, gru_scan_bwd,
 sconv1d, sconvt1d and gru_cell) against their plain forms, on the card,
 and the autograd Functions' first- and second-order gradients through the
-kernels (unfused and fused shuffle sites), the GRU generator's forward and
-backward and the fused GRU cell's, against the same code on the CPU; and
-that a training step on the card is bit-reproducible.
+kernels (unfused and fused shuffle sites, and the dual wave + STFT
+critic), the GRU generator's forward and backward and the fused GRU
+cell's, against the same code on the CPU; and that a training step on the
+card (the dual_stft step's too) is bit-reproducible.
 
 Marked ``cuda``: each test skips where there is no CUDA device. These import
 torch and the port only, so they also run on a machine without JAX:
@@ -278,30 +279,47 @@ def test_ingest_cluster_kernel_repeats_bit_for_bit(cuda_device, store, mode,
                                                 0.999, mu), first)
 
 
-def _tiny_cfg():
-    from audiogan_tpu_torch.config import Config, DataCfg, ModelCfg
+def _tiny_cfg(dual: bool = False):
+    """The tiny WaveGAN config; ``dual``: with the STFT critic beside the
+    wave critic and G's spectral term, at one resolution (128, 32, 128)."""
+    from audiogan_tpu_torch.config import Config, DataCfg, LossCfg, ModelCfg
+    stft = dict(use_stft_critic=True,
+                stft_resolutions=((128, 32, 128),)) if dual else {}
     return Config(data=DataCfg(clip_len=1024, store_len=1280),
                   model=ModelCfg(model_dim=4, kernel_size=25,
                                  strides=(4, 4, 4), max_channels=32,
-                                 phase_shuffle=2)).validate()
+                                 phase_shuffle=2, **stft),
+                  loss=LossCfg(stft_loss_weight=1.0 if dual else 0.0)
+                  ).validate()
 
 
-@pytest.mark.parametrize("fused_sites", [0, -1])
+def _raw_views(cfg, batch):
+    from audiogan_tpu_torch.train.step import num_views
+    gen = torch.Generator().manual_seed(0)
+    n = num_views(cfg)
+    raw = (torch.randn(n, batch, cfg.data.store_len, generator=gen)
+           * 6000).clamp(-32768, 32767).to(torch.int16)
+    return raw, torch.zeros(n, batch, dtype=torch.long)
+
+
+@pytest.mark.parametrize("fused_sites", [0, -1, "dual"])
 def test_second_order_through_kernels_matches_cpu(cuda_device, fused_sites):
     """The penalty's double backprop and the generator's backward through
     the kernels (every conv, dx and d/dct a launch; with fused shuffle
-    sites K6 and K7 too) against the same Functions on the CPU (plain
-    forms), same weights, f32: gradients within 1e-4 relative L2 over each
-    tensor."""
+    sites K6 and K7 too; "dual": the dual critic, whose STFT critic runs
+    cuDNN's conv2d and the DFT matmuls) against the same Functions on the
+    CPU (plain forms), same weights, f32: gradients within 1e-4 relative
+    L2 over each tensor."""
     import dataclasses
 
     from audiogan_tpu_torch.losses import gradient_penalty, wgan_g_loss
     from audiogan_tpu_torch.models import (build_discriminator,
                                            build_generator)
     from audiogan_tpu_torch.models.init import init_params
-    cfg = _tiny_cfg()
+    dual = fused_sites == "dual"
+    cfg = _tiny_cfg(dual)
     cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, fused_shuffle_sites=fused_sites))
+        cfg.model, fused_shuffle_sites=0 if dual else fused_sites))
     sconv_before = (tsconv.sconv1d_ba.launches, tsconv.sconvt1d.launches)
     cpu = torch.device("cpu")
     g = init_params(build_generator(cfg, device=cpu), 0)
@@ -328,7 +346,7 @@ def test_second_order_through_kernels_matches_cpu(cuda_device, fused_sites):
         grads[name] = torch.autograd.grad(loss, params)
     assert tconv.conv1d_ba.launches > 0
     assert tconv.conv_transpose1d_ba.launches > 0
-    if fused_sites:
+    if fused_sites == -1:
         assert tsconv.sconv1d_ba.launches > sconv_before[0]
         assert tsconv.sconvt1d.launches > sconv_before[1]
     for gc, gg in zip(grads["cpu"], grads["cuda"]):
@@ -349,7 +367,9 @@ def _tiny_gru_cfg():
 @pytest.mark.parametrize("fused_sites,dtype", [(0, "float32"),
                                                (-1, "float32"),
                                                (0, "bfloat16"),
-                                               ("gru", "bfloat16")])
+                                               ("gru", "bfloat16"),
+                                               ("dual", "float32"),
+                                               ("dual", "bfloat16")])
 def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
                                                 dtype):
     """Two runs of two training steps from one seed on the same data give
@@ -357,7 +377,9 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
     in a run-dependent order. The bf16 case runs the tensor-core convs
     (the model is widened to 64 channels for it); the "gru" case the
     conditional GRU generator, whose scans (K4, K5) take the persistent
-    path."""
+    path; the "dual" case the dual critic and G's spectral term (the STFT
+    framing's backward, cuDNN's conv2d with its weight gradient and
+    double backward, one more ingest per step)."""
     import dataclasses
 
     from audiogan_tpu_torch.train.state import create_train_state
@@ -368,23 +390,21 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, dtype=dtype,
                                                     batch_size=batch))
     else:
-        cfg = _tiny_cfg()
+        dual = fused_sites == "dual"
+        cfg = _tiny_cfg(dual)
         width = {} if dtype == "float32" else {"model_dim": 64,
                                                "max_channels": 128}
         cfg = cfg.replace(
-            model=dataclasses.replace(cfg.model,
-                                      fused_shuffle_sites=fused_sites,
-                                      **width),
+            model=dataclasses.replace(
+                cfg.model, fused_shuffle_sites=0 if dual else fused_sites,
+                **width),
             train=dataclasses.replace(cfg.train, dtype=dtype,
                                       batch_size=batch))
     tc_before = tconv.conv1d_ba.launches_tc
     scan_before = (tgru.gru_scan_fwd.launches_persistent,
                    tgru.gru_scan_bwd.launches_persistent)
-    gen = torch.Generator().manual_seed(0)
-    raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
-                       generator=gen) * 6000).clamp(-32768, 32767)
-    raw = raw.to(torch.int16)
-    labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
+    ingest_before = tingest.ingest_fused.launches
+    raw, labels = _raw_views(cfg, batch)
     runs = []
     for _ in range(2):
         state = create_train_state(cfg, device=cuda_device)
@@ -396,6 +416,8 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     assert (tconv.conv1d_ba.launches_tc > tc_before) == (dtype == "bfloat16")
+    # one ingest per real view: n_critic, and G's with the spectral term
+    assert tingest.ingest_fused.launches - ingest_before == 2 * 2 * len(raw)
     if fused_sites == "gru":
         # per step: the critic's n_critic fakes and G's own pass, one K5
         steps = 2 * 2
@@ -415,16 +437,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda")
 batch, fused_sites, dtype = 16, {fused_sites!r}, {dtype!r}
-cfg = t._tiny_cfg()
+dual = fused_sites == "dual"
+cfg = t._tiny_cfg(dual)
 width = {{}} if dtype == "float32" else {{"model_dim": 64, "max_channels": 128}}
 cfg = cfg.replace(
-    model=dataclasses.replace(cfg.model, fused_shuffle_sites=fused_sites,
+    model=dataclasses.replace(cfg.model,
+                              fused_shuffle_sites=0 if dual else fused_sites,
                               **width),
     train=dataclasses.replace(cfg.train, dtype=dtype, batch_size=batch))
-gen = torch.Generator().manual_seed(0)
-raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
-                   generator=gen) * 6000).clamp(-32768, 32767).to(torch.int16)
-labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
+raw, labels = t._raw_views(cfg, batch)
 hashes = []
 for _ in range(2):
     state = create_train_state(cfg, device=dev)
@@ -438,7 +459,8 @@ print(json.dumps(hashes))
 
 
 @pytest.mark.parametrize("fused_sites,dtype", [(0, "float32"),
-                                               (-1, "bfloat16")])
+                                               (-1, "bfloat16"),
+                                               ("dual", "bfloat16")])
 def test_first_train_step_of_a_fresh_process_is_bit_reproducible(
         cuda_device, fused_sites, dtype):
     """The first training step of a fresh process, run twice in it, and
@@ -909,11 +931,7 @@ def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
                                   model_dim=64, max_channels=128),
         train=dataclasses.replace(cfg.train, dtype="bfloat16",
                                   batch_size=batch))
-    gen = torch.Generator().manual_seed(0)
-    raw = (torch.randn(cfg.loss.n_critic, batch, cfg.data.store_len,
-                       generator=gen) * 6000).clamp(-32768, 32767)
-    raw = raw.to(torch.int16)
-    labels = torch.zeros(cfg.loss.n_critic, batch, dtype=torch.long)
+    raw, labels = _raw_views(cfg, batch)
     before = (tsconv.sconv1d_ba.launches, tsconv.sconv1d_ba.launches_tc,
               tsconv.sconvt1d.launches, tsconv.sconvt1d.launches_tc)
     runs = []

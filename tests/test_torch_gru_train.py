@@ -186,15 +186,16 @@ def test_validate_rejects_what_the_reference_rejects(case):
 def test_validate_runs_before_what_is_not_ported():
     """fused_shuffle_sites=-2 is a bad config (ValueError), not an
     unported feature (NotImplementedError), in the factory too; the STFT
-    critic is still unported; fused sites build."""
+    critic builds, as the dual discriminator; fused sites build."""
     from audiogan_tpu_torch.models import build_discriminator
+    from audiogan_tpu_torch.models.stft_critic import DualDiscriminator
     cfg = Config.from_json(REJECTED["fused_shuffle_sites"]().to_json())
     with pytest.raises(ValueError, match="fused_shuffle_sites"):
         build_discriminator(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="STFT"):
-        build_discriminator(_replace(cfg, model={"fused_shuffle_sites": 0,
+    d = build_discriminator(_replace(cfg, model={"fused_shuffle_sites": 0,
                                                  "use_stft_critic": True}),
                             device="cpu")
+    assert isinstance(d, DualDiscriminator)
     for sites, n_fused in ((1, 1), (-1, len(cfg.model.strides) - 1)):
         d = build_discriminator(_replace(cfg, model={
             "fused_shuffle_sites": sites}), device="cpu")

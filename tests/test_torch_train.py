@@ -2,8 +2,11 @@
 the JAX package's.
 
 One whole ``tiny_config`` step (n_critic=2), unfused and fused critic
-views, and a conditional one (projection critic, labels) with the drift
-term, from a carried non-initial state (the JAX state after one step:
+views, a conditional one (projection critic, labels) with the drift
+term, and the dual critic (wave + STFT critic) with G's spectral term
+(one more real view, its crop offsets from the fourth key of
+``jax.random.split(fold_in(step_key, n_critic + 1), 4)``, step.py:264),
+unfused and fused, from a carried non-initial state (the JAX state after one step:
 weights and both Adam states) and the reference's draws: z, eps, crop
 offsets, labels from ``jax.random.split(fold_in(step_key, idx), 7)``
 (train/step.py:210-211) and the flax-drawn shuffle shifts, recorded by
@@ -107,11 +110,11 @@ def _reference_draws(cfg, state1, shifts):
     def take():
         return torch.from_numpy(np.stack([next(it) for _ in range(sites)]))
 
+    max_off = cfg.data.store_len - cfg.data.clip_len
     critic = []
     for i in range(n_critic):
         k = jax.random.fold_in(step_key, i)
         k_crop, k_z, k_eps, k_lab, _, _, _ = jax.random.split(k, 7)
-        max_off = cfg.data.store_len - cfg.data.clip_len
         dr = {"offsets": torch.from_numpy(np.array(
                   jax.random.randint(k_crop, (b,), 0, max_off + 1))),
               "z": torch.from_numpy(np.array(
@@ -123,11 +126,14 @@ def _reference_draws(cfg, state1, shifts):
                         else {"real": take(), "fake": take()})
         dr["shifts"]["gp"] = take()
         critic.append(dr)
-    k_z, k_lab = jax.random.split(jax.random.fold_in(step_key,
-                                                     n_critic + 1), 4)[:2]
+    k_z, k_lab, _, k_crop = jax.random.split(
+        jax.random.fold_in(step_key, n_critic + 1), 4)
     gen = {"z": torch.from_numpy(np.array(jax.random.normal(k_z,
                                                             (b, latent)))),
            "labels": labels(k_lab), "shifts": take()}
+    if cfg.loss.stft_loss_weight > 0:
+        gen["offsets"] = torch.from_numpy(np.array(jax.random.randint(
+            k_crop, (b,), 0, max_off + 1)))
     assert next(it, None) is None, "unused recorded shifts"
     return {"critic": critic, "generator": gen}
 
@@ -160,12 +166,20 @@ def _variant(name):
         # every phase-shuffle site fused into its consuming conv (K6/K7)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, fused_shuffle_sites=-1))
+    if name.startswith("dual"):
+        # the dual critic and G's spectral term (tests/train/test_step.py)
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(
+                cfg.model, use_stft_critic=True,
+                stft_resolutions=((128, 32, 128),)),
+            loss=dataclasses.replace(cfg.loss, stft_loss_weight=1.0))
     return cfg
 
 
 @pytest.mark.parametrize("variant", ["unfused", "fused",
                                      "conditional_drift", "fused_sites",
-                                     "conditional_fused_sites"])
+                                     "conditional_fused_sites",
+                                     "dual_unfused", "dual_fused"])
 def test_step_matches_jax(variant):
     cfg = _variant(variant)
     state1, state2, want, shifts, (clips, labels) = _jax_run(cfg)
@@ -284,9 +298,6 @@ def test_device_corpus_gathers_by_index():
 
 def test_step_rejects_what_is_not_ported():
     pcfg = _tiny_port_cfg()
-    with pytest.raises(NotImplementedError):
-        build_train_step(pcfg.replace(loss=dataclasses.replace(
-            pcfg.loss, stft_loss_weight=1.0)), device="cpu")
     with pytest.raises(NotImplementedError):
         build_train_step(pcfg.replace(loss=dataclasses.replace(
             pcfg.loss, gp_batch_chunks=2)), device="cpu")
