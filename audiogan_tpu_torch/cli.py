@@ -12,6 +12,10 @@ Usage:
         --set model.fused_shuffle_sites=-1 --total_steps 10 --workdir /tmp/f
     python -m audiogan_tpu_torch.cli train --preset dual_stft \\
         --total_steps 10 --workdir /tmp/dual
+    python -m audiogan_tpu_torch.cli train --preset music_44k_dp16 \\
+        --set mesh.dp=1 --total_steps 10 --workdir /tmp/music
+    python -m audiogan_tpu_torch.cli train --preset resample_22k \\
+        --total_steps 10 --workdir /tmp/r22k
     python -m audiogan_tpu_torch.cli train --config /tmp/run/config.json \\
         --total_steps 2000 --workdir /tmp/run
     python -m audiogan_tpu_torch.cli eval --workdir /tmp/dual --num 64 \\
@@ -39,7 +43,10 @@ train.total_steps), from the workdir's latest checkpoint unless
 --no_resume. It writes ``config.json``, ``ckpt/<step>.pt`` every
 train.ckpt_every steps and at the end, ``metrics.jsonl`` and, every
 train.sample_every steps, ``samples/``, and prints one JSON line of
-metrics per log_every steps. ``--config PATH`` (a config.json) takes the
+metrics per log_every steps. A mesh other than one device (dp, cp or tp
+above 1, or fsdp) raises NotImplementedError before the card is touched:
+``music_44k_dp16`` asks for dp=16 and runs as ``--set mesh.dp=1``.
+``--config PATH`` (a config.json) takes the
 place of ``--preset``; ``--set KEY=VALUE`` overrides any config field by
 dotted path, as the JAX CLI's does (the flags above it win). ``info``
 prints the resolved config's JSON.
@@ -261,10 +268,8 @@ def main(argv: list[str] | None = None) -> int:
         print(build_corpus(args.wav_dir, args.out_dir, args.store_len))
         return 0
 
-    device = resolve_device(args.device)
-
     if args.cmd == "train":
-        from audiogan_tpu_torch.train.loop import train
+        from audiogan_tpu_torch.train.loop import check_ported, train
         cfg = _load_cfg(args)
         tr = {k: v for k, v in (("batch_size", args.batch_size),
                                 ("log_every", args.log_every),
@@ -275,10 +280,14 @@ def main(argv: list[str] | None = None) -> int:
         if args.data_dir is not None:
             cfg = cfg.replace(data=dataclasses.replace(
                 cfg.data, data_dir=args.data_dir))
-        train(cfg.validate(), args.workdir, resume=not args.no_resume,
-              device=device, log=lambda line: print(line, flush=True),
+        check_ported(cfg.validate())       # before the card is touched
+        train(cfg, args.workdir, resume=not args.no_resume,
+              device=resolve_device(args.device),
+              log=lambda line: print(line, flush=True),
               tensorboard=not args.no_tensorboard)
         return 0
+
+    device = resolve_device(args.device)
 
     if args.cmd == "sample":
         import numpy as np

@@ -3,14 +3,19 @@
 The fields, their defaults and the JSON form are those of
 ``audiogan_tpu/config.py``, so a ``config.json`` or an exported
 ``meta.json`` written by either package loads in the other. Fields of
-parts not ported yet (resampling, meshes, the JAX kernel tiers) are
-carried so the JSON round-trips, and ``validate``
-rejects what the reference's ``validate`` rejects.
+parts not ported yet (meshes, the JAX kernel tiers) are carried so the
+JSON round-trips, and ``validate`` rejects what the reference's
+``validate`` rejects. ``check_single_device`` rejects a mesh the port
+does not run (every config trains as one device).
 
-Presets: ``tiny_sc09`` (CPU-sized), ``wgan_gp_b64`` (the flagship),
-``cond_gru_sc09`` (the class-conditional GRU generator) and ``dual_stft``
-(the flagship's G against the wave and STFT critics, with G's
-multi-resolution spectral term).
+Presets, each equal in JSON to the reference's: ``tiny_sc09``
+(CPU-sized), ``wgan_gp_b64`` (the flagship), ``cond_gru_sc09`` (the
+class-conditional GRU generator), ``dual_stft`` (the flagship's G
+against the wave and STFT critics, with G's multi-resolution spectral
+term), ``resample_22k`` (a 22050 Hz corpus resampled to the 16 kHz model
+in the ingest) and ``music_44k_dp16`` (4 s clips at 44.1 kHz, strides
+7/7/5/5/3; its mesh asks for dp=16, so the port trains it with
+``mesh.dp=1``).
 """
 
 from __future__ import annotations
@@ -178,6 +183,22 @@ class Config:
         self._validate_mesh()
         return self
 
+    def check_single_device(self) -> None:
+        """Raises NotImplementedError for a mesh the port does not run:
+        dp, cp or tp above 1, or fsdp. The reference's DP folds each
+        rank's draws and its CP/TP steps differ, so training such a
+        config as one device would match no reference run."""
+        mesh = self.mesh
+        asked = [f"mesh.{k}={getattr(mesh, k)}" for k in ("dp", "cp", "tp")
+                 if getattr(mesh, k) > 1]
+        if mesh.fsdp:
+            asked.append("mesh.fsdp=True")
+        if asked:
+            raise NotImplementedError(
+                f"{', '.join(asked)}: audiogan_tpu_torch trains on one "
+                "device only (parallelism is not ported); run with "
+                "--set mesh.dp=1 (and cp, tp 1, fsdp false)")
+
     def _validate_mesh(self) -> None:
         """The cp/tp geometry checks of audiogan_tpu/config.py:242-292."""
         d, m, mesh = self.data, self.model, self.mesh
@@ -315,11 +336,50 @@ def dual_stft() -> Config:
     ).validate()
 
 
+def resample_22k() -> Config:
+    """A 22050 Hz corpus feeding the 16 kHz model: every ingest runs the
+    polyphase Kaiser-sinc conversion (up/down = 320/441) before crop,
+    normalize and mu-law. Store 24000 source samples -> 17415 at the
+    model rate, random-crop slack around the 16384-sample clip.
+    CPU-sized like tiny_sc09."""
+    return Config(
+        name="resample_22k",
+        data=DataCfg(sample_rate=16000, source_rate=22050,
+                     clip_len=16384, store_len=24000, num_classes=0,
+                     device_corpus=True),
+        model=ModelCfg(generator="wavegan", model_dim=16, max_channels=256),
+        loss=LossCfg(n_critic=2),
+        train=TrainCfg(batch_size=8, total_steps=2000, log_every=10),
+    ).validate()
+
+
+def music_44k_dp16() -> Config:
+    """4 s 44.1 kHz music clips: 176400 = 48 * 7 * 7 * 5 * 5 * 3, so
+    strides (7, 7, 5, 5, 3) upsample a 48-frame base to the clip; store
+    5 s, crop 4 s. The reference trains it data-parallel over 16 chips;
+    the port runs it as ``--set mesh.dp=1`` (check_single_device)."""
+    return Config(
+        name="music_44k_dp16",
+        data=DataCfg(sample_rate=44100, source_rate=44100,
+                     clip_len=176400, store_len=220500,
+                     device_corpus=True, num_classes=0),
+        model=ModelCfg(generator="wavegan", model_dim=64,
+                       strides=(7, 7, 5, 5, 3), kernel_size=25,
+                       fused_shuffle_sites=0, shuffle_impl="prim"),
+        loss=LossCfg(n_critic=5),
+        train=TrainCfg(batch_size=64, wgrad_form="conv", dtype="bfloat16",
+                       fused_d_views=True),
+        mesh=MeshCfg(dp=16, cp=1),
+    ).validate()
+
+
 PRESETS = {
     "tiny_sc09": tiny_sc09,
     "wgan_gp_b64": wgan_gp_b64,
     "cond_gru_sc09": cond_gru_sc09,
     "dual_stft": dual_stft,
+    "resample_22k": resample_22k,
+    "music_44k_dp16": music_44k_dp16,
 }
 
 

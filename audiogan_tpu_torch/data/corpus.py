@@ -1,22 +1,29 @@
-"""Packed int16 corpus and the deterministic index stream, the port of
-audiogan_tpu/data/corpus.py (numpy path only).
+"""Packed int16 corpus, the deterministic index stream and the host
+batcher, the port of audiogan_tpu/data/corpus.py (numpy path only).
 
 ``build_corpus`` decodes every wav once into ``clips.npy`` (int16
 [N, store_len]), ``labels.npy`` (int32 [N]) and ``meta.json``, in the
 same format as the JAX package, so either package reads the other's
-corpus. ``batch_indices`` is ``HostBatcher._indices``: the same
-numpy generator seeded with (seed, step), so the index stream is
-bit-identical to the reference's.
+corpus. ``batch_indices`` is the reference's ``HostBatcher._indices``:
+the same numpy generator seeded with (seed, step), so the index stream
+is bit-identical to the reference's. ``HostBatcher`` gathers a step's
+clips on the host from that stream, with a prefetch thread; its gather
+is numpy's fancy index (the reference's native C++ gather gives the same
+bytes and is not ported).
 """
 
 from __future__ import annotations
 
 import json
+import queue
+import threading
 from pathlib import Path
 
 import numpy as np
 
 from audiogan_tpu_torch.data.wavio import read_wav
+
+PREFETCH = 2             # batches the prefetch thread samples ahead
 
 
 def build_corpus(wav_dir: str | Path, out_dir: str | Path, store_len: int,
@@ -74,3 +81,66 @@ def batch_indices(n_clips: int, batch_size: int, n_views: int, seed: int,
     replacement from a (seed, step)-pure stream."""
     rng = np.random.default_rng((seed, step))
     return rng.integers(0, n_clips, size=(n_views, batch_size))
+
+
+class HostBatcher:
+    """Deterministic (seed, step) -> batch sampler with optional prefetch.
+
+    ``get(step)`` returns (clips int16 [n_views, B, store_len], labels
+    int32 [n_views, B]), or with ``indices_only`` (idx int32 [n_views,
+    B], labels): the resident-corpus step gathers on the device from the
+    same index stream, so both modes train to the same bits.
+    """
+
+    def __init__(self, corpus: Corpus, batch_size: int, n_views: int,
+                 seed: int = 0, indices_only: bool = False):
+        self.corpus = corpus
+        self.batch_size = batch_size
+        self.n_views = n_views
+        self.seed = seed
+        self.indices_only = indices_only
+        self._q: queue.Queue | None = None
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+
+    def _indices(self, step: int) -> np.ndarray:
+        return batch_indices(len(self.corpus), self.batch_size,
+                             self.n_views, self.seed, step)
+
+    def get(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        idx = self._indices(step)
+        labels = np.ascontiguousarray(self.corpus.labels[idx])
+        if self.indices_only:
+            return idx.astype(np.int32), labels
+        return np.ascontiguousarray(self.corpus.clips[idx]), labels
+
+    def start_prefetch(self, first_step: int, last_step: int) -> None:
+        """A thread samples steps [first_step, last_step) ahead into a
+        queue of PREFETCH batches, then None."""
+        self._q = queue.Queue(maxsize=PREFETCH)
+        self._stop.clear()
+
+        def worker():
+            for s in range(first_step, last_step):
+                if self._stop.is_set():
+                    return
+                self._q.put((s, self.get(s)))
+            self._q.put(None)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def next_prefetched(self) -> tuple[int, tuple[np.ndarray, np.ndarray]] | None:
+        if self._q is None:
+            raise RuntimeError("call start_prefetch first")
+        return self._q.get()
+
+    def close(self) -> None:
+        """Stops the prefetch thread (it may be blocked on a full queue)."""
+        self._stop.set()
+        while self._thread is not None and self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread = None

@@ -168,20 +168,36 @@ def tc_tile_shape(batch: int, t_lim: int, n_phase: int, cout: int,
     return rows, nb, n_mt, n_m * n_phase * _cdiv(cout, bn)
 
 
+def tc_rows_per_element(batch: int, t_lim: int, cout: int, tile: int,
+                        stack_rows: int = 1) -> float:
+    """Tile rows one batch element occupies at TC_TILES[tile], its own
+    t_lim rows and the masked rows padding them: M / nb stacked, else
+    n_mt * M."""
+    rows, nb, n_mt, _ = tc_tile_shape(batch, t_lim, 1, cout, tile,
+                                      stack_rows)
+    bm = 64 * TC_TILES[tile][0]
+    return bm / nb if nb > 1 else n_mt * bm
+
+
 def tc_tile(batch: int, t_lim: int, n_phase: int, cout: int,
             stack_rows: int = 1) -> int:
     """N = 128 unless Cout <= 64 (half a 128-wide tile would multiply
     zeros); M = 128 unless that grid leaves more than a quarter of the
-    SMs without a block, then M = 64; failing both, the tile with the
-    most blocks. (The choice the flagship's timings of every tile on the
-    card favour: PERF.md §6.)"""
+    SMs without a block, or 64-row tiles pad an element's rows to at most
+    three quarters of what 128-row tiles do (t_lim = 144: 192 rows
+    against 256), then M = 64; failing both, the tile with the most
+    blocks. (The choice the timings of every tile on the card favour at
+    the flagship's and music_44k_dp16's geometries: PERF.md §6.)"""
     bn = 128 if cout > 64 else 64
     blocks = [tc_tile_shape(batch, t_lim, n_phase, cout, i, stack_rows)[3]
               for i in range(len(TC_TILES))]
-    for nwg in (2, 1):
-        i = TC_TILES.index((nwg, bn))
-        if blocks[i] >= TC_MIN_BLOCKS:
-            return i
+    big, small = TC_TILES.index((2, bn)), TC_TILES.index((1, bn))
+    if blocks[big] >= TC_MIN_BLOCKS and 4 * tc_rows_per_element(
+            batch, t_lim, cout, small, stack_rows) > 3 * tc_rows_per_element(
+            batch, t_lim, cout, big, stack_rows):
+        return big
+    if blocks[small] >= TC_MIN_BLOCKS:
+        return small
     return max(range(len(TC_TILES)), key=lambda i: (blocks[i], -i))
 
 

@@ -5,11 +5,23 @@ The penalty's gradient with respect to the interpolates is taken with
 ``create_graph=True``, so differentiating the loss with respect to the
 critic's parameters runs the double backprop through the conv Functions
 of kernels/autograd.py.
+
+``batch_chunks > 1`` bounds the penalty's memory for long clips, as the
+reference's ``lax.map(jax.checkpoint(norms_of))`` does: the interpolates
+are split over the batch, and each chunk's norms come from ``_ChunkNorms``,
+which keeps only the chunk and drops its graph after the forward, then
+recomputes the chunk's critic forward and input gradient (with
+``create_graph``) when the outer backward reaches it, so one chunk's
+activations are live at a time. It costs one more critic forward and
+input gradient per chunk. ``torch.utils.checkpoint`` cannot do this:
+its non-reentrant form refuses a second unpack of a saved tensor, which
+the input gradient taken inside the checkpointed function makes, and its
+reentrant form runs the function without a graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -25,23 +37,64 @@ def wgan_g_loss(fake_scores: torch.Tensor) -> torch.Tensor:
     return -fake_scores.mean()
 
 
+def _grad_norms(d_apply: Callable[[torch.Tensor], torch.Tensor],
+                x: torch.Tensor, create_graph: bool = True) -> torch.Tensor:
+    """Per-example ||grad_x D(x)||_2 of a batch [b, T, 1], with
+    create_graph differentiable in D's parameters (D factorizes over the
+    batch, so the gradient of the sum is the per-example gradients)."""
+    x = x.detach().requires_grad_(True)
+    (grads,) = torch.autograd.grad(d_apply(x).sum(), x,
+                                   create_graph=create_graph)
+    return torch.sqrt(grads.square().reshape(grads.shape[0], -1).sum(-1)
+                      + 1e-12)
+
+
+class _ChunkNorms(torch.autograd.Function):
+    """_grad_norms of one chunk, its graph recomputed in the backward:
+    forward(d_apply, x, *params) -> norms [b]; the backward returns the
+    gradients of ``params`` (D's parameters, which d_apply reads)."""
+
+    @staticmethod
+    def forward(ctx, d_apply, x, *params):
+        ctx.d_apply = d_apply
+        ctx.save_for_backward(x, *params)
+        with torch.enable_grad():
+            return _grad_norms(d_apply, x, create_graph=False)
+
+    @staticmethod
+    def backward(ctx, grad_norms):
+        x, *params = ctx.saved_tensors
+        with torch.enable_grad():
+            norms = _grad_norms(ctx.d_apply, x)
+        grads = torch.autograd.grad(norms, params, grad_norms,
+                                    allow_unused=True)
+        return (None, None, *grads)
+
+
 def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
                      real: torch.Tensor, fake: torch.Tensor,
-                     eps: torch.Tensor, batch_chunks: int = 1
+                     eps: torch.Tensor, batch_chunks: int = 1,
+                     params: Sequence[torch.Tensor] = ()
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """WGAN-GP penalty on x^ = eps*real + (1-eps)*fake.
 
-    d_apply maps [B, T, 1] -> scores [B]; eps [B] is one draw per example.
-    Returns (mean((||grad_x^ D||_2 - 1)^2), mean gradient norm).
+    d_apply maps [b, T, 1] -> scores [b]; with batch_chunks > 1 it is
+    called on each chunk of B / batch_chunks examples in turn, and only
+    ``params`` (the parameters d_apply reads, all of them) get gradients
+    through the penalty. eps [B] is one draw per example. Returns
+    (mean((||grad_x^ D||_2 - 1)^2), mean gradient norm).
     """
-    if batch_chunks > 1:
-        raise NotImplementedError(
-            "gp_batch_chunks > 1 is not ported to audiogan_tpu_torch yet")
+    b = real.shape[0]
     e = eps.to(real.dtype).reshape((-1,) + (1,) * (real.dim() - 1))
-    xhat = (e * real + (1.0 - e) * fake).detach().requires_grad_(True)
-    # D factorizes over the batch, so grad of the sum is per-example grads
-    (grads,) = torch.autograd.grad(d_apply(xhat).sum(), xhat,
-                                   create_graph=True)
-    norms = torch.sqrt(grads.square().reshape(grads.shape[0], -1).sum(-1)
-                       + 1e-12)
+    xhat = (e * real + (1.0 - e) * fake).detach()
+    if batch_chunks > 1:
+        if b % batch_chunks:
+            raise ValueError(f"batch {b} not divisible by gp batch_chunks "
+                             f"{batch_chunks}")
+        if not params:
+            raise ValueError("gp batch_chunks > 1 needs D's params")
+        norms = torch.cat([_ChunkNorms.apply(d_apply, chunk, *params)
+                           for chunk in xhat.chunk(batch_chunks)])
+    else:
+        norms = _grad_norms(d_apply, xhat)
     return (norms - 1.0).square().mean(), norms.mean()

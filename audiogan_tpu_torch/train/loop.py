@@ -1,10 +1,16 @@
 """Training loop of the port, audiogan_tpu/train/loop.py on one device.
 
 Resolves or builds the corpus (data_dir '' -> the seeded synthetic SC09
-fixture in the workdir), ships its int16 clips to the device once, then
-runs the resident-corpus step: the host sends only the (seed, step)-pure
-clip indices per step (a config with data.device_corpus off trains the
-same way: the reference's host batcher gives the same batches).
+fixture in the workdir) and feeds the step by one of the reference's two
+data paths (``use_device_corpus``): with data.device_corpus on, the
+corpus's int16 clips go to the device once and the host sends only the
+(seed, step)-pure clip indices per step; with it off, or when the packed
+corpus exceeds DEVICE_CORPUS_MAX_GB, the host batcher gathers each step's
+clips on the host (a prefetch thread) and ``HostFeed`` ships them from
+pinned memory, the next step's copy on a side stream while the current
+step runs. Both paths give the step the same clips, so they train to the
+same bits. A mesh the port does not run, and the sharded corpus, raise
+(``check_ported``).
 
 Crash-only, as the reference: a checkpoint every ckpt_every steps and at
 the last one; ``resume`` picks up the latest complete checkpoint; the data
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from audiogan_tpu_torch.config import Config
-from audiogan_tpu_torch.data.corpus import Corpus, batch_indices, build_corpus
+from audiogan_tpu_torch.data.corpus import Corpus, HostBatcher, build_corpus
 from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
 from audiogan_tpu_torch.data.wavio import write_wav
 from audiogan_tpu_torch.device import resolve_device
@@ -42,6 +48,10 @@ from audiogan_tpu_torch.train.step import (build_train_step, num_views,
                                            wrap_device_corpus)
 from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
 from audiogan_tpu_torch.utils.metrics import MetricsWriter
+
+# Largest packed corpus held on the device (data.device_corpus); larger
+# corpora fall back to the host batcher with a notice (the reference's).
+DEVICE_CORPUS_MAX_GB = 8.0
 
 
 def resolve_corpus(cfg: Config, workdir: Path) -> Corpus:
@@ -81,7 +91,13 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raises for the reference loop's options the port has not ported."""
+    """Raises NotImplementedError for the reference loop's options the
+    port has not ported: a mesh other than one device, the sharded
+    corpus, and three tracing options."""
+    cfg.check_single_device()
+    if cfg.data.device_corpus and cfg.data.device_corpus_shard == "shard":
+        raise NotImplementedError("data.device_corpus_shard=shard is not "
+                                  "ported to audiogan_tpu_torch")
     t = cfg.train
     for name, on in (("train.profile_dir", bool(t.profile_dir)),
                      ("train.dump_hlo", t.dump_hlo),
@@ -89,6 +105,88 @@ def check_ported(cfg: Config) -> None:
         if on:
             raise NotImplementedError(f"{name} is not ported to "
                                       f"audiogan_tpu_torch")
+
+
+def use_device_corpus(cfg: Config, corpus: Corpus) -> bool:
+    """data.device_corpus, unless the packed corpus exceeds
+    DEVICE_CORPUS_MAX_GB: then the host batcher, with a notice."""
+    if not cfg.data.device_corpus:
+        return False
+    gb = corpus.clips.nbytes / 2**30
+    if gb > DEVICE_CORPUS_MAX_GB:
+        print(f"[data] corpus is {gb:.1f} GiB > {DEVICE_CORPUS_MAX_GB} GiB "
+              f"even at 1 shards: falling back to the host batcher "
+              f"(device_corpus off)", flush=True)
+        return False
+    return True
+
+
+class HostFeed:
+    """Each step's clips from the host batcher's prefetch thread to the
+    device. On the card: two pinned host buffers and two device buffers,
+    used in turn; step s + 1's copy runs on a side stream while step s
+    runs, after step s - 1 (the last user of its buffers) is done with
+    them, and the step's stream waits for it. On the CPU the batcher's
+    arrays are used as they are."""
+
+    def __init__(self, batcher: HostBatcher, first: int, last: int,
+                 device: torch.device):
+        self.batcher, self.device = batcher, device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            shape = (batcher.n_views, batcher.batch_size,
+                     batcher.corpus.clips.shape[1])
+            self.stream = torch.cuda.Stream(device)
+            self.host = [torch.empty(shape, dtype=torch.int16,
+                                     pin_memory=True) for _ in range(2)]
+            self.dev = [torch.empty(shape, dtype=torch.int16, device=device)
+                        for _ in range(2)]
+            for buf in self.dev:
+                buf.record_stream(self.stream)
+            self.copied: list = [None, None]
+            self.freed: list = [None, None]
+        batcher.start_prefetch(first, last)
+        self.staged = self._stage(first)
+
+    def _stage(self, step: int):
+        item = self.batcher.next_prefetched()
+        if item is None:
+            return None
+        s, (clips, labels) = item
+        if s != step:
+            raise RuntimeError(f"batcher gave step {s}, want {step}")
+        raw = torch.from_numpy(clips)
+        if self.cuda:
+            k = s % 2
+            if self.copied[k] is not None:
+                self.copied[k].synchronize()    # the host buffer is free
+            self.host[k].copy_(raw)
+            with torch.cuda.stream(self.stream):
+                if self.freed[k] is not None:
+                    self.stream.wait_event(self.freed[k])
+                self.dev[k].copy_(self.host[k], non_blocking=True)
+                self.copied[k] = torch.cuda.Event()
+                self.copied[k].record(self.stream)
+            raw = self.dev[k]
+        return s, raw, torch.from_numpy(labels)
+
+    def take(self, step: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(raw [n_views, B, store_len] int16 on the device, labels)."""
+        if self.staged is None or self.staged[0] != step:
+            raise RuntimeError(f"no batch staged for step {step}")
+        _, raw, labels = self.staged
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_event(
+                self.copied[step % 2])
+        return raw, labels
+
+    def done(self, step: int) -> None:
+        """After step's work is queued: stage step + 1."""
+        if self.cuda:
+            self.freed[step % 2] = torch.cuda.Event()
+            self.freed[step % 2].record(torch.cuda.current_stream(
+                self.device))
+        self.staged = self._stage(step + 1)
 
 
 def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
@@ -108,9 +206,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     (workdir / "config.json").write_text(cfg.to_json())
     corpus = resolve_corpus(cfg, workdir)
     check_corpus(cfg, corpus)
-    clips = torch.from_numpy(np.array(corpus.clips)).to(dev)
-    all_labels = torch.from_numpy(
-        np.array(corpus.labels)).to(dev, torch.long)
+    resident = use_device_corpus(cfg, corpus)
     state = create_train_state(cfg, device=dev)
     log(json.dumps({"init": {"g_params": param_count(state.g),
                              "d_params": param_count(state.d),
@@ -121,19 +217,35 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     if resume and ckpt_lib.latest_step(mngr) is not None:
         ckpt_lib.restore(mngr, state)
         log(json.dumps({"resume": {"step": state.step}}))
-    step_fn = wrap_device_corpus(build_train_step(cfg, dev))
-    writer = MetricsWriter(workdir, also_tensorboard=tensorboard)
     t = cfg.train
     b, n_views = t.batch_size, num_views(cfg)
+    inner = build_train_step(cfg, dev)
+    writer = MetricsWriter(workdir, also_tensorboard=tensorboard)
+    batcher = HostBatcher(corpus, b, n_views, seed=t.seed,
+                          indices_only=resident)
     every = max(t.log_every, 1)
     metrics: dict = {}
-    t0 = t_log = time.perf_counter()
-    last_logged = state.step
     try:
+        if resident:
+            clips = torch.from_numpy(np.array(corpus.clips)).to(dev)
+            resident_step = wrap_device_corpus(inner)
+
+            def run_step(step):
+                idx, labels = batcher.get(step)
+                return resident_step(state, clips, torch.from_numpy(idx),
+                                     torch.from_numpy(labels))
+        else:
+            feed = HostFeed(batcher, state.step, total, dev)
+
+            def run_step(step):
+                raw, labels = feed.take(step)
+                out = inner(state, raw, labels)
+                feed.done(step)
+                return out
+        t0 = t_log = time.perf_counter()
+        last_logged = state.step
         for step in range(state.step, total):
-            idx = torch.from_numpy(batch_indices(
-                len(corpus), b, n_views, t.seed, step)).to(dev)
-            out = step_fn(state, clips, idx, all_labels[idx])
+            out = run_step(step)
             done = step + 1
             if done % every == 0 or done == total:
                 metrics = {k: float(v) for k, v in out.items()}  # sync
@@ -167,6 +279,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                 t_log += time.perf_counter() - t_dump
     finally:
         writer.close()
+        batcher.close()
     return state, metrics
 
 

@@ -14,8 +14,10 @@ critic's 2D convs (with the dual critic) are cuDNN's.
 
 Randomness: per critic micro-step i the crop offsets, z, the penalty's
 eps, the fake labels and the phase-shuffle shifts (2B from one draw when
-fused, as d_scores_real_fake does; B more for x-hat), then z, labels and
-shifts for the G update (and the crop offsets of its real view when the
+fused, as d_scores_real_fake does; B more for x-hat, or B / chunks with
+loss.gp_batch_chunks > 1, the same shifts for every chunk, as the
+reference draws each chunk's from one key), then z, labels and shifts
+for the G update (and the crop offsets of its real view when the
 spectral term is on), all from utils.prng generators of (seed, step,
 role). ``draws=`` replaces that stream (tests inject the reference's).
 
@@ -48,7 +50,7 @@ from audiogan_tpu_torch.losses import (batch_spectral_matching_loss,
                                        gradient_penalty, wgan_d_loss,
                                        wgan_g_loss)
 from audiogan_tpu_torch.ops.framing import crop_offsets
-from audiogan_tpu_torch.ops.ingest import ingest_batch
+from audiogan_tpu_torch.ops.ingest import crop_slack, ingest_batch
 from audiogan_tpu_torch.ops.phase_shuffle import draw_shifts
 from audiogan_tpu_torch.train.state import TrainState
 from audiogan_tpu_torch.utils import prng
@@ -79,7 +81,8 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
     m, d = cfg.model, cfg.data
     sites = len(m.strides) - 1 if m.phase_shuffle else 0
     rad = m.phase_shuffle
-    max_off = max(d.store_len - d.clip_len, 0)
+    max_off = crop_slack(d)
+    gp_batch = batch // cfg.loss.gp_batch_chunks
 
     def labels(gen):
         if not d.num_classes:
@@ -102,7 +105,7 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
             dr["shifts"] = {
                 "real": draw_shifts(gen, sites, batch, rad, device),
                 "fake": draw_shifts(gen, sites, batch, rad, device)}
-        dr["shifts"]["gp"] = draw_shifts(gen, sites, batch, rad, device)
+        dr["shifts"]["gp"] = draw_shifts(gen, sites, gp_batch, rad, device)
         critic.append(dr)
     gen = prng.generator(seed, step, "generator", device)
     g = {"z": torch.randn(batch, m.latent_dim, generator=gen, device=device),
@@ -117,11 +120,16 @@ def build_train_step(cfg: Config, device=None) -> Callable:
     """step_fn(state, raw [num_views, B, store_len] int16, labels
     [num_views, B], draws=None) -> metrics (0-d tensors on the device);
     updates ``state`` in place. Runs on the card unless ``device`` says
-    otherwise."""
+    otherwise. Raises NotImplementedError for a mesh the port does not
+    run (Config.check_single_device)."""
+    cfg.check_single_device()
+    gp_chunks = cfg.loss.gp_batch_chunks
+    if gp_chunks > 1 and cfg.data.num_classes:
+        # the reference hands each chunk the whole batch's real labels
+        # and fails at the projection (audiogan_tpu/train/step.py:226-229)
+        raise ValueError("gp_batch_chunks > 1 with a conditional critic: "
+                         "the reference's penalty fails there too")
     dev = resolve_device(device)
-    if cfg.loss.gp_batch_chunks > 1:
-        raise NotImplementedError(
-            "gp_batch_chunks > 1 is not ported to audiogan_tpu_torch yet")
     n_critic = cfg.loss.n_critic
     gp_lambda = cfg.loss.gp_lambda
     drift = cfg.loss.drift_epsilon
@@ -145,7 +153,7 @@ def build_train_step(cfg: Config, device=None) -> Callable:
                                             shifts, fused)
         gp, gnorm = gradient_penalty(
             lambda x: d(x, lab_r, shifts["gp"]), real, fake,
-            on_dev(dr["eps"]))
+            on_dev(dr["eps"]), gp_chunks, list(d.parameters()))
         loss = wgan_d_loss(real_s, fake_s) + gp_lambda * gp
         if drift:
             loss = loss + drift * real_s.square().mean()

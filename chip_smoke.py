@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Four paths, each driven through the user's entry points: the flagship
+Six paths, each driven through the user's entry points: the flagship
 WaveGAN (wgan_gp_b64), the same preset trained with every phase-shuffle
 site fused into its consuming conv (`cli train --set
 model.fused_shuffle_sites=-1`), the class-conditional GRU generator
-(cond_gru_sc09), and the flagship's G against the dual wave + STFT critic
-with G's spectral term (dual_stft); beside them the fused GRU cell
+(cond_gru_sc09), the flagship's G against the dual wave + STFT critic
+with G's spectral term (dual_stft), 4 s music clips at 44.1 kHz with
+strides 7/7/5/5/3 (music_44k_dp16 as `--set mesh.dp=1`, its published
+widths) and a 22050 Hz corpus resampled to the 16 kHz model in the
+ingest (resample_22k); beside them the fused GRU cell
 (`ops/gru.py::gru_cell`, impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
 line with its own ``seconds``; any failure raises and the script exits
 non-zero:
@@ -39,7 +42,13 @@ non-zero:
             geometries, every K6 and K7 geometry and both K3 cells run the
             tensor-core path (each line names its path), two launches to
             the same bits; f32 and the one-channel layers the CUDA-core
-            tiles. Ingest (K2) two launches to the same bits too.
+            tiles. Ingest (K2) two launches to the same bits too. The
+            same for music_44k_dp16's 20 conv geometries (G forward B=64,
+            critic forward and dx 2B=128, G's dx B=64) and its ingest
+            ([64, 220500] -> 176400, random offsets); the resampler
+            (ops/resample.py) at 22050 -> 16000 on the card against
+            scipy.signal.resample_poly in float64 and against its CPU
+            form.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16; dual_stft's G is the flagship's) exported, loaded and
             served over HTTP on 127.0.0.1; a few requests (with labels for
@@ -50,7 +59,10 @@ non-zero:
             STFT critic's conv2d in cuDNN, its DFT in cuBLAS, both without
             TF32) and on the CPU (plain forms), from one state and the
             same draws: metrics (dual_stft's stft_loss too), parameters,
-            Adam moments.
+            Adam moments. Then one f32 music step at B=64 with
+            loss.gp_batch_chunks=2 against one with 1, on the card, under
+            the same bounds, with the peak memory of each and of the
+            penalty alone.
 6. train    each preset, and the fused flagship, through train.loop.train
             (what `cli train` runs): B=64, bf16, n_critic 5, fused views,
             resident synthetic corpus; warm-up steps then timed ones, finite
@@ -61,7 +73,10 @@ non-zero:
             on the tensor cores, the unfused shuffle to none, K4 6 and K5 1
             per
             GRU step, all persistent; dual_stft's K1' and K1 as the
-            flagship's and K2 6: five critic views and G's real view),
+            flagship's and K2 6: five critic views and G's real view;
+            music_44k_dp16 at dp=1 as its structure gives K1' and K1, K2
+            5; resample_22k K2 0, every view resampled in plain torch
+            ops, as the reference routes it),
             peak device memory; one more step under torch.profiler for the
             device time by kernel and by span (the generator, the wave
             critic, the STFT critic's spectrogram, its DFT matmuls and its
@@ -71,18 +86,23 @@ non-zero:
             against the same recurrence through the plain cell, and bf16
             forward (every launch on the tensor cores) against the plain
             form's recurrence. The loop checkpoints its last step after
-            that step's line, outside the timed window (checked).
+            that step's line, outside the timed window (checked). One more
+            music step from that checkpoint through the loop, on the
+            resident corpus and with data.device_corpus off (the host
+            batcher): the same record and checkpoint, to the bit.
 6b. resume  `cli train --total_steps 6 --set train.ckpt_every=3` in
             subprocesses for the flagship, the fused flagship,
-            cond_gru_sc09 and dual_stft (B=64, bf16): once uninterrupted,
+            cond_gru_sc09, dual_stft, music_44k_dp16 (mesh.dp=1; B=64,
+            bf16) and resample_22k (its own B=8, f32): once uninterrupted,
             once sent SIGKILL when it logs its step-3 checkpoint and run
             again; the second run must restore step 3, and its step-6
             metrics.jsonl record (but time and rates) and step-6
             checkpoint must equal the uninterrupted run's to the bit.
-            Then, on the flagship's, the GRU's and dual_stft's workdirs,
-            `cli sample --workdir --seed 0` twice (the same bytes) and
-            `cli serve --workdir` (one /generate); on dual_stft's, `cli
-            eval --workdir` twice: the same JSON line, every value finite.
+            Then, on every workdir but the fused flagship's, `cli sample
+            --workdir --seed 0` twice (the same bytes, WAVs at the
+            preset's rate and length) and `cli serve --workdir` (one
+            /generate); on dual_stft's and music_44k_dp16's, `cli eval
+            --workdir` twice: the same JSON line, every value finite.
             Each run's seconds, each save's bytes and seconds.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
@@ -100,6 +120,9 @@ non-zero:
             call, its path, K5's three stages (recompute, sweep, weight
             gradients), the persistent kernels at each grid of gru_grids
             and the host loop on the same inputs; each sampler's clips/s.
+            K1's and K1''s rows at music_44k_dp16's geometries (each
+            tile of the tensor-core path) and K2's at its ingest go into
+            the kernels line's "music" entries.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -138,6 +161,7 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 F32_REL_TOL = 1e-4            # same sums in another order
 BF16_REL_TOL = 2e-2           # bf16 keeps 8 bits: one rounding of the output
 INGEST_ABS_TOL = 1e-5         # log1pf / division on the card vs torch, |y|<=1
+RESAMPLE_CPU_TOL = 1e-5       # the float64 polyphase product, card vs CPU
 PARITY_REL_TOL = 1e-3         # a full step's metrics, and its gradients and
                               # Adam moments (relative L2 over each net),
                               # card vs CPU
@@ -160,16 +184,22 @@ K3_ROUNDS, K3_LAUNCHES = 5, 50
 GRU_CELL_RAGGED = (7, 24, 40)
 SLEEP_CYCLES = 200_000        # about 0.1 ms of device time ahead of a call
 # a flagship step takes about 0.13 s on the tensor-core convs: 20 timed
-# steps keep the rate's window near 3 s
-TRAIN_WARMUP, TRAIN_TIMED = 2, 20
+# steps keep the rate's window near 3 s; a music step is several times
+# longer
+TRAIN_WARMUP, TRAIN_TIMED, MUSIC_TIMED = 2, 20, 8
 # the resume phase: `cli train --total_steps 6`, a checkpoint every 3 steps;
 # one run uninterrupted, one killed after its step-3 checkpoint and resumed
 RESUME_STEPS, RESUME_KILL_AT = 6, 3
 RESUME_RUNS = (("wgan_gp_b64", ()),
                ("wgan_gp_b64", ("model.fused_shuffle_sites=-1",)),
-               ("cond_gru_sc09", ()), ("dual_stft", ()))
-# `cli eval` on these presets' resumed workdirs, twice
-EVAL_PRESETS = ("dual_stft",)
+               ("cond_gru_sc09", ()), ("dual_stft", ()),
+               ("music_44k_dp16", ("mesh.dp=1",)), ("resample_22k", ()))
+# `cli sample` and `cli serve` on the resumed workdirs of these runs (the
+# fused flagship serves the flagship's G), `cli eval` twice on these
+# presets'
+SERVE_RUNS = ("wgan_gp_b64", "cond_gru_sc09", "dual_stft", "music_44k_dp16",
+              "resample_22k")
+EVAL_PRESETS = ("dual_stft", "music_44k_dp16")
 CLI_TIMEOUT_S = 600
 
 
@@ -305,33 +335,39 @@ class PathCounter:
         setattr(self.fn, self.attr, n)
 
 
-def tensor_core(family: str, L: dict) -> bool:
-    """Whether the wrapper runs geometry L in bf16 on the tensor cores."""
+def tensor_core(family: str, L: dict, dtype=torch.bfloat16) -> bool:
+    """Whether the wrapper runs geometry L in dtype on the tensor cores."""
     from audiogan_tpu_torch.kernels import conv as kconv
     if family == "conv1d":
-        return kconv.conv1d_tensor_core(torch.bfloat16, L["t_in"], L["cin"],
+        return kconv.conv1d_tensor_core(dtype, L["t_in"], L["cin"],
                                         L["cout"], L["k"], L["s"])
-    return kconv.convt_tensor_core(torch.bfloat16, L["cin"], L["cout"],
-                                   L["k"], L["s"])
+    return kconv.convt_tensor_core(dtype, L["cin"], L["cout"], L["k"],
+                                   L["s"])
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.train.dtype)
 
 
 def conv_step_launches(cfg) -> dict:
     """K1' and K1 launches of one WaveGAN training step, in total and on
-    the tensor-core path (bf16). Per critic micro-step, with V critic
+    the tensor-core path. Per critic micro-step, with V critic
     calls on the views: each unfused critic conv runs V + 2 times (the
     views' forwards, x-hat's forward, the penalty's d/dct of its dx) and
     its dx V + 1 times (the loss's backward, the penalty's input gradient;
     D0's dx only the latter); the G update adds one critic forward and
     one dx per layer, and G runs forward n_critic + 1 times and its dx
-    once. With fused sites K6 and K7 take D1-D4's forward and dx."""
+    once. With fused sites K6 and K7 take D1-D4's forward and dx. The
+    tensor-core counts follow the config's compute dtype."""
     views = 1 if cfg.train.fused_d_views else 2
+    dtype = compute_dtype(cfg)
     n = cfg.loss.n_critic
     fused = cfg.model.fused_shuffle_sites != 0
     counts = {"conv1d": 0, "convt1d": 0, "conv1d_tc": 0, "convt1d_tc": 0}
 
     def add(family, L, times):
         counts[family] += times
-        if tensor_core(family, L):
+        if tensor_core(family, L, dtype):
             counts[family + "_tc"] += times
     for i, (L, dx) in enumerate(zip(critic_layers(cfg, 2), critic_dx_layers(
             cfg, 2))):
@@ -499,18 +535,55 @@ def compare_conv(family: str, layers: list[dict], dev) -> dict:
 
 
 def ingest_cases(dev) -> list[dict]:
-    """The flagship's ingest (store = clip, every offset 0) and a slack
-    geometry with random offsets."""
+    """The flagship's ingest (store = clip, every offset 0), a slack
+    geometry with random offsets, and music_44k_dp16's (store 220500,
+    clip 176400, random offsets)."""
     cases = []
-    for name, store, seed in (("flagship store=clip", 16384, 0),
-                              ("slack store=20000", 20000, 1)):
+    for name, store, clip, seed in (
+            ("flagship store=clip", 16384, 16384, 0),
+            ("slack store=20000", 20000, 16384, 1),
+            ("music store=220500", 220500, 176400, 2)):
         gen = torch.Generator(dev).manual_seed(seed)
         raw = (torch.randn(BATCH, store, generator=gen, device=dev) * 6000
                ).clamp(-32768, 32767).to(torch.int16)
-        offs = torch.randint(0, store - 16384 + 1, (BATCH,), generator=gen,
+        offs = torch.randint(0, store - clip + 1, (BATCH,), generator=gen,
                              device=dev, dtype=torch.int32)
-        cases.append(dict(name=name, raw=raw, offs=offs, clip=16384))
+        cases.append(dict(name=name, raw=raw, offs=offs, clip=clip))
     return cases
+
+
+def compare_resample(dev) -> dict:
+    """ops/resample.py on the card at resample_22k's rates (22050 ->
+    16000, [64, 24000]) against scipy.signal.resample_poly in float64
+    (tests/ops/test_resample.py's bounds: 64 samples in from each edge
+    2e-4 + 1e-3 relative, everywhere 5e-2) and against the port's CPU
+    form (RESAMPLE_CPU_TOL)."""
+    import scipy.signal
+    from audiogan_tpu_torch.config import _ratio
+    from audiogan_tpu_torch.ops.resample import resample_poly
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((BATCH, 24000)).astype(np.float32) * 0.3
+    y = resample_poly(torch.from_numpy(x).to(dev), 16000, 22050)
+    torch.cuda.synchronize()
+    y = y.cpu().numpy()
+    up, down = _ratio(16000, 22050)
+    ref = scipy.signal.resample_poly(x.astype(np.float64), up, down, axis=-1)
+    cpu = resample_poly(torch.from_numpy(x), 16000, 22050).numpy()
+    m = 64
+    inner = np.abs(y[:, m:-m] - ref[:, m:-m])
+    out = {"shape": list(y.shape), "scipy_shape": list(ref.shape),
+           "interior_max_abs_err": float(inner.max()),
+           "interior_bound_ok": bool(np.all(
+               inner <= 2e-4 + 1e-3 * np.abs(ref[:, m:-m]))),
+           "max_abs_err": float(np.abs(y - ref).max()),
+           "cpu_max_abs_err": float(np.abs(y - cpu).max()),
+           "tol_cpu_abs": RESAMPLE_CPU_TOL}
+    print(json.dumps({"compare": "resample", **out}), flush=True)
+    if y.shape != ref.shape or not out["interior_bound_ok"] or \
+            out["max_abs_err"] > 5e-2 or \
+            out["cpu_max_abs_err"] > RESAMPLE_CPU_TOL:
+        raise AssertionError(f"resample on the card: {out}")
+    return out
 
 
 def compare_ingest(cases: list[dict], dev) -> dict:
@@ -1475,9 +1548,11 @@ def serve_phase(cfg, dev, counters: dict, per_request: dict):
     ref_checks = {}
     cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
                                                   dtype="float32"))
-    for dname, c, tol in (("bf16", cfg, SERVE_BF16_REL_TOL),
+    own = ("bf16", SERVE_BF16_REL_TOL) if cfg.train.dtype == "bfloat16" \
+        else ("own f32", F32_REL_TOL)
+    for dname, c, tol in ((*own[:1], cfg, own[1]),
                           ("f32", cfg32, F32_REL_TOL)):
-        on_card = (waves[:2] if dname == "bf16" else
+        on_card = (waves[:2] if c is cfg else
                    generate(c, params, 2, 1, lab2, device=dev, z=z))
         ref = generate(c, cpu_params, 2, 1, lab2, device="cpu", z=z)
         err = float(np.abs(on_card - ref).max())
@@ -1529,16 +1604,7 @@ def parity_phase(cfg, dev, batch: int) -> dict:
     raw0, lab0 = random_raw(cfg, n_views, batch, seed=10)
     step_card(card, raw0, lab0)
     host = create_train_state(cfg, device=cpu)
-    for src, dst in ((card.g, host.g), (card.d, host.d)):
-        dst.load_state_dict({k: v.cpu() for k, v in src.state_dict().items()})
-    for (src, smod), (dst, dmod) in (((card.opt_g, card.g),
-                                      (host.opt_g, host.g)),
-                                     ((card.opt_d, card.d),
-                                      (host.opt_d, host.d))):
-        for ps, pd in zip(smod.parameters(), dmod.parameters()):
-            dst.state[pd] = {k: v.detach().cpu().clone()
-                             for k, v in src.state[ps].items()}
-    host.step = card.step
+    copy_state(card, host)
     draws = draw_step(cfg, card.seed, card.step, batch, cpu)
     raw1, lab1 = random_raw(cfg, n_views, batch, seed=11)
     t_card = time.time()
@@ -1549,6 +1615,91 @@ def parity_phase(cfg, dev, batch: int) -> dict:
     m_host = build_train_step(cfg, cpu)(host, raw1, lab1, draws=draws)
     m_host = {k: float(v) for k, v in m_host.items()}
     t_host = time.time() - t_host
+    report = compare_steps(m_card, card, m_host, host)
+    return dict(batch=batch, dtype="float32", metrics_card=m_card,
+                metrics_cpu=m_host, **report, tol_rel=PARITY_REL_TOL,
+                tol_param_abs=PARITY_PARAM_TOL,
+                card_step_s=t_card, cpu_step_s=t_host)
+
+
+def copy_state(src, dst) -> None:
+    """src's weights, Adam state and step into dst (on dst's device)."""
+    dev = next(dst.g.parameters()).device
+    for a, b in ((src.g, dst.g), (src.d, dst.d)):
+        b.load_state_dict({k: v.to(dev) for k, v in a.state_dict().items()})
+    for (so, sm), (do, dm) in (((src.opt_g, src.g), (dst.opt_g, dst.g)),
+                               ((src.opt_d, src.d), (dst.opt_d, dst.d))):
+        for ps, pd in zip(sm.parameters(), dm.parameters()):
+            do.state[pd] = {k: v.detach().to(dev).clone()
+                            for k, v in so.state[ps].items()}
+    dst.step = src.step
+
+
+def gp_chunk_phase(cfg, dev, chunks: int = 2) -> dict:
+    """One f32 step at the preset's batch with loss.gp_batch_chunks =
+    chunks against one with 1, on the card, from one state and the same
+    draws (the unchunked penalty's shifts are the chunk's, repeated: the
+    chunked penalty gives every chunk the same shifts), under the parity
+    bounds; the peak memory of each."""
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import (build_train_step, draw_step,
+                                               num_views)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, dtype="float32"))
+    ccfg = cfg.replace(loss=dataclasses.replace(cfg.loss,
+                                                gp_batch_chunks=chunks))
+    batch, n_views = cfg.train.batch_size, num_views(cfg)
+    whole = create_train_state(cfg, device=dev)
+    step = build_train_step(cfg, dev)
+    step(whole, *random_raw(cfg, n_views, batch, seed=10))
+    chunked = create_train_state(cfg, device=dev)
+    copy_state(whole, chunked)
+    draws = draw_step(ccfg, whole.seed, whole.step, batch, dev)
+    unchunked = {"generator": draws["generator"], "critic": [
+        {**dr, "shifts": {**dr["shifts"], "gp": dr["shifts"]["gp"].repeat(
+            1, chunks)}} for dr in draws["critic"]]}
+    raw, lab = random_raw(cfg, n_views, batch, seed=11)
+    out = {}
+    for name, state, fn, dr in (("whole", whole, step, unchunked),
+                                ("chunked", chunked,
+                                 build_train_step(ccfg, dev), draws)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        m = {k: float(v) for k, v in fn(state, raw, lab, draws=dr).items()}
+        out[name] = {"metrics": m, "seconds": time.time() - t,
+                     "peak_memory_gib":
+                         torch.cuda.max_memory_allocated(dev) / 2**30}
+    report = compare_steps(out["chunked"]["metrics"], chunked,
+                           out["whole"]["metrics"], whole)
+    # the penalty alone (x-hat's forward, input gradient, double backward
+    # into D's parameters), its peak above what was allocated before it
+    from audiogan_tpu_torch.losses import gradient_penalty
+    d = whole.d
+    real = torch.rand(batch, cfg.data.clip_len, 1, device=dev) * 2 - 1
+    fake = torch.rand(batch, cfg.data.clip_len, 1, device=dev) * 2 - 1
+    shifts = draws["critic"][0]["shifts"]["gp"]
+    for c in (1, chunks):
+        sh = shifts.repeat(1, chunks // c)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gp, _ = gradient_penalty(lambda x: d(x, None, sh), real, fake,
+                                 draws["critic"][0]["eps"], c,
+                                 list(d.parameters()))
+        torch.autograd.grad(gp, list(d.parameters()), allow_unused=True)
+        torch.cuda.synchronize()
+        out["whole" if c == 1 else "chunked"]["penalty_peak_gib"] = (
+            torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        del gp
+    return dict(batch=batch, dtype="float32", chunks=chunks, **out,
+                **report, tol_rel=PARITY_REL_TOL,
+                tol_param_abs=PARITY_PARAM_TOL)
+
+
+def compare_steps(m_card, card, m_host, host) -> dict:
+    """Metrics, gradients, Adam moments and parameters of two states after
+    one step (``host`` the reference side), under the parity bounds;
+    raises if they differ, else returns the report."""
     metric_err = {k: abs(m_card[k] - m_host[k]) for k in m_host}
     # the gradients of this step (G's, and D's from its last micro-step)
     # and both Adam moments: relative L2 error over each net, and the worst
@@ -1566,16 +1717,17 @@ def parity_phase(cfg, dev, batch: int) -> dict:
         p_abs, worst_at = 0.0, None
         n_moved = n_all = 0
         for (pname, pa), pb in zip(ma.named_parameters(), mb.parameters()):
-            pairs = {"grad": (pa.grad.cpu(), pb.grad)}
+            pairs = {"grad": (pa.grad.cpu(), pb.grad.cpu())}
             for key in ("exp_avg", "exp_avg_sq"):
-                pairs[key] = (oa.state[pa][key].cpu(), ob.state[pb][key])
+                pairs[key] = (oa.state[pa][key].cpu(),
+                              ob.state[pb][key].cpu())
             for key, (va, vb) in pairs.items():
                 sq[key][0] += float((va - vb).double().square().sum())
                 sq[key][1] += float(vb.double().square().sum())
             r = rel_err(*pairs["grad"])
             if r > worst_tensor[0]:
                 worst_tensor = (r, pname)
-            d = (pa.detach().cpu() - pb.detach()).abs()
+            d = (pa.detach().cpu() - pb.detach().cpu()).abs()
             if d.max().item() > p_abs:
                 i = int(d.argmax())
                 p_abs = d.max().item()
@@ -1606,21 +1758,19 @@ def parity_phase(cfg, dev, batch: int) -> dict:
                 and max(moments[name].values()) <= PARITY_REL_TOL
                 and params[name]["max_abs_err"] <= PARITY_PARAM_TOL):
             raise AssertionError(f"parity: {name} differs: {report}")
-    return dict(batch=batch, dtype="float32", metrics_card=m_card,
-                metrics_cpu=m_host, **report, tol_rel=PARITY_REL_TOL,
-                tol_param_abs=PARITY_PARAM_TOL,
-                card_step_s=t_card, cpu_step_s=t_host)
+    return report
 
 
-def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
+def train_phase(cfg, dev, counters: dict, per_step: dict,
+                timed: int = TRAIN_TIMED) -> dict:
     """cfg through train.loop.train: counts zeroed just before, read just
     after. Every counter must have launched, a whole number of times per
-    step; per_step names exact counts."""
+    step, but those per_step holds at 0; per_step names exact counts."""
     from audiogan_tpu_torch.train.loop import train
     workdir = ROOT / "build" / f"chip_smoke_train_{cfg.name}"
     shutil.rmtree(workdir, ignore_errors=True)
     lines = []
-    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    n_steps = TRAIN_WARMUP + timed
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
@@ -1646,7 +1796,7 @@ def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
         raise AssertionError(f"want one checkpoint, of step {n_steps}, "
                              f"after the last step's line: {saves}")
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and per_step.get(name) != 0:
             raise AssertionError(f"{name} was not launched in training")
         if n % n_steps:
             raise AssertionError(f"{name}: {n} launches in {n_steps} steps")
@@ -1658,14 +1808,49 @@ def train_phase(cfg, dev, counters: dict, per_step: dict) -> dict:
     return dict(preset=cfg.name, batch=cfg.train.batch_size,
                 dtype=cfg.train.dtype, n_critic=cfg.loss.n_critic,
                 fused_d_views=cfg.train.fused_d_views, steps=n_steps,
-                warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_TIMED,
-                timed_seconds=timed_s, steps_per_s=TRAIN_TIMED / timed_s,
+                warmup_steps=TRAIN_WARMUP, timed_steps=timed,
+                timed_seconds=timed_s, steps_per_s=timed / timed_s,
+                workdir=str(workdir),
                 launches=launches,
                 launches_per_step={k: v // n_steps
                                    for k, v in launches.items()},
                 peak_memory_gib=peak / 2**30, first=steps[0], last=last,
                 profile=profile, ckpt=lines[saves[0]]["ckpt"],
                 init=[ln for ln in lines if "init" in ln][0]["init"])
+
+
+def host_batcher_phase(cfg, dev, trained: dict) -> dict:
+    """One more step of train_phase's run through train.loop.train from
+    its last checkpoint, twice: on the resident corpus and with
+    data.device_corpus off (the host batcher, HostFeed's pinned copies).
+    The step's metrics.jsonl record (but time and rates) and checkpoint
+    must be equal to the bit."""
+    from audiogan_tpu_torch.train.loop import train
+    src = Path(trained["workdir"])
+    last = trained["steps"]
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
+    runs = {}
+    for name, on in (("resident", True), ("host", False)):
+        wd = src.parent / f"{src.name}_{name}"
+        shutil.rmtree(wd, ignore_errors=True)
+        shutil.copytree(src, wd)
+        c = cfg.replace(data=dataclasses.replace(cfg.data, device_corpus=on))
+        t = time.time()
+        train(c, wd, last + 1, device=dev, log=lambda _: None,
+              tensorboard=False)
+        runs[name] = (wd, time.time() - t)
+    (ra, sa), (rb, sb) = runs["resident"], runs["host"]
+    rec_a, rec_b = step_record(ra, last + 1), step_record(rb, last + 1)
+    keys = sorted(k for k in rec_a if k != "time" and "per_sec" not in k)
+    if any(rec_a[k] != rec_b.get(k) for k in keys):
+        raise AssertionError(f"host batcher step differs: {rec_a} != "
+                             f"{rec_b}")
+    tensors = same_checkpoint(ra / f"ckpt/{last + 1}.pt",
+                              rb / f"ckpt/{last + 1}.pt")
+    return {"step": last + 1, "compared_keys": keys,
+            "tensors_equal": tensors, "run_seconds": {"resident": sa,
+                                                      "host": sb},
+            "record": rec_b}
 
 
 # profiler ranges around the models' parts (innermost wins): the method
@@ -2001,15 +2186,16 @@ def eval_twice(workdir: Path) -> dict:
 
 def resume_phase() -> dict:
     """Each of RESUME_RUNS killed and resumed (all started together), then
-    `cli sample` and `cli serve` on each preset's killed-and-resumed
-    workdir, and `cli eval` on EVAL_PRESETS'."""
+    `cli sample` and `cli serve` on SERVE_RUNS' killed-and-resumed
+    workdirs, and `cli eval` on EVAL_PRESETS'."""
     from audiogan_tpu_torch.config import Config
     base = ROOT / "build" / "chip_smoke_resume"
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
     with concurrent.futures.ThreadPoolExecutor(len(RESUME_RUNS)) as pool:
         cases = list(pool.map(lambda r: resume_case(*r, base), RESUME_RUNS))
-    plain = [c for c in cases if not c["sets"]]
+    plain = [c for c in cases if c["preset"] in SERVE_RUNS
+             and not any(s.startswith("model.") for s in c["sets"])]
     cfgs = [Config.from_json((c["workdir"] / "config.json").read_text())
             for c in plain]
     with concurrent.futures.ThreadPoolExecutor(3 * len(plain)) as pool:
@@ -2265,6 +2451,11 @@ def main() -> int:
     fcfg = apply_overrides(cfg, ["model.fused_shuffle_sites=-1"]).validate()
     gcfg = get_preset("cond_gru_sc09")
     dcfg = get_preset("dual_stft")
+    # the reference's dp=1 operating point of the music preset, as
+    # `cli train --set mesh.dp=1` reaches it
+    mcfg = apply_overrides(get_preset("music_44k_dp16"),
+                           ["mesh.dp=1"]).validate()
+    rcfg = get_preset("resample_22k")
     g_fwd = generator_layers(cfg, BATCH)
     d_dx = critic_dx_layers(cfg, 2 * BATCH)
     d_fwd = critic_layers(cfg, 2 * BATCH)
@@ -2275,8 +2466,16 @@ def main() -> int:
     s_dx = fused_site_dx_layers(cfg, 2 * BATCH)
     s_dx_b = [dict(L, name=L["name"] + " (B)")
               for L in fused_site_dx_layers(cfg, BATCH)]
-    errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx, dev),
-            "conv1d": compare_conv("conv1d", d_fwd + g_dx, dev),
+    def music(layers):
+        return [dict(L, name="music " + L["name"]) for L in layers]
+    m_g_fwd = music(generator_layers(mcfg, BATCH))
+    m_d_dx = music(critic_dx_layers(mcfg, 2 * BATCH))
+    m_d_fwd = music(critic_layers(mcfg, 2 * BATCH))
+    m_g_dx = music(generator_dx_layers(mcfg, BATCH))
+    errs = {"convt1d": compare_conv("convt1d",
+                                    g_fwd + d_dx + m_g_fwd + m_d_dx, dev),
+            "conv1d": compare_conv("conv1d",
+                                   d_fwd + g_dx + m_d_fwd + m_g_dx, dev),
             "sconv1d": compare_sconv(False, s_fwd + s_fwd_b, dev),
             "sconvt1d": compare_sconv(True, s_dx + s_dx_b, dev)}
     cases = ingest_cases(dev)
@@ -2284,6 +2483,7 @@ def main() -> int:
     errs["gru"] = compare_gru(gcfg, dev)
     gru_launches = gru_launch_counts(gcfg, dev)
     errs["gru_cell"] = compare_gru_cell(gcfg, dev)
+    resampled = compare_resample(dev)
     single = ("gru", "gru_cell")
     phase("compare", t0, geometries={k: len(v) // 2 if k != "ingest"
                                      else len(v) for k, v in errs.items()
@@ -2292,7 +2492,8 @@ def main() -> int:
                        if k not in single},
           gru={" ".join(k): v for k, v in errs["gru"].items()},
           gru_cuda_launches=gru_launches,
-          gru_cell={" ".join(k): v for k, v in errs["gru_cell"].items()})
+          gru_cell={" ".join(k): v for k, v in errs["gru_cell"].items()},
+          resample=resampled)
 
     # 4. serve both generators -------------------------------------------------
     t0 = time.time()
@@ -2316,13 +2517,30 @@ def main() -> int:
         {"convt1d": len(g_fwd),
          "convt1d_tc": sum(tensor_core("convt1d", L) for L in g_fwd)})
     phase("serve", t0, **dserved)
+    t0 = time.time()
+    msampler, mserved = serve_phase(
+        mcfg, dev, counters,
+        {"convt1d": len(m_g_fwd),
+         "convt1d_tc": sum(tensor_core("convt1d", L) for L in m_g_fwd)})
+    phase("serve", t0, **mserved)
+    t0 = time.time()
+    # resample_22k's G is f32: every convT on the CUDA-core tiles
+    rsampler, rserved = serve_phase(
+        rcfg, dev, counters,
+        {"convt1d": len(rcfg.model.strides),
+         "convt1d_tc": sum(tensor_core("convt1d", L, compute_dtype(rcfg))
+                           for L in generator_layers(rcfg, BATCH))})
+    phase("serve", t0, **rserved)
 
     # 5. one full-width f32 step of each preset, card vs CPU ---------------
-    for c in (cfg, fcfg, gcfg, dcfg):
+    for c in (cfg, fcfg, gcfg, dcfg, rcfg, mcfg):
         t0 = time.time()
         phase("parity", t0, preset=c.name,
               fused_shuffle_sites=c.model.fused_shuffle_sites,
               **parity_phase(c, dev, batch=2))
+    t0 = time.time()
+    phase("parity", t0, preset=mcfg.name, gp_batch_chunks=2,
+          **gp_chunk_phase(mcfg, dev))
 
     # 6. both presets, and the fused flagship, train ------------------------
     t0 = time.time()
@@ -2370,6 +2588,22 @@ def main() -> int:
         raise AssertionError("dual_stft: no stft_loss or no shuffle")
     phase("train", t0, card=card, **dtrained)
     t0 = time.time()
+    # music at dp=1: K1' and K1 as the step's structure gives them at
+    # strides 7/7/5/5/3, K2 one per critic view (store 220500 -> 176400)
+    mtrained = train_phase(mcfg, dev, wave_kernels,
+                           {**conv_step_launches(mcfg),
+                            "ingest": num_views(mcfg)}, timed=MUSIC_TIMED)
+    phase("train", t0, card=card, **mtrained)
+    t0 = time.time()
+    phase("train", t0, card=card, preset=mcfg.name, data_path="host_batcher",
+          **host_batcher_phase(mcfg, dev, mtrained))
+    t0 = time.time()
+    # resample_22k: every view resampled in plain torch ops (the
+    # reference's route), so K2 never; f32, so no tensor-core conv
+    rtrained = train_phase(rcfg, dev, wave_kernels,
+                           {**conv_step_launches(rcfg), "ingest": 0})
+    phase("train", t0, card=card, **rtrained)
+    t0 = time.time()
     cell_run = gru_cell_phase(gcfg, dev)
     phase("gru_cell", t0, card=card, **cell_run)
 
@@ -2382,6 +2616,10 @@ def main() -> int:
     rows = {"convt1d": time_conv("convt1d", g_fwd + d_dx, dev,
                                  errs["convt1d"]),
             "conv1d": time_conv("conv1d", d_fwd + g_dx, dev, errs["conv1d"]),
+            "convt1d_music": time_conv("convt1d", m_g_fwd + m_d_dx, dev,
+                                       errs["convt1d"]),
+            "conv1d_music": time_conv("conv1d", m_d_fwd + m_g_dx, dev,
+                                      errs["conv1d"]),
             "ingest": time_ingest(cases, errs["ingest"]),
             **time_gru(gcfg, dev, errs["gru"], gru_launches),
             "sconv1d": time_sconv(False, s_fwd, dev, errs["sconv1d"]),
@@ -2389,18 +2627,38 @@ def main() -> int:
             "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"])}
     samplers = {cfg.name: sampler_rate(sampler, cfg),
                 gcfg.name: sampler_rate(gsampler, gcfg),
-                dcfg.name: sampler_rate(dsampler, dcfg)}
+                dcfg.name: sampler_rate(dsampler, dcfg),
+                mcfg.name: sampler_rate(msampler, mcfg),
+                rcfg.name: sampler_rate(rsampler, rcfg)}
     phase("timing", t0, samplers=samplers,
           train_steps_per_s={cfg.name: trained["steps_per_s"],
                              cfg.name + " fused_shuffle_sites=-1":
                                  ftrained["steps_per_s"],
                              gcfg.name: gtrained["steps_per_s"],
-                             dcfg.name: dtrained["steps_per_s"]}, card=card)
+                             dcfg.name: dtrained["steps_per_s"],
+                             mcfg.name + " mesh.dp=1": mtrained["steps_per_s"],
+                             rcfg.name: rtrained["steps_per_s"]},
+          peak_memory_gib={mcfg.name: mtrained["peak_memory_gib"],
+                           rcfg.name: rtrained["peak_memory_gib"]},
+          card=card)
 
     per_step = trained["launches_per_step"]
     fper_step = ftrained["launches_per_step"]
     gper_step = gtrained["launches_per_step"]
     dper_step = dtrained["launches_per_step"]
+    mper_step = mtrained["launches_per_step"]
+
+    def music_rows(family):
+        rows_m = rows[family + "_music"] if family != "ingest" else \
+            rows["ingest"][2:]
+        return {"ms": sum(r["ms"] for r in rows_m),
+                "plain_ms": sum(r["plain_ms"] for r in rows_m),
+                "bound_ms": sum(r["bound_ms"] for r in rows_m),
+                "library_ms": (None if family == "ingest" else
+                               sum(r["library_ms"] for r in rows_m)),
+                "launches_per_train_step": mper_step[family],
+                "launches_serve": mserved["launches"][family],
+                "geometries": rows_m}
     gru_per = ("one scan of cond_gru_sc09's G (B=64, H=512, F=256, 256 "
                "frames), bf16")
     kernels = [
@@ -2418,7 +2676,9 @@ def main() -> int:
             launches_serve_gru=gserved["launches"]["convt1d"],
             launches_tensor_core=trained["launches"]["convt1d_tc"],
             launches_tensor_core_per_train_step=per_step["convt1d_tc"],
-            launches_tensor_core_per_train_step_gru=gper_step["convt1d_tc"]),
+            launches_tensor_core_per_train_step_gru=gper_step["convt1d_tc"],
+            launches_tensor_core_per_train_step_music=mper_step["convt1d_tc"],
+            music=music_rows("convt1d")),
         kernel_entry(
             "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
             "audiogan_tpu/kernels/conv.py:285",
@@ -2431,7 +2691,9 @@ def main() -> int:
             launches_per_train_step_dual=dper_step["conv1d"],
             launches_tensor_core=trained["launches"]["conv1d_tc"],
             launches_tensor_core_per_train_step=per_step["conv1d_tc"],
-            launches_tensor_core_per_train_step_gru=gper_step["conv1d_tc"]),
+            launches_tensor_core_per_train_step_gru=gper_step["conv1d_tc"],
+            launches_tensor_core_per_train_step_music=mper_step["conv1d_tc"],
+            music=music_rows("conv1d")),
         kernel_entry(
             "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
             "audiogan_tpu/kernels/ingest.py:124", "ingest_fused (body _kernel)",
@@ -2441,7 +2703,9 @@ def main() -> int:
             launches_per_train_step_gru=gper_step["ingest"],
             launches_per_train_step_dual=dper_step["ingest"],
             device_ms=rows["ingest"][0]["device_ms"],
-            slack=rows["ingest"][1]),
+            slack=rows["ingest"][1], music=music_rows("ingest"),
+            launches_per_train_step_resample_22k=rtrained[
+                "launches_per_step"]["ingest"]),
         kernel_entry(
             "gru_scan", "audiogan_tpu_torch/csrc/gru_scan.cu",
             "audiogan_tpu/kernels/gru.py:213",

@@ -10,7 +10,8 @@ masks and (for convT) the phase scatter. Rows of a tile that hold no
 batch element's data are filled with NaN, so an output that reads them
 shows. The result is held against the plain forms, which the other
 tests hold against JAX. And the dispatch predicate sends the flagship's
-main-path geometries where they belong.
+and music_44k_dp16's (strides 7/7/5/5/3) main-path geometries where they
+belong, with k-step tables inside the kernel's limits.
 """
 
 import importlib.util
@@ -144,10 +145,10 @@ def _check_convt(bsz, t_in, cin, cout, k, s, pad_lo, out_len, act="relu",
     return _decode(plan)
 
 
-def _flagship():
+def _flagship(preset: str = "wgan_gp_b64"):
     smoke = _load("chip_smoke_for_tests", ROOT / "chip_smoke.py")
     from audiogan_tpu_torch.config import get_preset
-    cfg = get_preset("wgan_gp_b64")
+    cfg = get_preset(preset)
     b = smoke.BATCH
     return {"convt1d": smoke.generator_layers(cfg, b)
             + smoke.critic_dx_layers(cfg, 2 * b),
@@ -179,6 +180,44 @@ def test_flagship_dispatch_takes_the_tensor_cores_at_sixteen_of_twenty():
     for L in layers["convt1d"]:
         assert not tconv.convt_tensor_core(torch.float32, L["cin"],
                                            L["cout"], L["k"], L["s"])
+
+
+def test_music_dispatch_and_k_step_tables():
+    """music_44k_dp16 (strides 7, 7, 5, 5, 3; T = 176400 down to 48), bf16:
+    the same 16 of 20 geometries on the tensor cores as the flagship's,
+    every conv1d with T % s == 0, every convT with at most 7 phases, and
+    every plan's k-step table (25 steps, one per tap) inside TC_MAX_STEPS
+    and TC_MAX_PHASES, its grid filling the card, and its tile M = 128
+    but at t_lim = 144 (tc_tile's padded-rows clause)."""
+    layers = _flagship("music_44k_dp16")
+    got = {L["name"]: _tc(fam, L) for fam, ls in layers.items() for L in ls}
+    assert len(got) == 20
+    assert sorted(n for n, tc in got.items() if not tc) == \
+        ["D0 dx", "D0 fwd", "G4 dx", "G4 fwd"]
+    assert all(L["t_in"] % L["s"] == 0 for L in layers["conv1d"])
+    assert sorted({L["s"] for ls in layers.values() for L in ls}) == [3, 5, 7]
+    for fam, ls in layers.items():
+        for L in ls:
+            if not _tc(fam, L):
+                continue
+            if fam == "conv1d":
+                plan = tconv.conv1d_tc_plan(L["b"], L["t_in"], L["cout"],
+                                            L["k"], L["s"], L["lo"], L["hi"])
+            else:
+                plan = tconv.convt_tc_plan(L["b"], L["cout"], L["k"], L["s"],
+                                           L["pad_lo"], L["out_len"])
+            p = _decode(plan)
+            assert p["n_steps"] == 25 <= tconv.TC_MAX_STEPS, L["name"]
+            assert p["n_phase"] == (1 if fam == "conv1d" else L["s"])
+            assert p["n_phase"] <= tconv.TC_MAX_PHASES
+            assert sorted(p["tap"]) == list(range(25))
+            blocks = tconv.tc_tile_shape(L["b"], p["t_lim"], p["n_phase"],
+                                         L["cout"], p["tile"])[3]
+            assert blocks >= tconv.TC_MIN_BLOCKS, (L["name"], p, blocks)
+            # 64-row tiles only where 128-row ones would pad 144 rows to
+            # 256 (D3 fwd and D3 dx)
+            assert tconv.TC_TILES[p["tile"]][0] == (
+                1 if p["t_lim"] == 144 else 2), L["name"]
 
 
 @pytest.mark.parametrize("dtype,cin,cout,t_in,k,s,conv1d,convt", [
@@ -278,6 +317,9 @@ def test_flagship_geometry_plan_matches_plain(fam, L):
     (2, 600, 64, 64, 25, 4, 12, 9),     # ragged m tiles, hi below SAME
     (2, 70, 64, 64, 9, 2, 4, 0),        # stride 2, no right pad
     (2, 40, 64, 64, 5, 1, 2, 2),        # stride 1
+    (2, 336, 64, 64, 25, 7, 12, 12),    # music strides: 7, 5 and 3
+    (3, 240, 64, 64, 25, 5, 12, 12),
+    (2, 144, 64, 64, 25, 3, 11, 12),
 ], ids=str)
 def test_conv1d_plan_matches_plain(geom, tile):
     p = _check_conv1d(*geom, tile=tile, act="tanh")
@@ -292,6 +334,9 @@ def test_conv1d_plan_matches_plain(geom, tile):
     (2, 10, 64, 64, 9, 4, 3, 38),       # out_len % s != 0
     (2, 21, 64, 80, 25, 7, 12, 147),    # stride 7
     (2, 5, 64, 64, 9, 16, 4, 80),       # phases with no tap: bias only
+    (2, 48, 64, 64, 25, 7, 12, 336),    # music strides: 7, 5 and 3
+    (3, 16, 64, 64, 25, 5, 12, 80),
+    (2, 48, 64, 64, 25, 3, 12, 144),
 ], ids=str)
 def test_convt_plan_matches_plain(geom, tile):
     _check_convt(*geom, tile=tile, act="leaky_relu")

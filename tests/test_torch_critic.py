@@ -169,10 +169,54 @@ def test_gp_first_and_second_order_match_jax(recorded_shifts):
 
 
 def test_gp_rejects_batch_chunks():
+    """gp_batch_chunks that do not divide the batch raise ValueError, as
+    the reference's do; so does a chunked penalty without D's parameters,
+    which it returns the gradients of."""
     cfg = _cfg()
     td = init_params(build_discriminator(Config.from_json(cfg.to_json()),
                                          device="cpu"), 0)
-    x = torch.zeros(2, cfg.data.clip_len, 1)
-    with pytest.raises(NotImplementedError):
-        gradient_penalty(lambda v: td(v), x, x, torch.zeros(2),
+    x = torch.zeros(4, cfg.data.clip_len, 1)
+    with pytest.raises(ValueError, match="divisible"):
+        gradient_penalty(lambda v: td(v), x, x, torch.zeros(4),
+                         batch_chunks=3, params=list(td.parameters()))
+    with pytest.raises(ValueError, match="params"):
+        gradient_penalty(lambda v: td(v), x, x, torch.zeros(4),
                          batch_chunks=2)
+
+
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_chunked_gp_matches_jax_and_the_unchunked(chunks):
+    """The chunked penalty (each chunk's graph recomputed in the backward)
+    against the reference's lax.map(jax.checkpoint(...)) at the same
+    chunking, and against the port's unchunked penalty: the penalty, the
+    mean norm and the gradient with respect to every critic parameter,
+    within REL (the eval-form critic: no shuffle, so every chunking draws
+    alike)."""
+    cfg = _cfg()
+    jd, params, td = _pair(cfg, seed=3)
+    real, fake = _waves(cfg, 4, seed=1), _waves(cfg, 4, seed=2) * 0.5
+    key_eps = jax.random.key(8)
+
+    def jloss(p):
+        return jgp(lambda v: jd.apply(p, v, train=False), jnp.asarray(real),
+                   jnp.asarray(fake), key_eps, batch_chunks=chunks)
+
+    (jgp_val, jnorm), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+        params)
+    eps = torch.from_numpy(np.array(jax.random.uniform(
+        key_eps, (4, 1, 1))).reshape(4))
+    want = params_from_jax({k: np.asarray(v) for k, v in
+                            flatten_dict(jgrads, sep="/").items()})
+    names = [n for n, _ in td.named_parameters()]
+    for c in (chunks, 1):
+        gp, gnorm = gradient_penalty(lambda v: td(v), torch.from_numpy(real),
+                                     torch.from_numpy(fake), eps,
+                                     batch_chunks=c,
+                                     params=list(td.parameters()))
+        _close(gp, jgp_val)
+        _close(gnorm, jnorm)
+        grads = torch.autograd.grad(gp, list(td.parameters()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        for n, g in zip(names, grads):
+            _close(g, want[n].numpy())

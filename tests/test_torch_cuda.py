@@ -4,7 +4,10 @@ and the autograd Functions' first- and second-order gradients through the
 kernels (unfused and fused shuffle sites, and the dual wave + STFT
 critic), the GRU generator's forward and backward and the fused GRU
 cell's, against the same code on the CPU; and that a training step on the
-card (the dual_stft step's too) is bit-reproducible.
+card (the dual_stft step's too, and music_44k_dp16's at mesh.dp=1 and
+resample_22k's at their published widths) is bit-reproducible. K1 and K1'
+at every music_44k_dp16 geometry (strides 7, 7, 5, 5, 3) against their
+plain forms.
 
 Marked ``cuda``: each test skips where there is no CUDA device. These import
 torch and the port only, so they also run on a machine without JAX:
@@ -426,6 +429,48 @@ def test_train_step_on_card_is_bit_reproducible(cuda_device, fused_sites,
             (steps * (cfg.loss.n_critic + 1), steps)
 
 
+def _preset_cfg(name: str, dtype: str, batch: int):
+    """A preset at its published widths, run as one device (music_44k_dp16
+    with mesh.dp=1), in dtype at batch."""
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    sets = ["mesh.dp=1"] if name == "music_44k_dp16" else []
+    return apply_overrides(get_preset(name), sets + [
+        f"train.dtype={dtype}", f"train.batch_size={batch}"]).validate()
+
+
+@pytest.mark.parametrize("name,dtype", [("music_44k_dp16", "bfloat16"),
+                                        ("music_44k_dp16", "float32"),
+                                        ("resample_22k", "float32"),
+                                        ("resample_22k", "bfloat16")])
+def test_long_clip_and_resample_steps_on_card_are_bit_reproducible(
+        cuda_device, name, dtype):
+    """music_44k_dp16 (mesh.dp=1, 176400-sample clips, strides 7/7/5/5/3)
+    and resample_22k (its ingest resampled in plain torch ops, never K2)
+    at full width, batch 4: two runs of two steps from one seed give the
+    same parameters to the bit."""
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    batch = 4
+    cfg = _preset_cfg(name, dtype, batch)
+    raw, labels = _raw_views(cfg, batch)
+    ingest_before = tingest.ingest_fused.launches
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, device=cuda_device)
+        step = build_train_step(cfg, cuda_device)
+        for _ in range(2):
+            metrics = step(state, raw, labels)
+        assert all(torch.isfinite(v) for v in metrics.values())
+        runs.append([p.detach().cpu() for p in (*state.g.parameters(),
+                                                *state.d.parameters())])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    resampled = cfg.data.sample_rate != cfg.data.source_rate
+    assert tingest.ingest_fused.launches - ingest_before == (
+        0 if resampled else 2 * 2 * len(raw))
+
+
 _FIRST_STEPS = """
 import dataclasses, hashlib, json, sys
 import torch
@@ -438,13 +483,18 @@ torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda")
 batch, fused_sites, dtype = 16, {fused_sites!r}, {dtype!r}
 dual = fused_sites == "dual"
-cfg = t._tiny_cfg(dual)
-width = {{}} if dtype == "float32" else {{"model_dim": 64, "max_channels": 128}}
-cfg = cfg.replace(
-    model=dataclasses.replace(cfg.model,
-                              fused_shuffle_sites=0 if dual else fused_sites,
-                              **width),
-    train=dataclasses.replace(cfg.train, dtype=dtype, batch_size=batch))
+if fused_sites in ("music_44k_dp16", "resample_22k"):
+    batch = 4
+    cfg = t._preset_cfg(fused_sites, dtype, batch)
+else:
+    cfg = t._tiny_cfg(dual)
+    width = {{}} if dtype == "float32" else {{"model_dim": 64,
+                                            "max_channels": 128}}
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model,
+                                  fused_shuffle_sites=0 if dual
+                                  else fused_sites, **width),
+        train=dataclasses.replace(cfg.train, dtype=dtype, batch_size=batch))
 raw, labels = t._raw_views(cfg, batch)
 hashes = []
 for _ in range(2):
@@ -460,14 +510,19 @@ print(json.dumps(hashes))
 
 @pytest.mark.parametrize("fused_sites,dtype", [(0, "float32"),
                                                (-1, "bfloat16"),
-                                               ("dual", "bfloat16")])
+                                               ("dual", "bfloat16"),
+                                               ("music_44k_dp16", "float32"),
+                                               ("music_44k_dp16", "bfloat16"),
+                                               ("resample_22k", "float32"),
+                                               ("resample_22k", "bfloat16")])
 def test_first_train_step_of_a_fresh_process_is_bit_reproducible(
         cuda_device, fused_sites, dtype):
     """The first training step of a fresh process, run twice in it, and
     in a second fresh process, gives the same parameters to the bit: the
     first step of a process (its autograd engine, its libraries' first
     calls) is no different from the later ones. Each process is its own
-    interpreter, so no earlier test can have warmed anything up."""
+    interpreter, so no earlier test can have warmed anything up. A preset
+    name runs that preset at full width, batch 4."""
     import json
     import subprocess
     import sys
@@ -950,3 +1005,92 @@ def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
     launched = tsconv.sconvt1d.launches - before[2]
     assert launched > 0
     assert tsconv.sconvt1d.launches_tc - before[3] == launched
+
+
+def _music_geometries():
+    """music_44k_dp16's conv geometries at batch 2: ("convt1d" or
+    "conv1d", name, (x's shape), kernel args after x, w, b, K, Cout): G's
+    convT layers and their dx (conv1d), the critic's conv1d layers and
+    their dx (convT), as kernels/autograd.py runs them."""
+    from audiogan_tpu_torch.kernels.conv import _same_pads
+    from audiogan_tpu_torch.models.wavegan import (_disc_channels,
+                                                   _gen_channels)
+    m = _preset_cfg("music_44k_dp16", "bfloat16", 2).model
+    k, b, n = m.kernel_size, 2, len(m.strides)
+    out = []
+    t = 176400 // m.total_stride
+    cin = min(m.model_dim * 2 ** (n - 1), m.max_channels)
+    for i, (s, co) in enumerate(zip(m.strides,
+                                    _gen_channels(m.model_dim, n,
+                                                  m.max_channels))):
+        lo = (k - 1) // 2
+        out.append(("convt1d", f"G{i}", (b, t, cin), (s, lo, t * s), k, co))
+        dlo = k - 1 - lo
+        dhi = max((t - 1) * s + k - dlo - t * s, 0)
+        out.append(("conv1d", f"G{i} dx", (b, t * s, co), (s, dlo, dhi), k,
+                    cin))
+        t, cin = t * s, co
+    t, cin = 176400, 1
+    for i, (s, co) in enumerate(zip(m.strides,
+                                    _disc_channels(m.model_dim, n,
+                                                   m.max_channels))):
+        t_out, lo, hi = _same_pads(t, k, s)
+        out.append(("conv1d", f"D{i}", (b, t, cin), (s, lo, hi), k, co))
+        out.append(("convt1d", f"D{i} dx", (b, t_out, co), (s, k - 1 - lo, t),
+                    k, cin))
+        t, cin = t_out, co
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", range(20))
+def test_music_geometries_match_plain(cuda_device, geom, dtype):
+    """K1 and K1' at every music_44k_dp16 geometry (batch 2, the clip's
+    full lengths) against their plain forms: f32 within 1e-4, bf16 within
+    2e-2 of the output's peak, two bf16 launches to the same bits; in
+    bf16 the tensor-core path wherever its predicate holds (16 of 20)."""
+    family, _, shape, args, k, cout = _music_geometries()[geom]
+    gen = torch.Generator(cuda_device).manual_seed(geom)
+    x = torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+    w = (torch.randn(k, shape[2], cout, generator=gen, device=cuda_device)
+         / (k * shape[2] / 4) ** 0.5).to(dtype)
+    b = (torch.randn(cout, generator=gen, device=cuda_device) * 0.5
+         ).to(dtype)
+    if family == "conv1d":
+        fn, plain, counter = (tconv.conv1d_ba, tconv.conv1d_ba_plain,
+                              tconv.conv1d_ba)
+        tc = tconv.conv1d_tensor_core(dtype, shape[1], shape[2], cout, k,
+                                      args[0])
+    else:
+        fn, plain, counter = (tconv.conv_transpose1d_ba,
+                              tconv.conv_transpose1d_ba_plain,
+                              tconv.conv_transpose1d_ba)
+        tc = tconv.convt_tensor_core(dtype, shape[2], cout, k, args[0])
+    before = counter.launches_tc
+    got = fn(x, w, b, *args, act="leaky_relu")
+    again = fn(x, w, b, *args, act="leaky_relu")
+    want = plain(x.float(), w.float(), b.float(), *args, act="leaky_relu")
+    torch.cuda.synchronize()
+    assert counter.launches_tc - before == (2 if tc else 0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+    assert torch.equal(got, again)
+
+
+def test_music_geometry_count():
+    """The table above holds 20 geometries, 16 of them on the tensor
+    cores in bf16 (the one-channel layers G4, G4 dx, D0, D0 dx not)."""
+    geoms = _music_geometries()
+    assert len(geoms) == 20
+    tc = []
+    for family, name, shape, args, k, cout in geoms:
+        if family == "conv1d":
+            ok = tconv.conv1d_tensor_core(torch.bfloat16, shape[1], shape[2],
+                                          cout, k, args[0])
+        else:
+            ok = tconv.convt_tensor_core(torch.bfloat16, shape[2], cout, k,
+                                         args[0])
+        if not ok:
+            tc.append(name)
+    assert sorted(tc) == ["D0", "D0 dx", "G4", "G4 dx"]

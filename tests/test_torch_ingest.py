@@ -113,11 +113,26 @@ def test_silent_clip_passes_through():
 
 
 def test_rejects_what_is_not_ported_or_wrong():
+    """A resampled batch (ported since the resampler) takes the plain
+    route and gives the reference's output on the same offsets, within
+    1e-5 (a float64 polyphase product against the reference's f32 conv,
+    through mu-law); an offset past the resampled row's slack (929 - 800)
+    is refused, as K2's are."""
     raw = torch.from_numpy(_raw(2, 1280))
-    with pytest.raises(NotImplementedError):
-        ingest_batch(raw, DataCfg(clip_len=1024, store_len=1280,
-                                  source_rate=22050),
-                     offsets=torch.zeros(2, dtype=torch.int32))
+    jcfg = JDataCfg(clip_len=800, store_len=1280, source_rate=22050)
+    offs = np.array([0, 129], np.int32)
+    got = ingest_batch(raw, _port_cfg(jcfg), offsets=torch.from_numpy(offs))
+    x = jnp.asarray(raw.numpy(), jnp.float32) / 32768.0
+    from audiogan_tpu.ops.mulaw import mu_law_compand
+    from audiogan_tpu.ops.normalize import normalize_amplitude as jnorm
+    from audiogan_tpu.ops.resample import resample_poly as jresample
+    x = jresample(x, 16000, 22050)
+    x = jnp.stack([x[i, o:o + 800] for i, o in enumerate(offs)])
+    ref = np.asarray(mu_law_compand(jnorm(x, "peak", 0.999)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="outside"):
+        ingest_batch(raw, _port_cfg(jcfg),
+                     offsets=torch.tensor([0, 130], dtype=torch.int32))
     with pytest.raises(ValueError, match="outside"):
         tking.ingest_fused(raw, torch.tensor([0, 257], dtype=torch.int32),
                            1024)

@@ -3,7 +3,12 @@ the JAX package's.
 
 One whole ``tiny_config`` step (n_critic=2), unfused and fused critic
 views, a conditional one (projection critic, labels) with the drift
-term, and the dual critic (wave + STFT critic) with G's spectral term
+term, the music geometry (helpers_golden.case_music: strides 7/7/5/5/3
+at 44.1 kHz), a resampled corpus (22050 -> 16000 Hz in the ingest, its
+crop offsets drawn over the resampled row's slack), the chunked
+penalty (gp_batch_chunks=2, shuffle off as tests/train/test_step.py
+compares it: each chunk draws its shifts at chunk size), and the dual
+critic (wave + STFT critic) with G's spectral term
 (one more real view, its crop offsets from the fourth key of
 ``jax.random.split(fold_in(step_key, n_critic + 1), 4)``, step.py:264),
 unfused and fused, from a carried non-initial state (the JAX state after one step:
@@ -101,16 +106,18 @@ def _reference_draws(cfg, state1, shifts):
         return torch.from_numpy(np.array(
             jax.random.randint(key, (b,), 0, n_cls))).long()
 
-    sites = len(cfg.model.strides) - 1
+    sites = len(cfg.model.strides) - 1 if cfg.model.phase_shuffle else 0
     latent = cfg.model.latent_dim
     (step_key,) = split_for_step(jax.random.wrap_key_data(state1.base_key),
                                  state1.step, "step")
     it = iter(shifts)
 
     def take():
+        if not sites:
+            return torch.zeros(0, b, dtype=torch.long)
         return torch.from_numpy(np.stack([next(it) for _ in range(sites)]))
 
-    max_off = cfg.data.store_len - cfg.data.clip_len
+    max_off = max(cfg.data.resampled_len - cfg.data.clip_len, 0)
     critic = []
     for i in range(n_critic):
         k = jax.random.fold_in(step_key, i)
@@ -166,6 +173,17 @@ def _variant(name):
         # every phase-shuffle site fused into its consuming conv (K6/K7)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, fused_shuffle_sites=-1))
+    if name == "music":
+        from helpers_golden import case_music
+        music = case_music()
+        cfg = dataclasses.replace(cfg, data=music.data, model=music.model)
+    if name == "resample":
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, source_rate=22050, store_len=1600))
+    if name == "gp_chunks":
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, phase_shuffle=0),
+            loss=dataclasses.replace(cfg.loss, gp_batch_chunks=2))
     if name.startswith("dual"):
         # the dual critic and G's spectral term (tests/train/test_step.py)
         cfg = dataclasses.replace(
@@ -179,7 +197,8 @@ def _variant(name):
 @pytest.mark.parametrize("variant", ["unfused", "fused",
                                      "conditional_drift", "fused_sites",
                                      "conditional_fused_sites",
-                                     "dual_unfused", "dual_fused"])
+                                     "dual_unfused", "dual_fused", "music",
+                                     "resample", "gp_chunks"])
 def test_step_matches_jax(variant):
     cfg = _variant(variant)
     state1, state2, want, shifts, (clips, labels) = _jax_run(cfg)
@@ -297,10 +316,23 @@ def test_device_corpus_gathers_by_index():
 
 
 def test_step_rejects_what_is_not_ported():
+    """A mesh other than one device (dp, cp, tp above 1, or fsdp) raises
+    NotImplementedError; a conditional critic with gp_batch_chunks > 1
+    raises ValueError, where the reference's penalty fails (each chunk
+    gets the whole batch's labels)."""
+    from audiogan_tpu_torch.config import MeshCfg
     pcfg = _tiny_port_cfg()
-    with pytest.raises(NotImplementedError):
-        build_train_step(pcfg.replace(loss=dataclasses.replace(
-            pcfg.loss, gp_batch_chunks=2)), device="cpu")
+    for mesh in (MeshCfg(dp=2), MeshCfg(cp=2), MeshCfg(tp=2),
+                 MeshCfg(fsdp=True)):
+        with pytest.raises(NotImplementedError, match="one device"):
+            build_train_step(pcfg.replace(mesh=mesh), device="cpu")
+    cond = pcfg.replace(
+        data=dataclasses.replace(pcfg.data, num_classes=4),
+        loss=dataclasses.replace(pcfg.loss, gp_batch_chunks=2))
+    with pytest.raises(ValueError, match="conditional"):
+        build_train_step(cond, device="cpu")
+    build_train_step(pcfg.replace(loss=dataclasses.replace(
+        pcfg.loss, gp_batch_chunks=2)), device="cpu")
 
 
 def test_corpus_and_index_stream_match_jax(tmp_path):
