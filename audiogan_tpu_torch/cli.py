@@ -14,6 +14,12 @@ Usage:
         --total_steps 10 --workdir /tmp/dual
     python -m audiogan_tpu_torch.cli train --preset music_44k_dp16 \\
         --set mesh.dp=1 --total_steps 10 --workdir /tmp/music
+    torchrun --nproc_per_node 4 -m audiogan_tpu_torch.cli train \\
+        --preset music_44k_dp16 --set mesh.dp=4 --total_steps 10 \\
+        --workdir /tmp/music4
+    torchrun --nproc_per_node 2 -m audiogan_tpu_torch.cli train \\
+        --preset tiny_sc09 --set mesh.dp=2 --device cpu --total_steps 2 \\
+        --batch_size 2 --workdir /tmp/tiny2
     python -m audiogan_tpu_torch.cli train --preset resample_22k \\
         --total_steps 10 --workdir /tmp/r22k
     python -m audiogan_tpu_torch.cli train --config /tmp/run/config.json \\
@@ -43,9 +49,13 @@ train.total_steps), from the workdir's latest checkpoint unless
 --no_resume. It writes ``config.json``, ``ckpt/<step>.pt`` every
 train.ckpt_every steps and at the end, ``metrics.jsonl`` and, every
 train.sample_every steps, ``samples/``, and prints one JSON line of
-metrics per log_every steps. A mesh other than one device (dp, cp or tp
-above 1, or fsdp) raises NotImplementedError before the card is touched:
-``music_44k_dp16`` asks for dp=16 and runs as ``--set mesh.dp=1``.
+metrics per log_every steps. Data parallelism runs one process per card
+under ``torchrun`` (NCCL; gloo with ``--device cpu``), mesh.dp equal to
+the number of processes (with mesh.fsdp, ZeRO-1), rank 0 alone printing
+and writing; ``music_44k_dp16`` asks for dp=16, so run it on 16
+processes or with ``--set mesh.dp=N`` on N. A mesh.dp other than the
+number of processes raises ValueError, and mesh.cp or mesh.tp above 1
+NotImplementedError, before the card is touched.
 ``--config PATH`` (a config.json) takes the
 place of ``--preset``; ``--set KEY=VALUE`` overrides any config field by
 dotted path, as the JAX CLI's does (the flags above it win). ``info``
@@ -281,10 +291,14 @@ def main(argv: list[str] | None = None) -> int:
             cfg = cfg.replace(data=dataclasses.replace(
                 cfg.data, data_dir=args.data_dir))
         check_ported(cfg.validate())       # before the card is touched
-        train(cfg, args.workdir, resume=not args.no_resume,
-              device=resolve_device(args.device),
-              log=lambda line: print(line, flush=True),
-              tensorboard=not args.no_tensorboard)
+        try:
+            train(cfg, args.workdir, resume=not args.no_resume,
+                  device=resolve_device(args.device),
+                  log=lambda line: print(line, flush=True),
+                  tensorboard=not args.no_tensorboard)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
         return 0
 
     device = resolve_device(args.device)

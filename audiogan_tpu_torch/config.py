@@ -5,8 +5,9 @@ The fields, their defaults and the JSON form are those of
 ``meta.json`` written by either package loads in the other. Fields of
 parts not ported yet (meshes, the JAX kernel tiers) are carried so the
 JSON round-trips, and ``validate`` rejects what the reference's
-``validate`` rejects. ``check_single_device`` rejects a mesh the port
-does not run (every config trains as one device).
+``validate`` rejects. ``check_mesh_ported`` rejects the mesh axes the
+port does not run yet (cp and tp above 1); dp and fsdp run over a
+process group, one process per card (``parallel/``).
 
 Presets, each equal in JSON to the reference's: ``tiny_sc09``
 (CPU-sized), ``wgan_gp_b64`` (the flagship), ``cond_gru_sc09`` (the
@@ -14,8 +15,8 @@ class-conditional GRU generator), ``dual_stft`` (the flagship's G
 against the wave and STFT critics, with G's multi-resolution spectral
 term), ``resample_22k`` (a 22050 Hz corpus resampled to the 16 kHz model
 in the ingest) and ``music_44k_dp16`` (4 s clips at 44.1 kHz, strides
-7/7/5/5/3; its mesh asks for dp=16, so the port trains it with
-``mesh.dp=1``).
+7/7/5/5/3; its mesh asks for dp=16: sixteen processes, or fewer with
+``--set mesh.dp=N``).
 """
 
 from __future__ import annotations
@@ -183,21 +184,26 @@ class Config:
         self._validate_mesh()
         return self
 
-    def check_single_device(self) -> None:
-        """Raises NotImplementedError for a mesh the port does not run:
-        dp, cp or tp above 1, or fsdp. The reference's DP folds each
-        rank's draws and its CP/TP steps differ, so training such a
-        config as one device would match no reference run."""
+    def check_mesh_ported(self) -> None:
+        """Raises NotImplementedError for cp or tp above 1: the reference
+        runs those as shard_map steps that fold each replica's draws
+        (audiogan_tpu/train/cp_step.py, tp_step.py), not ported yet.
+
+        dp and fsdp run. The reference's DP, at cp = tp = 1, is one global
+        step partitioned by XLA: its loop jits the plain step with a
+        replicated state and batch-sharded inputs
+        (audiogan_tpu/train/loop.py:203-213), so DP over N devices equals
+        the same step on one device for the same global batch
+        (tests/parallel/test_dp.py:182). The port's DP is that global step
+        split by rows (train/step.py)."""
         mesh = self.mesh
-        asked = [f"mesh.{k}={getattr(mesh, k)}" for k in ("dp", "cp", "tp")
+        asked = [f"mesh.{k}={getattr(mesh, k)}" for k in ("cp", "tp")
                  if getattr(mesh, k) > 1]
-        if mesh.fsdp:
-            asked.append("mesh.fsdp=True")
         if asked:
             raise NotImplementedError(
-                f"{', '.join(asked)}: audiogan_tpu_torch trains on one "
-                "device only (parallelism is not ported); run with "
-                "--set mesh.dp=1 (and cp, tp 1, fsdp false)")
+                f"{', '.join(asked)}: audiogan_tpu_torch runs data "
+                "parallelism only (context and tensor parallelism are not "
+                "ported); run with --set mesh.cp=1 (and tp 1)")
 
     def _validate_mesh(self) -> None:
         """The cp/tp geometry checks of audiogan_tpu/config.py:242-292."""
@@ -357,7 +363,8 @@ def music_44k_dp16() -> Config:
     """4 s 44.1 kHz music clips: 176400 = 48 * 7 * 7 * 5 * 5 * 3, so
     strides (7, 7, 5, 5, 3) upsample a 48-frame base to the clip; store
     5 s, crop 4 s. The reference trains it data-parallel over 16 chips;
-    the port runs it as ``--set mesh.dp=1`` (check_single_device)."""
+    so does the port, over 16 processes (``torchrun``), or over N with
+    ``--set mesh.dp=N``."""
     return Config(
         name="music_44k_dp16",
         data=DataCfg(sample_rate=44100, source_rate=44100,

@@ -89,16 +89,22 @@ class HostBatcher:
     ``get(step)`` returns (clips int16 [n_views, B, store_len], labels
     int32 [n_views, B]), or with ``indices_only`` (idx int32 [n_views,
     B], labels): the resident-corpus step gathers on the device from the
-    same index stream, so both modes train to the same bits.
+    same index stream, so both modes train to the same bits. ``rows``
+    (a data-parallel rank's slice of the batch axis) keeps only those
+    columns of the global step's indices, so a rank gathers only its
+    clips.
     """
 
     def __init__(self, corpus: Corpus, batch_size: int, n_views: int,
-                 seed: int = 0, indices_only: bool = False):
+                 seed: int = 0, indices_only: bool = False,
+                 rows: slice | None = None):
         self.corpus = corpus
         self.batch_size = batch_size
         self.n_views = n_views
         self.seed = seed
         self.indices_only = indices_only
+        self.rows = slice(0, batch_size) if rows is None else rows
+        self.local_batch = self.rows.stop - self.rows.start
         self._q: queue.Queue | None = None
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -108,7 +114,7 @@ class HostBatcher:
                              self.n_views, self.seed, step)
 
     def get(self, step: int) -> tuple[np.ndarray, np.ndarray]:
-        idx = self._indices(step)
+        idx = self._indices(step)[:, self.rows]
         labels = np.ascontiguousarray(self.corpus.labels[idx])
         if self.indices_only:
             return idx.astype(np.int32), labels

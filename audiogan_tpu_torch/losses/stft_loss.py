@@ -4,7 +4,10 @@
 log-magnitude L1, averaged over resolutions). GAN training has no paired
 target, so the dual_stft preset's generator term is
 ``batch_spectral_matching_loss``: the same sum on the batch-mean magnitude
-spectrograms of the fake and the real batch.
+spectrograms of the fake and the real batch. Under data parallelism
+those means are over the global batch (``mesh``, parallel/mesh.py::
+global_mean), as the reference's step computes them over the whole
+batch that XLA partitions.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Sequence
 import torch
 
 from audiogan_tpu_torch.ops.stft import stft_magnitude
+from audiogan_tpu_torch.parallel.mesh import DataMesh, global_mean
 
 Resolutions = Sequence[tuple[int, int, int]]
 
@@ -50,15 +54,20 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor,
 
 
 def batch_spectral_matching_loss(fake: torch.Tensor, real: torch.Tensor,
-                                 resolutions: Resolutions = DEFAULT_RESOLUTIONS
+                                 resolutions: Resolutions = DEFAULT_RESOLUTIONS,
+                                 mesh: DataMesh | None = None
                                  ) -> torch.Tensor:
-    """Unpaired: the batch-mean magnitude spectra of fake vs real."""
+    """Unpaired: the batch-mean magnitude spectra of fake vs real; with a
+    data-parallel ``mesh``, fake and real hold this rank's rows and the
+    means are over the global batch."""
     if fake.dim() == 3:
         fake, real = fake[..., 0], real[..., 0]
     total = 0.0
     for n_fft, hop, win in resolutions:
-        fm = stft_magnitude(fake, n_fft, hop, win).mean(dim=0)
-        rm = stft_magnitude(real, n_fft, hop, win).mean(dim=0)
+        fm = global_mean(stft_magnitude(fake, n_fft, hop, win).mean(dim=0),
+                         mesh)
+        rm = global_mean(stft_magnitude(real, n_fft, hop, win).mean(dim=0),
+                         mesh)
         total = total + spectral_convergence_loss(fm, rm) \
             + log_stft_magnitude_loss(fm, rm)
     return total / len(resolutions)

@@ -6,10 +6,11 @@ The penalty's gradient with respect to the interpolates is taken with
 critic's parameters runs the double backprop through the conv Functions
 of kernels/autograd.py.
 
-``batch_chunks > 1`` bounds the penalty's memory for long clips, as the
-reference's ``lax.map(jax.checkpoint(norms_of))`` does: the interpolates
-are split over the batch, and each chunk's norms come from ``_ChunkNorms``,
-which keeps only the chunk and drops its graph after the forward, then
+More than one chunk (loss.gp_batch_chunks > 1) bounds the penalty's
+memory for long clips, as the reference's
+``lax.map(jax.checkpoint(norms_of))`` does: the interpolates are split
+over the batch, and each chunk's norms come from ``_ChunkNorms``, which
+keeps only the chunk and drops its graph after the forward, then
 recomputes the chunk's critic forward and input gradient (with
 ``create_graph``) when the outer backward reaches it, so one chunk's
 activations are live at a time. It costs one more critic forward and
@@ -71,30 +72,34 @@ class _ChunkNorms(torch.autograd.Function):
         return (None, None, *grads)
 
 
-def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
+def gradient_penalty(d_applies: Sequence[Callable[[torch.Tensor],
+                                                  torch.Tensor]],
                      real: torch.Tensor, fake: torch.Tensor,
-                     eps: torch.Tensor, batch_chunks: int = 1,
-                     params: Sequence[torch.Tensor] = ()
+                     eps: torch.Tensor, params: Sequence[torch.Tensor] = ()
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """WGAN-GP penalty on x^ = eps*real + (1-eps)*fake.
 
-    d_apply maps [b, T, 1] -> scores [b]; with batch_chunks > 1 it is
-    called on each chunk of B / batch_chunks examples in turn, and only
-    ``params`` (the parameters d_apply reads, all of them) get gradients
-    through the penalty. eps [B] is one draw per example. Returns
-    (mean((||grad_x^ D||_2 - 1)^2), mean gradient norm).
+    The batch splits into len(d_applies) chunks of equal size, and chunk
+    i is scored by d_applies[i], which maps [b, T, 1] -> scores [b] (each
+    chunk's own phase-shuffle shifts: train/step.py::rank_draws). With
+    more than one chunk, each is computed by ``_ChunkNorms`` and only
+    ``params`` (the parameters the callables read, all of them) get
+    gradients through the penalty. eps [B] is one draw per example.
+    Returns (mean((||grad_x^ D||_2 - 1)^2), mean gradient norm).
     """
+    chunks = len(d_applies)
     b = real.shape[0]
     e = eps.to(real.dtype).reshape((-1,) + (1,) * (real.dim() - 1))
     xhat = (e * real + (1.0 - e) * fake).detach()
-    if batch_chunks > 1:
-        if b % batch_chunks:
+    if chunks > 1:
+        if b % chunks:
             raise ValueError(f"batch {b} not divisible by gp batch_chunks "
-                             f"{batch_chunks}")
+                             f"{chunks}")
         if not params:
             raise ValueError("gp batch_chunks > 1 needs D's params")
-        norms = torch.cat([_ChunkNorms.apply(d_apply, chunk, *params)
-                           for chunk in xhat.chunk(batch_chunks)])
+        norms = torch.cat([_ChunkNorms.apply(f, chunk, *params)
+                           for f, chunk in zip(d_applies,
+                                               xhat.chunk(chunks))])
     else:
-        norms = _grad_norms(d_apply, xhat)
+        norms = _grad_norms(d_applies[0], xhat)
     return (norms - 1.0).square().mean(), norms.mean()

@@ -1,0 +1,204 @@
+"""The data axis the port trains over, the counterpart of
+audiogan_tpu/parallel/mesh.py for data parallelism: one process per card,
+``dp`` processes in one ``torch.distributed`` group.
+
+The reference's DP at cp = tp = 1 is ONE global step that XLA partitions
+over the batch: its loop jits the plain step with a replicated state and
+batch-sharded inputs (audiogan_tpu/train/loop.py:203-213), so DP over N
+devices equals the step on one device for the same global batch
+(tests/parallel/test_dp.py:182). The port runs that step split by rows:
+rank r takes rows [r B/dp, (r+1) B/dp) of the global batch and of every
+draw, and after each backward the gradients are summed over the ranks in
+one flat f32 buffer and divided by dp, so every rank runs Adam on the
+global mean (train/step.py). Every collective here is one call on one
+flat buffer, outside any kernel.
+
+The collectives are deterministic for one world size: every rank gets
+the same bits from an all-reduce (each chunk of the ring is reduced once
+and then copied to every rank), and two runs at one world size reduce in
+the same order (PERF.md states how far that was checked on the card).
+
+ZeRO-1 (``mesh.fsdp``): each rank keeps Adam's moments only for its 1/dp
+slice of the leading axis of every ``fsdp_shardable`` parameter, updates
+that slice of the parameter, and the slices are all-gathered
+(``gather_rows``; train/state.py::Adam). Adam is elementwise, so this
+equals the replicated update to the bit (``zero1_update``).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from audiogan_tpu_torch.config import Config
+
+
+def world_size() -> int:
+    """Processes in the default group; before it is initialized, what
+    torchrun announces (``WORLD_SIZE``), else 1."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def check_world(cfg: Config) -> None:
+    """The mesh's cp and tp (NotImplementedError above 1), then its size
+    against the processes (ValueError), as the reference's "mesh needs N
+    devices" (audiogan_tpu/parallel/mesh.py:30-33): the port runs one
+    process per device, so the world size must equal dp * cp * tp."""
+    cfg.check_mesh_ported()
+    m = cfg.mesh
+    need, have = m.dp * m.cp * m.tp, world_size()
+    if need != have:
+        raise ValueError(
+            f"mesh needs {need} devices (mesh.dp={m.dp}), have {have} "
+            f"process{'es' if have != 1 else ''}: launch "
+            f"`torchrun --nproc_per_node {need} ...` or set mesh.dp={have}")
+
+
+@dataclass(frozen=True)
+class DataMesh:
+    """The data axis: ``dp`` ranks of the default process group (none at
+    dp = 1) and this process's ``rank``."""
+
+    dp: int = 1
+    rank: int = 0
+
+    @property
+    def parallel(self) -> bool:
+        return self.dp > 1
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch."""
+        b = batch // self.dp
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def barrier(self) -> None:
+        if self.parallel:
+            dist.barrier()
+
+    def all_reduce_mean_(self, flat: torch.Tensor) -> torch.Tensor:
+        """flat <- the mean over the ranks of flat, in place."""
+        if self.parallel:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat.div_(self.dp)
+        return flat
+
+    def mean_grads(self, params: Sequence[torch.Tensor]) -> None:
+        """Every parameter's .grad <- its mean over the ranks: one flat f32
+        all-reduce per call (one per net per update)."""
+        if not self.parallel:
+            return
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = self.all_reduce_mean_(torch.cat([g.reshape(-1)
+                                                for g in grads]))
+        _unflatten_into(flat, grads)
+
+    def mean_metrics(self, metrics: dict[str, torch.Tensor]
+                     ) -> dict[str, torch.Tensor]:
+        """Each 0-d metric's mean over the ranks (one all-reduce)."""
+        if not self.parallel:
+            return metrics
+        keys = sorted(metrics)
+        flat = self.all_reduce_mean_(torch.stack(
+            [metrics[k].float() for k in keys]))
+        return dict(zip(keys, flat.unbind()))
+
+    def gather_rows(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Each tensor's leading axis is split in dp blocks of rows; this
+        rank's block is current. Fills every other rank's block from its
+        owner, in place: one all-gather of one flat buffer."""
+        if not self.parallel or not tensors:
+            return
+        own = [t[self.shard(t)] for t in tensors]
+        flat = torch.cat([t.reshape(-1) for t in own])
+        out = [torch.empty_like(flat) for _ in range(self.dp)]
+        dist.all_gather(out, flat)
+        for r, buf in enumerate(out):
+            if r != self.rank:
+                mesh_r = DataMesh(self.dp, r)
+                _unflatten_into(buf, [t[mesh_r.shard(t)] for t in tensors])
+
+    def shard(self, t: torch.Tensor) -> slice:
+        """This rank's block of rows of t's leading axis."""
+        return self.rows(t.shape[0])
+
+
+def _unflatten_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]
+                    ) -> None:
+    off = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[off:off + n].view_as(t))
+        off += n
+
+
+def make_mesh(cfg: Config) -> DataMesh:
+    """The data axis of cfg.mesh over the initialized process group (or
+    one process). Raises before any device is touched when the mesh asks
+    for another number of processes (``check_world``)."""
+    check_world(cfg)
+    if cfg.mesh.dp == 1:
+        return DataMesh()
+    return DataMesh(cfg.mesh.dp, dist.get_rank())
+
+
+def fsdp_shardable(x: torch.Tensor, dp: int) -> bool:
+    """Leading-axis divisibility rule for ZeRO-1 optimizer-state sharding
+    (audiogan_tpu/parallel/mesh.py:65-71). The port's parameters keep the
+    reference's layouts, so the same leaves shard."""
+    return x.dim() >= 1 and x.shape[0] >= dp and x.shape[0] % dp == 0
+
+
+def zero1_rows(p: torch.Tensor, mesh: DataMesh | None) -> slice:
+    """The rows of p whose Adam state this rank keeps under ZeRO-1: its
+    block of a shardable parameter, else all of them."""
+    if mesh is None or not mesh.parallel or not fsdp_shardable(p, mesh.dp):
+        return slice(None)
+    return mesh.shard(p)
+
+
+def zero1_update(update, params: Sequence[torch.Tensor],
+                 mesh: DataMesh | None) -> None:
+    """The counterpart of audiogan_tpu/parallel/mesh.py:74-112 outside a
+    shard_map: ``update(views)`` runs the optimizer on each parameter's
+    ``zero1_rows`` (views into the parameters, updated in place); then
+    the shardable parameters' blocks are all-gathered, so every rank ends
+    with the whole updated parameters. Without a mesh it is the
+    replicated update."""
+    if mesh is None or not mesh.parallel:
+        update(params)
+        return
+    update([p[zero1_rows(p, mesh)] for p in params])
+    mesh.gather_rows([p for p in params if fsdp_shardable(p, mesh.dp)])
+
+
+class _GlobalMean(torch.autograd.Function):
+    """Forward: the mean over the ranks (each holds the mean of its rows,
+    so this is the mean over the global batch). Backward: the incoming
+    gradient unchanged. Whatever is computed from the result is the same
+    on every rank, so each rank's incoming gradient g is the same; the
+    step averages the ranks' parameter gradients afterwards, so each rank
+    must contribute dp times its share g/dp of the global gradient: g.
+    The Jacobian's g/dp would leave the term dp times too small."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = x.detach().clone().contiguous()
+        return mesh.all_reduce_mean_(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def global_mean(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """x (a mean over this rank's rows) -> the mean over the global
+    batch, differentiable (``_GlobalMean``); x itself at dp = 1."""
+    if mesh is None or not mesh.parallel:
+        return x
+    return _GlobalMean.apply(x, mesh)

@@ -1,0 +1,731 @@
+#!/usr/bin/env python3
+"""Checks of the port's data parallelism, run in one process per rank.
+
+As a library: ``spawn(world, jobs, out_dir, device, backend)`` starts
+``world`` processes (``torch.multiprocessing``, spawned), joins them in a
+process group (gloo on the CPU, or on one card for two ranks; NCCL under
+torchrun), runs each job of ``jobs`` on every rank and returns each rank's
+result. A job is {"name", "fn" (a key of JOBS), "kw"}: ``steps`` (train
+steps from a given state on given global batches, optionally with
+injected draws), ``train`` (train/loop.py::train into a workdir) and
+``gather`` (the sharded corpus's gather). Each result holds the rank's
+whole state (``state_blob``: both nets, both optimizers with whole
+moments, the per-rank moment rows). The CPU tests (tests/test_torch_dp.py,
+tests/test_torch_sharded_corpus.py) and chip_smoke.py's ``dp`` phase drive
+it.
+
+As a script, on a host with four cards:
+
+    python3 -m audiogan_tpu_torch.tools.dp_check [--out DIR]
+        [--presets P ...] [--checks_only]
+
+runs ``torchrun --nproc_per_node 4`` of this file's ``--worker`` mode
+(NCCL): for the flagship and for ``music_44k_dp16 --set mesh.dp=4``, an
+f32 step at dp=4 against the dp=1 step on rank 0's card (the parity
+bounds of tools/step_checks.py), a bf16 step at the preset's batch twice
+to the bit and against the bf16 dp=1 step on rank 0's card from
+the same warm state (no farther apart than twice the dp=1 bf16 step from
+the same step in f32), ZeRO-1 and the sharded corpus against replicated to
+the bit, the conv and ingest kernels' launches per rank, the all-reduce's
+device time per step (torch.profiler: NCCL's kernels in one profiled
+step) and the sharded corpus's exchange for one step against the
+replicated gather of the same clips. Then
+``cli train`` at dp=4 under torchrun for each preset (steps/s of the
+timed window), and a dp=4 flagship run killed after its step-3
+checkpoint and resumed, against an uninterrupted one, to the bit
+(``--checks_only`` stops before ``cli train``; ``--presets`` picks the
+presets). Prints one JSON line per check and a summary line; ``--out``
+keeps them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+import signal
+import socket
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from audiogan_tpu_torch.config import Config
+from audiogan_tpu_torch.parallel.mesh import DataMesh, make_mesh
+from audiogan_tpu_torch.parallel.multihost import \
+    maybe_initialize_distributed
+from audiogan_tpu_torch.tools.step_checks import (
+    PARITY_PARAM_TOL, PARITY_REL_TOL, bits_of, compare_blobs,
+    conv_step_launches, hold_bf16_to_dp1, random_raw, same_checkpoint,
+    state_parts)
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# the CPU tests' collectives: a broken rank fails the test in this time
+CPU_TIMEOUT_S = 120.0
+# (name, kernel module, wrapper, counter): each wrapper's launch counts
+COUNTERS = (("conv1d", "conv", "conv1d_ba", "launches"),
+            ("conv1d_tc", "conv", "conv1d_ba", "launches_tc"),
+            ("convt1d", "conv", "conv_transpose1d_ba", "launches"),
+            ("convt1d_tc", "conv", "conv_transpose1d_ba", "launches_tc"),
+            ("ingest", "ingest", "ingest_fused", "launches"),
+            ("sconv1d", "sconv", "sconv1d_ba", "launches"),
+            ("sconvt1d", "sconv", "sconvt1d", "launches"),
+            ("gru_scan", "gru", "gru_scan_fwd", "launches"),
+            ("gru_scan_bwd", "gru", "gru_scan_bwd", "launches"))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _counter(module: str, fn: str):
+    import importlib
+    return getattr(importlib.import_module(
+        f"audiogan_tpu_torch.kernels.{module}"), fn)
+
+
+def zero_launches() -> None:
+    for _, module, fn, attr in COUNTERS:
+        setattr(_counter(module, fn), attr, 0)
+
+
+def read_launches() -> dict[str, int]:
+    """Each kernel wrapper's launches in this process since
+    zero_launches (0 on the CPU: the plain forms are not counted)."""
+    return {name: getattr(_counter(module, fn), attr)
+            for name, module, fn, attr in COUNTERS}
+
+
+def state_blob(state) -> dict:
+    """A state as CPU tensors: nets, whole optimizer states (a collective
+    under ZeRO-1), step, and each parameter's rows of Adam's moments on
+    this rank."""
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cpu(v) for v in x]
+        return x
+    rows = {}
+    for tag, opt, mod in (("g", state.opt_g, state.g),
+                          ("d", state.opt_d, state.d)):
+        for n, p in mod.named_parameters():
+            st = opt.state.get(p)
+            if st:
+                rows[f"{tag}.{n}"] = (int(st["exp_avg"].shape[0])
+                                      if p.dim() else 0, int(p.shape[0])
+                                      if p.dim() else 0)
+    return {"step": state.step, "g": cpu(state.g.state_dict()),
+            "d": cpu(state.d.state_dict()),
+            "opt_g": cpu(state.opt_g.full_state_dict()),
+            "opt_d": cpu(state.opt_d.full_state_dict()),
+            "moment_rows": rows}
+
+
+def load_blob(state, blob: dict) -> None:
+    state.g.load_state_dict(blob["g"])
+    state.d.load_state_dict(blob["d"])
+    state.opt_g.load_state_dict(blob["opt_g"])
+    state.opt_d.load_state_dict(blob["opt_d"])
+    state.step = int(blob["step"])
+
+
+def steps_job(dev, cfg_json: str, batches: list, draws: list | None = None,
+              state: dict | None = None, solo: bool = False) -> dict | None:
+    """len(batches) steps of cfg (global [V, B, L] clips and [V, B]
+    labels each) from ``state`` (a state_blob) or the seeded init, each
+    rank on its rows; ``draws`` the global steps' (else the port's own).
+    ``solo``: rank 0 alone runs the step at dp = 1 (the others wait and
+    return None)."""
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    cfg = Config.from_json(cfg_json)
+    if solo:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if rank:
+            dist.barrier()
+            return None
+        mesh = DataMesh()
+    else:
+        mesh = make_mesh(cfg)
+    st = create_train_state(cfg, device=dev, mesh=mesh)
+    if state is not None:
+        load_blob(st, state)
+    step = build_train_step(cfg, dev, mesh)
+    metrics = []
+    zero_launches()
+    t0 = time.perf_counter()
+    for i, (raw, labels) in enumerate(batches):
+        rows = mesh.rows(raw.shape[1])
+        m = step(st, raw[:, rows], labels[:, rows],
+                 draws=None if draws is None else draws[i])
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics, "launches": read_launches(),
+           "seconds": time.perf_counter() - t0, **state_blob(st)}
+    if solo and dist.is_initialized():
+        dist.barrier()
+    return out
+
+
+def train_job(dev, cfg_json: str, workdir: str, steps: int,
+              max_gb: float | None = None, resume: bool = True) -> dict:
+    """train/loop.py::train of cfg into workdir up to ``steps``, with
+    DEVICE_CORPUS_MAX_GB set to ``max_gb`` when given: its log lines
+    (rank 0's) and the rank's state."""
+    from audiogan_tpu_torch.train import loop
+    if max_gb is not None:
+        loop.DEVICE_CORPUS_MAX_GB = max_gb
+    lines = []
+    zero_launches()
+    st, _ = loop.train(Config.from_json(cfg_json), workdir, steps,
+                       device=dev, resume=resume, tensorboard=False,
+                       log=lambda s: lines.append(json.loads(s)))
+    return {"lines": lines, "launches": read_launches(), **state_blob(st)}
+
+
+def gather_job(dev, clips: np.ndarray, idx: np.ndarray) -> dict:
+    """This rank's rows of the sharded gather of clips by the global
+    indices idx [V, B], over all ranks."""
+    from audiogan_tpu_torch.parallel.sharded_corpus import (
+        local_shard, sharded_corpus_gather)
+    mesh = DataMesh(dist.get_world_size(), dist.get_rank())
+    local = torch.from_numpy(local_shard(clips, mesh)).to(dev)
+    got = sharded_corpus_gather(local, idx, mesh)
+    return {"got": got.cpu(), "rows": mesh.rows(idx.shape[1]),
+            "local_rows": local.shape[0]}
+
+
+JOBS = {"steps": steps_job, "train": train_job, "gather": gather_job}
+
+
+def run_jobs(dev, jobs: list[dict], out_dir: Path) -> None:
+    rank = dist.get_rank()
+    for job in jobs:
+        res = JOBS[job["fn"]](dev, **job.get("kw", {}))
+        torch.save(res, out_dir / f"{job['name']}.{rank}.pt")
+
+
+def worker(rank: int, world: int, port: int, device: str, backend: str,
+           jobs: list[dict], out_dir: str, timeout_s: float) -> None:
+    """One rank of ``spawn``: joins the group, runs the jobs, leaves. f32
+    convs and matmuls stay f32 (no TF32), as in chip_smoke.py's parity
+    phase, so an f32 step compares with the dp=1 step there."""
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    dev = torch.device(device)
+    maybe_initialize_distributed(dev, backend, timeout_s)
+    try:
+        run_jobs(dev, jobs, Path(out_dir))
+    except BaseException:
+        (Path(out_dir) / f"error.{rank}.txt").write_text(
+            traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(world: int, jobs: list[dict], out_dir: str | Path,
+          device: str = "cpu", backend: str = "gloo",
+          timeout_s: float = CPU_TIMEOUT_S) -> dict[str, list]:
+    """Runs ``jobs`` on ``world`` spawned ranks; {job name: [result of
+    rank 0, rank 1, ...]}."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    torch.multiprocessing.spawn(
+        worker, args=(world, free_port(), device, backend, jobs, str(out),
+                      timeout_s), nprocs=world, join=True)
+    return {j["name"]: [torch.load(out / f"{j['name']}.{r}.pt",
+                                   weights_only=False)
+                        for r in range(world)] for j in jobs}
+
+
+# -- the script: four cards --------------------------------------------------
+
+PRESETS = ("wgan_gp_b64", "music_44k_dp16")
+F32_BATCH = 8            # 2 rows per rank at dp=4
+RATE_STEPS, RATE_LOG = 30, 10      # cli train: the rate of steps 11-30
+RESUME_STEPS, RESUME_KILL_AT = 6, 3
+RUN_TIMEOUT_S = 900
+
+
+def digest(blob: dict) -> str:
+    """sha256 over a state's tensors, in order: equal digests, equal
+    bits."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            h.update(bits_of(x).numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+    walk(state_parts(blob))
+    return h.hexdigest()
+
+
+def _gather(obj) -> list:
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _profile_step(cfg, dev, mesh, raw, labels) -> dict:
+    """One bf16 step of a fresh state under torch.profiler: the device
+    time of NCCL's kernels (the all-reduces, and ZeRO-1's all-gathers),
+    of all kernels, and the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step
+    st = create_train_state(cfg, device=dev, mesh=mesh)
+    step = build_train_step(cfg, dev, mesh)
+    rows = mesh.rows(raw.shape[1])
+    raw, labels = raw[:, rows].to(dev), labels[:, rows].to(dev)
+    step(st, raw, labels)                       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(st, raw, labels)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    nccl, total, calls = 0.0, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        total += us / 1e3
+        if "nccl" in e.key.lower():
+            nccl += us / 1e3
+            calls += e.count
+    return {"wall_ms": wall, "device_ms": total, "nccl_ms": nccl,
+            "nccl_kernels": calls}
+
+
+def allreduce_ms(cfg, dev, iters: int = 10) -> dict:
+    """The step's all-reduces alone: each net's flat f32 bucket (one per
+    update: n_critic of D's, one of G's), after a barrier so no rank
+    waits for another; CUDA events, the mean of ``iters`` after one
+    warm-up. Per step: n_critic D buckets, one G bucket."""
+    from audiogan_tpu_torch.train.state import create_train_state
+    st = create_train_state(cfg, device=dev)
+    out = {}
+    for name, mod in (("d", st.d), ("g", st.g)):
+        n = sum(p.numel() for p in mod.parameters())
+        flat = torch.ones(n, device=dev)
+        dist.all_reduce(flat)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(iters):
+            dist.all_reduce(flat)
+        t1.record()
+        torch.cuda.synchronize(dev)
+        out[name] = {"params": n, "bytes": 4 * n,
+                     "ms": t0.elapsed_time(t1) / iters}
+    out["per_step_ms"] = (cfg.loss.n_critic * out["d"]["ms"]
+                          + out["g"]["ms"])
+    return out
+
+
+def corpus_exchange_ms(cfg, dev, iters: int = 10) -> dict:
+    """The sharded corpus's exchange of one step of cfg (its views of the
+    global batch, seeded indices into 4 V B random clips) against the
+    replicated gather of the same rows from a corpus of that size held
+    whole on this card:
+    host ms per call (the plan included), the mean of ``iters`` after a
+    warm-up, each after a barrier so no rank waits for another."""
+    from audiogan_tpu_torch.parallel.sharded_corpus import (
+        sharded_corpus_gather)
+    from audiogan_tpu_torch.train.step import num_views
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = DataMesh(world, rank)
+    v, batch = num_views(cfg), cfg.train.batch_size
+    n_local = 4 * v * batch // world
+    idx = np.random.default_rng(0).integers(0, n_local * world, (v, batch))
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    local = torch.randint(-32768, 32767, (n_local, cfg.data.store_len),
+                          generator=gen, device=dev, dtype=torch.int16)
+    whole = local.repeat(world, 1)
+    mine = idx[:, mesh.rows(batch)].reshape(-1)
+
+    def timed(fn) -> float:
+        fn()
+        total = 0.0
+        for _ in range(iters):
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            total += time.perf_counter() - t0
+        return total / iters * 1e3
+    out = {"clips_per_rank": int(mine.size),
+           "bytes_per_rank": int(mine.size) * cfg.data.store_len * 2,
+           "sharded_ms": timed(lambda: sharded_corpus_gather(local, idx,
+                                                             mesh)),
+           "replicated_ms": timed(lambda: whole[torch.from_numpy(mine).to(
+               dev)])}
+    del local, whole
+    return out
+
+
+def preset_checks(cfg, dev, out: Path) -> dict | None:
+    """The in-process checks of one preset at dp = world size (the
+    module docstring); rank 0's report, None elsewhere."""
+    from audiogan_tpu_torch.config import MeshCfg
+    from audiogan_tpu_torch.train.step import num_views
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out.mkdir(parents=True, exist_ok=True)
+
+    def on(c, dp, fsdp=False, **train):
+        return c.replace(mesh=MeshCfg(dp=dp, fsdp=fsdp),
+                         train=dataclasses.replace(c.train, **train))
+
+    def batches(c, seed, n=2):
+        return [random_raw(c, num_views(c), c.train.batch_size,
+                                      seed + s) for s in range(n)]
+    report = {"preset": cfg.name, "dp": world}
+    # f32 at F32_BATCH against the dp=1 steps on rank 0's card, from one
+    # warm state (the bf16 steps below start there too)
+    c32 = on(cfg, 1, dtype="float32", batch_size=F32_BATCH)
+    f32_batches = batches(c32, 40)
+    warm = steps_job(dev, c32.to_json(), batches(c32, 30, 1), solo=True)
+    if rank == 0:
+        torch.save(warm, out / "warm.pt")
+    dist.barrier()
+    warm = torch.load(out / "warm.pt", weights_only=False)
+    want = steps_job(dev, c32.to_json(), f32_batches, state=warm, solo=True)
+    got = steps_job(dev, on(c32, world).to_json(), f32_batches, state=warm)
+    if rank == 0:
+        report["f32"] = compare_blobs(got, want, PARITY_REL_TOL,
+                                      PARITY_PARAM_TOL)
+        report["f32"]["batch"] = F32_BATCH
+    del want
+    if len(set(_gather(digest(got)))) != 1:
+        raise AssertionError(f"{cfg.name} f32: ranks differ")
+    # bf16 at the preset's batch: twice, and with ZeRO-1, to the bit
+    bf_batches = batches(cfg, 50)
+    runs = {name: steps_job(dev, on(cfg, world, fsdp).to_json(), bf_batches,
+                            state=warm)
+            for name, fsdp in (("a", False), ("b", False), ("fsdp", True))}
+    digests = {name: _gather(digest(r)) for name, r in runs.items()}
+    if len({d for ds in digests.values() for d in ds}) != 1:
+        raise AssertionError(f"{cfg.name} bf16: states differ {digests}")
+    launches = _gather(runs["a"]["launches"])
+    want_l = {**conv_step_launches(cfg),
+              "ingest": num_views(cfg)}
+    for r, got_l in enumerate(launches):
+        for name, n in want_l.items():
+            if got_l[name] != n * len(bf_batches):
+                raise AssertionError(f"rank {r}: {name} {got_l[name]} in "
+                                     f"{len(bf_batches)} steps, want {n}")
+    rows = runs["fsdp"]["moment_rows"]
+    if not any(kept * world == n for kept, n in rows.values()):
+        raise AssertionError(f"ZeRO-1 kept whole moments: {rows}")
+    want = steps_job(dev, on(cfg, 1).to_json(), bf_batches, state=warm,
+                     solo=True)
+    exact = steps_job(dev, on(cfg, 1, dtype="float32").to_json(),
+                      bf_batches, state=warm, solo=True)
+    if rank == 0:
+        report["bf16"] = {
+            "batch": cfg.train.batch_size, "steps": len(bf_batches),
+            "ranks_runs_equal": 3 * world,
+            "vs_dp1": hold_bf16_to_dp1(runs["a"], want, exact),
+            "launches_per_rank_step": {k: v // len(bf_batches)
+                                       for k, v in launches[0].items()},
+            "seconds": runs["a"]["seconds"],
+            "seconds_dp1": want["seconds"]}
+    del runs, want, exact, warm
+    # the all-reduces' device time in one profiled step
+    prof = _profile_step(on(cfg, world), dev, make_mesh(on(cfg, world)),
+                         *bf_batches[0])
+    report["profile_rank0"] = prof
+    report["profile_nccl_ms_by_rank"] = [p["nccl_ms"]
+                                         for p in _gather(prof)]
+    report["allreduce"] = allreduce_ms(cfg, dev)
+    report["corpus_exchange"] = _gather(corpus_exchange_ms(cfg, dev))
+    # the loop on the sharded corpus against the replicated one
+    loop_runs = {}
+    for mode in ("replicate", "shard"):
+        c = on(cfg, world, log_every=1).replace(data=dataclasses.replace(
+            cfg.data, device_corpus=True, device_corpus_shard=mode))
+        loop_runs[mode] = train_job(dev, c.to_json(), str(out / mode), 2,
+                                    resume=False)
+    dg = {m: _gather(digest(r)) for m, r in loop_runs.items()}
+    if len({d for ds in dg.values() for d in ds}) != 1:
+        raise AssertionError(f"{cfg.name}: sharded corpus differs")
+    if rank == 0:
+        lines = [[{k: v for k, v in ln.items() if k != "seconds"}
+                  for ln in r["lines"] if "step" in ln]
+                 for r in loop_runs.values()]
+        if lines[0] != lines[1] or len(lines[0]) != 2:
+            raise AssertionError(f"{cfg.name}: sharded records {lines}")
+        report["sharded_corpus"] = {"equal_records": len(lines[0]),
+                                    "placements": [
+            ln["init"]["corpus"] for r in loop_runs.values()
+            for ln in r["lines"] if "init" in ln]}
+    return report if rank == 0 else None
+
+
+def worker_main(work: Path, presets: tuple[str, ...] = PRESETS) -> int:
+    """--worker: one rank under torchrun (NCCL on cuda:LOCAL_RANK); its
+    workdirs under ``work``."""
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.device import resolve_device
+    dev = resolve_device(None)
+    maybe_initialize_distributed(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    try:
+        for name in presets:
+            cfg = apply_overrides(get_preset(name),
+                                  [f"mesh.dp={world}"]).validate()
+            t0 = time.time()
+            rep = preset_checks(cfg, dev, work / name)
+            if rep is not None:
+                rep["seconds"] = time.time() - t0
+                print(json.dumps({"check": rep}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(ranks: int, *args) -> list[str]:
+    return [sys.executable, "-m", "torch.distributed.run",
+            "--nproc_per_node", str(ranks), "--master_addr", "127.0.0.1",
+            "--master_port", str(free_port()), *map(str, args)]
+
+
+def _cli(*args) -> list[str]:
+    return ["-m", "audiogan_tpu_torch.cli", "train", *map(str, args),
+            "--no_tensorboard"]
+
+
+def _run(cmd: list[str], env=None) -> tuple[list[dict], float]:
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=RUN_TIMEOUT_S, env=env)
+    if proc.returncode:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return ([json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")], time.time() - t0)
+
+
+def _records(workdir: Path) -> dict[int, dict]:
+    return {r["step"]: r for r in map(
+        json.loads, (workdir / "metrics.jsonl").read_text().splitlines())}
+
+
+def rate(preset: str, ranks: int, workdir: Path) -> dict:
+    """cli train of the preset at dp = ranks (torchrun; one plain process
+    on card 0 at 1): steps/s of steps RATE_LOG + 1 to RATE_STEPS."""
+    sets = ["--set", f"mesh.dp={ranks}", "--set",
+            f"train.log_every={RATE_LOG}", "--set", "train.ckpt_every=0",
+            "--set", "train.sample_every=0"]
+    args = _cli("--preset", preset, "--total_steps", RATE_STEPS,
+                "--workdir", workdir, *sets)
+    if ranks == 1:
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+        _, secs = _run([sys.executable, *args], env)
+    else:
+        _, secs = _run(_torchrun(ranks, *args))
+    recs = _records(workdir)
+    window = [recs[s]["steps_per_sec"]
+              for s in range(2 * RATE_LOG, RATE_STEPS + 1, RATE_LOG)]
+    return {"preset": preset, "dp": ranks,
+            "batch_per_rank": 64 // ranks,
+            "steps_per_s": sum(window) / len(window), "windows": window,
+            "seconds": secs,
+            "last": {k: recs[RATE_STEPS][k] for k in
+                     ("d_loss", "g_loss", "w_dist", "gp")}}
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every live process below pid (from /proc), children first."""
+    children: dict[int, list[int]] = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        children.setdefault(int(fields[1]), []).append(int(stat.parent.name))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def _alive(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+    except OSError:
+        return False
+    return state.split()[0] != "Z"
+
+
+def _kill_tree(proc: subprocess.Popen) -> None:
+    """SIGKILL torchrun and every worker it started (the workers run in
+    sessions of their own, so the agent's process group misses them),
+    then wait until none is left."""
+    pids = [proc.pid, *_descendants(proc.pid)]
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait(timeout=120)
+    deadline = time.time() + 120
+    while any(_alive(pid) for pid in pids):
+        if time.time() > deadline:
+            raise AssertionError(f"processes outlived SIGKILL: {pids}")
+        time.sleep(0.1)
+
+
+def kill_and_resume(ranks: int, base: Path) -> dict:
+    """The flagship at dp = ranks: uninterrupted to RESUME_STEPS, and
+    killed (the whole process group) when it logs its RESUME_KILL_AT
+    checkpoint, then run again: the same last record (but time and
+    rates) and checkpoint, to the bit."""
+    def cmd(workdir):
+        return _torchrun(ranks, *_cli(
+            "--preset", "wgan_gp_b64", "--total_steps", RESUME_STEPS,
+            "--set", f"mesh.dp={ranks}", "--set",
+            f"train.ckpt_every={RESUME_KILL_AT}", "--set",
+            "train.log_every=1", "--workdir", workdir))
+    a, b = base / "a", base / "b"
+    _, a_s = _run(cmd(a))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd(b), cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    killed = False
+    try:
+        for raw in proc.stdout:
+            if raw.startswith('{"ckpt"') and \
+                    json.loads(raw)["ckpt"]["step"] == RESUME_KILL_AT:
+                _kill_tree(proc)
+                killed = True
+                break
+    finally:
+        if not killed:
+            _kill_tree(proc)
+        proc.stdout.close()
+    k_s = time.time() - t0
+    if not killed:
+        raise AssertionError("the dp run was not killed at its checkpoint")
+    left = sorted(int(q.stem) for q in (b / "ckpt").glob("*.pt"))
+    if left != [RESUME_KILL_AT]:
+        raise AssertionError(f"the killed run left {left}")
+    lines, r_s = _run(cmd(b))
+    restored = [ln["resume"]["step"] for ln in lines if "resume" in ln]
+    if restored != [RESUME_KILL_AT]:
+        raise AssertionError(f"the second run restored {restored}")
+    ra, rb = _records(a)[RESUME_STEPS], _records(b)[RESUME_STEPS]
+    keys = sorted(k for k in ra if k != "time" and "per_sec" not in k)
+    if any(ra[k] != rb.get(k) for k in keys):
+        raise AssertionError(f"step {RESUME_STEPS} differs: {ra} != {rb}")
+    last = f"ckpt/{RESUME_STEPS}.pt"
+    n = same_checkpoint(a / last, b / last)
+    return {"dp": ranks, "restored_step": restored[0],
+            "compared_keys": keys, "tensors_equal": n,
+            "seconds": {"uninterrupted": a_s, "killed": k_s,
+                        "resumed": r_s}, "w_dist": rb["w_dist"]}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="build/dp_check/results",
+                    help="where dp_check.jsonl goes (relative to the repo)")
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--presets", nargs="+", default=list(PRESETS),
+                    choices=PRESETS, help="the presets to check")
+    ap.add_argument("--checks_only", action="store_true",
+                    help="only the in-process checks: no cli train rates, "
+                         "no kill-and-resume")
+    ap.add_argument("--worker", action="store_true",
+                    help="one rank under torchrun (internal)")
+    args = ap.parse_args(argv)
+    out = (ROOT / args.out).resolve()
+    # workdirs and checkpoints: build/, which neither git nor the chip
+    # tool's output directory takes
+    work = ROOT / "build" / "dp_check"
+    if args.worker:
+        return worker_main(work / "checks", tuple(args.presets))
+    import concurrent.futures
+
+    from audiogan_tpu_torch.kernels import _build
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < args.ranks:
+        print(f"dp_check: needs {args.ranks} CUDA devices", file=sys.stderr)
+        return 1
+    shutil.rmtree(work, ignore_errors=True)
+    out.mkdir(parents=True, exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    results = {"cards": card}
+    emit = []
+
+    def show(key, value):
+        results[key] = value
+        line = json.dumps({key: value})
+        emit.append(line)
+        print(line, flush=True)
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        list(pool.map(_build.build, ("convt1d", "conv1d", "ingest",
+                                     "gru_scan", "sconv", "gru_cell")))
+    show("build_seconds", time.time() - t0)
+    lines, secs = _run(_torchrun(args.ranks, "-m",
+                                 "audiogan_tpu_torch.tools.dp_check",
+                                 "--worker", "--presets", *args.presets))
+    show("checks", [ln["check"] for ln in lines if "check" in ln])
+    show("checks_seconds", secs)
+    if not args.checks_only:
+        rates = []
+        for preset in args.presets:
+            for ranks in (args.ranks, 1):
+                rates.append(rate(preset, ranks,
+                                  work / f"rate_{preset}_{ranks}"))
+        show("rates", rates)
+        show("resume", kill_and_resume(args.ranks, work / "resume"))
+    (out / "dp_check.jsonl").write_text("\n".join(emit) + "\n")
+    print(json.dumps({"ok": True, "cards": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -36,12 +36,12 @@ def rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def split(preset: str, dev: torch.device) -> dict:
-    from chip_smoke import random_raw
     from audiogan_tpu_torch.config import get_preset
     from audiogan_tpu_torch.losses import (batch_spectral_matching_loss,
                                            wgan_g_loss)
     from audiogan_tpu_torch.ops.ingest import ingest_batch
     from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.tools.step_checks import random_raw
     from audiogan_tpu_torch.train.step import (build_train_step, draw_step,
                                                num_views)
     cpu = torch.device("cpu")

@@ -1,0 +1,254 @@
+"""What chip_smoke.py and tools/dp_check.py both hold a training step
+to: the parity bounds of a step against a reference step, random global
+batches, the conv geometries a WaveGAN step runs and the K1/K1' launches
+its structure gives, and comparisons of states and checkpoints to the
+bit. Imports nothing of chip_smoke.py, so both the script and the
+package's tools use one copy.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# a full step's metrics, and its gradients and Adam moments (relative L2
+# over each net), against the same step elsewhere (card vs CPU, dp=N vs
+# dp=1) in f32
+PARITY_REL_TOL = 1e-3
+# Adam normalizes each element: where a gradient is rounding noise (a sum
+# that cancels to ~0), the two sides may step it by up to lr in opposite
+# directions. So a parameter may differ by up to 2.5 lr (lr 1e-4); the
+# share of elements off by more than 1e-6 is reported.
+PARITY_PARAM_TOL = 2.5e-4
+PARITY_PARAM_FINE = 1e-6
+# a bf16 step at dp=N against the same bf16 step at dp=1: every conv's
+# output rounds to 8 bits at tiles the per-rank batch picks. Both start
+# from a warm state: from the seeded init Adam's first update steps each
+# element by lr times its gradient's sign, so where a gradient is rounding
+# noise the two runs step it opposite ways and ten critic updates carry
+# that on (on the card, flagship B=64, two steps from the seeded init:
+# metrics 3.2e-2 apart, moments 6.7e-2). No fixed bound separates
+# rounding from a fault, so the distance is held to the
+# error bf16 itself makes on the same steps: the dp=1 bf16 run against
+# the dp=1 f32 run, times this factor (metrics and moments each).
+DP_BF16_FACTOR = 2.0
+
+
+# -- batches and geometries -------------------------------------------------
+
+def random_raw(cfg, n_views: int, batch: int, seed: int):
+    rng = np.random.default_rng(seed)
+    raw = (rng.standard_normal((n_views, batch, cfg.data.store_len)) * 6000
+           ).clip(-32768, 32767).astype(np.int16)
+    return torch.from_numpy(raw), torch.zeros(n_views, batch,
+                                              dtype=torch.long)
+
+
+def generator_layers(cfg, batch: int) -> list[dict]:
+    """The generator's conv-transpose layers as its forward runs them."""
+    from audiogan_tpu_torch.models.wavegan import _gen_channels
+    m = cfg.model
+    t = cfg.data.clip_len // m.total_stride
+    c_in = min(m.model_dim * 2 ** (len(m.strides) - 1), m.max_channels)
+    layers = []
+    chs = _gen_channels(m.model_dim, len(m.strides), m.max_channels)
+    for i, (s, c_out) in enumerate(zip(m.strides, chs)):
+        layers.append(dict(name=f"G{i} fwd", b=batch, t_in=t, cin=c_in,
+                           cout=c_out, k=m.kernel_size, s=s,
+                           pad_lo=(m.kernel_size - 1) // 2, out_len=t * s,
+                           act="relu" if i < len(chs) - 1 else "tanh"))
+        t, c_in = t * s, c_out
+    return layers
+
+
+def critic_layers(cfg, batch: int) -> list[dict]:
+    """The critic's SAME conv1d layers as its forward runs them."""
+    from audiogan_tpu_torch.kernels.conv import _same_pads
+    from audiogan_tpu_torch.models.wavegan import _disc_channels
+    m = cfg.model
+    t, c_in = cfg.data.clip_len, 1
+    layers = []
+    chs = _disc_channels(m.model_dim, len(m.strides), m.max_channels)
+    for i, (s, c_out) in enumerate(zip(m.strides, chs)):
+        t_out, lo, hi = _same_pads(t, m.kernel_size, s)
+        layers.append(dict(name=f"D{i} fwd", b=batch, t_in=t, cin=c_in,
+                           cout=c_out, k=m.kernel_size, s=s, lo=lo, hi=hi,
+                           act="leaky_relu"))
+        t, c_in = t_out, c_out
+    return layers
+
+
+def critic_dx_layers(cfg, batch: int) -> list[dict]:
+    """dx of each critic conv: convT of the flipped taps with pad_lo =
+    K-1-lo and out_len = t_in (kernels/autograd.py), no bias, no act."""
+    out = []
+    for L in critic_layers(cfg, batch):
+        t_out = (L["t_in"] + L["lo"] + L["hi"] - L["k"]) // L["s"] + 1
+        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
+                        t_in=t_out, cin=L["cout"], cout=L["cin"], k=L["k"],
+                        s=L["s"], pad_lo=L["k"] - 1 - L["lo"],
+                        out_len=L["t_in"], act="none"))
+    return out
+
+
+def generator_dx_layers(cfg, batch: int) -> list[dict]:
+    """dx of each generator convT: conv1d of the flipped taps with lo =
+    K-1-pad_lo, hi = max((T-1)*s + K - lo - out_len, 0)."""
+    out = []
+    for L in generator_layers(cfg, batch):
+        lo = L["k"] - 1 - L["pad_lo"]
+        hi = max((L["t_in"] - 1) * L["s"] + L["k"] - lo - L["out_len"], 0)
+        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
+                        t_in=L["out_len"], cin=L["cout"], cout=L["cin"],
+                        k=L["k"], s=L["s"], lo=lo, hi=hi, act="none"))
+    return out
+
+
+def tensor_core(family: str, L: dict, dtype=torch.bfloat16) -> bool:
+    """Whether the wrapper runs geometry L in dtype on the tensor cores."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    if family == "conv1d":
+        return kconv.conv1d_tensor_core(dtype, L["t_in"], L["cin"],
+                                        L["cout"], L["k"], L["s"])
+    return kconv.convt_tensor_core(dtype, L["cin"], L["cout"], L["k"],
+                                   L["s"])
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.train.dtype)
+
+
+def conv_step_launches(cfg) -> dict:
+    """K1' and K1 launches of one WaveGAN training step, in total and on
+    the tensor-core path. Per critic micro-step, with V critic
+    calls on the views: each unfused critic conv runs V + 2 times (the
+    views' forwards, x-hat's forward, the penalty's d/dct of its dx) and
+    its dx V + 1 times (the loss's backward, the penalty's input gradient;
+    D0's dx only the latter); the G update adds one critic forward and
+    one dx per layer, and G runs forward n_critic + 1 times and its dx
+    once. With fused sites K6 and K7 take D1-D4's forward and dx. The
+    tensor-core counts follow the config's compute dtype."""
+    views = 1 if cfg.train.fused_d_views else 2
+    dtype = compute_dtype(cfg)
+    n = cfg.loss.n_critic
+    fused = cfg.model.fused_shuffle_sites != 0
+    counts = {"conv1d": 0, "convt1d": 0, "conv1d_tc": 0, "convt1d_tc": 0}
+
+    def add(family, L, times):
+        counts[family] += times
+        if tensor_core(family, L, dtype):
+            counts[family + "_tc"] += times
+    for i, (L, dx) in enumerate(zip(critic_layers(cfg, 2), critic_dx_layers(
+            cfg, 2))):
+        if fused and i > 0:
+            continue
+        add("conv1d", L, n * (views + 2) + 1)
+        add("convt1d", dx, n * (views + 1) + 1 if i > 0 else n + 1)
+    for L, dx in zip(generator_layers(cfg, 2), generator_dx_layers(cfg, 2)):
+        add("convt1d", L, n + 1)
+        add("conv1d", dx, 1)
+    return counts
+
+
+
+# -- states to the bit ------------------------------------------------------
+
+def bits_of(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def same_bits(a, b, path: str = "") -> int:
+    """Raises unless a and b (nested dicts/lists of tensors and numbers)
+    are equal to the bit; returns the count of tensors compared."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{path}: keys {sorted(a)} != {sorted(b)}")
+        return sum(same_bits(a[k], b[k], f"{path}/{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        return sum(same_bits(x, y, f"{path}/{i}")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                bits_of(a), bits_of(b)):
+            raise AssertionError(f"{path}: tensors differ")
+        return 1
+    if a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+    return 0
+
+
+def state_parts(blob: dict) -> dict:
+    """The parts of a state_blob that two equal states share to the bit."""
+    return {k: blob[k] for k in ("step", "g", "d", "opt_g", "opt_d")}
+
+
+
+def same_checkpoint(a: Path, b: Path) -> int:
+    """Every tensor and number of two checkpoints equal to the bit; the
+    count of tensors compared."""
+    ca = torch.load(a, map_location="cpu", weights_only=True)
+    cb = torch.load(b, map_location="cpu", weights_only=True)
+    parts = ("step", "seed", "g", "d", "opt_g", "opt_d")
+    return same_bits({k: ca[k] for k in parts}, {k: cb[k] for k in parts})
+
+
+def compare_blobs(got: dict, want: dict, rel_tol: float,
+                  param_tol: float | None) -> dict:
+    """Two runs of the same steps (``want`` at dp=1): each step's metrics
+    within rel_tol of the reference (relative to max(|x|, 1e-3)), the
+    parameters within param_tol (None: reported, not held), each net's
+    Adam moments within rel_tol as one relative L2 error; raises if they
+    differ (with every error), else the worst errors."""
+    if len(got["metrics"]) != len(want["metrics"]):
+        raise AssertionError(f"{len(got['metrics'])} steps against "
+                             f"{len(want['metrics'])}")
+    metric_err, worst = 0.0, None
+    for mg, mw in zip(got["metrics"], want["metrics"]):
+        if set(mg) != set(mw):
+            raise AssertionError(f"dp metrics {sorted(mg)} != {sorted(mw)}")
+        for k in mw:
+            err = abs(mg[k] - mw[k]) / max(abs(mw[k]), 1e-3)
+            if not np.isfinite(mg[k]):
+                err = float("inf")
+            if err >= metric_err:
+                metric_err, worst = err, (k, mg[k], mw[k])
+    param_err, moment_err = 0.0, 0.0
+    for net in ("g", "d"):
+        for n, ref in want[net].items():
+            param_err = max(param_err,
+                            (got[net][n] - ref).abs().max().item())
+        for key in ("exp_avg", "exp_avg_sq"):
+            sq = [0.0, 0.0]
+            for i, st in want["opt_" + net]["state"].items():
+                a = got["opt_" + net]["state"][i][key].double()
+                b = st[key].double()
+                sq[0] += float((a - b).square().sum())
+                sq[1] += float(b.square().sum())
+            moment_err = max(moment_err, (sq[0] / max(sq[1], 1e-300)) ** 0.5)
+    out = {"metric_max_rel_err": metric_err, "worst_metric": worst,
+           "param_max_abs_err": param_err, "moment_max_rel_l2": moment_err,
+           "tol_rel": rel_tol, "tol_param_abs": param_tol}
+    if not (metric_err <= rel_tol and moment_err <= rel_tol
+            and (param_tol is None or param_err <= param_tol)):
+        raise AssertionError(f"dp state differs: {out}")
+    return out
+
+
+def hold_bf16_to_dp1(got: dict, want: dict, exact: dict) -> dict:
+    """bf16 steps at dp=N (``got``) against the same bf16 steps at dp=1
+    (``want``), all from one warm state, held to DP_BF16_FACTOR times
+    the distance of ``want`` from the same steps in f32 (``exact``): the
+    worst metric and the worst moment relative L2 each. Raises if
+    farther, else both comparisons."""
+    dp = compare_blobs(got, want, float("inf"), None)
+    own = compare_blobs(want, exact, float("inf"), None)
+    out = {"dp_vs_dp1": dp, "bf16_vs_f32": own, "factor": DP_BF16_FACTOR}
+    for key in ("metric_max_rel_err", "moment_max_rel_l2"):
+        if not dp[key] <= DP_BF16_FACTOR * own[key]:
+            raise AssertionError(f"bf16 dp state differs beyond bf16's "
+                                 f"own error ({key}): {out}")
+    return out

@@ -1,16 +1,27 @@
-"""Training loop of the port, audiogan_tpu/train/loop.py on one device.
+"""Training loop of the port, audiogan_tpu/train/loop.py.
 
 Resolves or builds the corpus (data_dir '' -> the seeded synthetic SC09
-fixture in the workdir) and feeds the step by one of the reference's two
-data paths (``use_device_corpus``): with data.device_corpus on, the
+fixture in the workdir) and feeds the step by one of the reference's
+three data paths (``corpus_placement``): with data.device_corpus on, the
 corpus's int16 clips go to the device once and the host sends only the
-(seed, step)-pure clip indices per step; with it off, or when the packed
-corpus exceeds DEVICE_CORPUS_MAX_GB, the host batcher gathers each step's
-clips on the host (a prefetch thread) and ``HostFeed`` ships them from
-pinned memory, the next step's copy on a side stream while the current
-step runs. Both paths give the step the same clips, so they train to the
-same bits. A mesh the port does not run, and the sharded corpus, raise
-(``check_ported``).
+(seed, step)-pure clip indices per step, the clips replicated on every
+card or, when they do not fit there but a 1/dp share does (or with
+data.device_corpus_shard=shard), sharded over the data axis
+(parallel/sharded_corpus.py); with it off, or when even a share exceeds
+DEVICE_CORPUS_MAX_GB, the host batcher gathers each step's clips on the
+host (a prefetch thread) and ``HostFeed`` ships them from pinned memory,
+the next step's copy on a side stream while the current step runs. Every
+path gives the step the same clips, so they train to the same bits.
+
+Data parallelism: under torchrun (one process per card) the loop joins
+the process group (parallel/multihost.py); each rank builds the same
+state from the seed, feeds its rows of the global batch and runs the
+global step's rows (train/step.py). Rank 0 alone builds the corpus and
+writes config.json, the checkpoints, metrics.jsonl, TensorBoard and the
+sample dumps, and logs; the others wait at a barrier where they need its
+files. Every rank restores the same checkpoint. cp or tp above 1, and a
+mesh whose size is not the number of processes, raise before the device
+is touched (``check_ported``).
 
 Crash-only, as the reference: a checkpoint every ckpt_every steps and at
 the last one; ``resume`` picks up the latest complete checkpoint; the data
@@ -28,6 +39,7 @@ go to ``log``, and the step rate of the window after it leaves it out.
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 from pathlib import Path
@@ -41,6 +53,11 @@ from audiogan_tpu_torch.data.corpus import Corpus, HostBatcher, build_corpus
 from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
 from audiogan_tpu_torch.data.wavio import write_wav
 from audiogan_tpu_torch.device import resolve_device
+from audiogan_tpu_torch.parallel.mesh import DataMesh, check_world
+from audiogan_tpu_torch.parallel.multihost import make_train_mesh
+from audiogan_tpu_torch.parallel.sharded_corpus import (corpus_num_shards,
+                                                        local_shard,
+                                                        wrap_sharded_corpus)
 from audiogan_tpu_torch.train.state import (TrainState, create_train_state,
                                             param_count)
 from audiogan_tpu_torch.train.sample import generate
@@ -92,12 +109,10 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
 
 def check_ported(cfg: Config) -> None:
     """Raises NotImplementedError for the reference loop's options the
-    port has not ported: a mesh other than one device, the sharded
-    corpus, and three tracing options."""
-    cfg.check_single_device()
-    if cfg.data.device_corpus and cfg.data.device_corpus_shard == "shard":
-        raise NotImplementedError("data.device_corpus_shard=shard is not "
-                                  "ported to audiogan_tpu_torch")
+    port has not ported (cp or tp above 1, three tracing options), and
+    ValueError when the mesh asks for another number of processes than
+    run (parallel/mesh.py::check_world)."""
+    check_world(cfg)
     t = cfg.train
     for name, on in (("train.profile_dir", bool(t.profile_dir)),
                      ("train.dump_hlo", t.dump_hlo),
@@ -107,18 +122,35 @@ def check_ported(cfg: Config) -> None:
                                       f"audiogan_tpu_torch")
 
 
-def use_device_corpus(cfg: Config, corpus: Corpus) -> bool:
-    """data.device_corpus, unless the packed corpus exceeds
-    DEVICE_CORPUS_MAX_GB: then the host batcher, with a notice."""
+def corpus_placement(cfg: Config, corpus: Corpus, mesh: DataMesh,
+                     say: Callable[[str], None] = print) -> str:
+    """"replicate", "shard" or "host", the reference's rule
+    (audiogan_tpu/train/loop.py:149-175): data.device_corpus off ->
+    host; device_corpus_shard=shard -> shard; auto -> shard when the
+    replicated corpus exceeds DEVICE_CORPUS_MAX_GB but a 1/dp share does
+    not; over the limit even so -> the host batcher, with a notice."""
     if not cfg.data.device_corpus:
-        return False
+        return "host"
     gb = corpus.clips.nbytes / 2**30
+    nsh = corpus_num_shards(mesh)
+    mode = cfg.data.device_corpus_shard
+    if mode == "shard":
+        return "shard"
+    if mode == "auto" and gb > DEVICE_CORPUS_MAX_GB and nsh > 1 \
+            and gb / nsh <= DEVICE_CORPUS_MAX_GB:
+        say(f"[data] corpus is {gb:.1f} GiB: sharding over {nsh} data "
+            f"shards ({gb / nsh:.1f} GiB/device)")
+        return "shard"
     if gb > DEVICE_CORPUS_MAX_GB:
-        print(f"[data] corpus is {gb:.1f} GiB > {DEVICE_CORPUS_MAX_GB} GiB "
-              f"even at 1 shards: falling back to the host batcher "
-              f"(device_corpus off)", flush=True)
-        return False
-    return True
+        say(f"[data] corpus is {gb:.1f} GiB > {DEVICE_CORPUS_MAX_GB} GiB "
+            f"even at {nsh} shards: falling back to the host batcher "
+            f"(device_corpus off)")
+        return "host"
+    return "replicate"
+
+
+def _quiet(_: str) -> None:
+    pass
 
 
 class HostFeed:
@@ -134,7 +166,7 @@ class HostFeed:
         self.batcher, self.device = batcher, device
         self.cuda = device.type == "cuda"
         if self.cuda:
-            shape = (batcher.n_views, batcher.batch_size,
+            shape = (batcher.n_views, batcher.local_batch,
                      batcher.corpus.clips.shape[1])
             self.stream = torch.cuda.Stream(device)
             self.host = [torch.empty(shape, dtype=torch.int16,
@@ -196,22 +228,31 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     """Runs from the latest checkpoint (or step 0, or always from 0 without
     ``resume``) up to step ``steps`` (default cfg.train.total_steps);
     returns the state and the last logged step's metrics as floats.
-    ``tensorboard=False`` skips the TensorBoard scalars."""
-    dev = resolve_device(device)
+    ``tensorboard=False`` skips the TensorBoard scalars. Under torchrun
+    every rank calls it; only rank 0 logs and writes."""
     cfg.validate()
     check_ported(cfg)
+    dev = resolve_device(device)
+    mesh = make_train_mesh(cfg, dev)
+    lead = mesh.rank == 0
+    say = functools.partial(print, flush=True) if lead else _quiet
+    log = log if lead else _quiet
     total = cfg.train.total_steps if steps is None else steps
     workdir = Path(workdir)
-    workdir.mkdir(parents=True, exist_ok=True)
-    (workdir / "config.json").write_text(cfg.to_json())
+    if lead:
+        workdir.mkdir(parents=True, exist_ok=True)
+        (workdir / "config.json").write_text(cfg.to_json())
+        resolve_corpus(cfg, workdir)
+    mesh.barrier()
     corpus = resolve_corpus(cfg, workdir)
     check_corpus(cfg, corpus)
-    resident = use_device_corpus(cfg, corpus)
-    state = create_train_state(cfg, device=dev)
+    placement = corpus_placement(cfg, corpus, mesh, say)
+    state = create_train_state(cfg, device=dev, mesh=mesh)
     log(json.dumps({"init": {"g_params": param_count(state.g),
                              "d_params": param_count(state.d),
                              "corpus_clips": len(corpus),
-                             "device": str(dev)}}))
+                             "device": str(dev), "dp": mesh.dp,
+                             "corpus": placement}}))
     mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts,
                                  config=cfg)
     if resume and ckpt_lib.latest_step(mngr) is not None:
@@ -219,22 +260,17 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
         log(json.dumps({"resume": {"step": state.step}}))
     t = cfg.train
     b, n_views = t.batch_size, num_views(cfg)
-    inner = build_train_step(cfg, dev)
-    writer = MetricsWriter(workdir, also_tensorboard=tensorboard)
+    inner = build_train_step(cfg, dev, mesh)
+    writer = (MetricsWriter(workdir, also_tensorboard=tensorboard)
+              if lead else None)
+    # the sharded corpus plans its exchange from the global indices
     batcher = HostBatcher(corpus, b, n_views, seed=t.seed,
-                          indices_only=resident)
+                          indices_only=placement != "host",
+                          rows=None if placement == "shard" else mesh.rows(b))
     every = max(t.log_every, 1)
     metrics: dict = {}
     try:
-        if resident:
-            clips = torch.from_numpy(np.array(corpus.clips)).to(dev)
-            resident_step = wrap_device_corpus(inner)
-
-            def run_step(step):
-                idx, labels = batcher.get(step)
-                return resident_step(state, clips, torch.from_numpy(idx),
-                                     torch.from_numpy(labels))
-        else:
+        if placement == "host":
             feed = HostFeed(batcher, state.step, total, dev)
 
             def run_step(step):
@@ -242,6 +278,19 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                 out = inner(state, raw, labels)
                 feed.done(step)
                 return out
+        else:
+            if placement == "shard":
+                clips = torch.from_numpy(local_shard(corpus.clips, mesh))
+                resident_step = wrap_sharded_corpus(inner, mesh)
+            else:
+                clips = torch.from_numpy(np.array(corpus.clips))
+                resident_step = wrap_device_corpus(inner)
+            clips = clips.to(dev)
+
+            def run_step(step):
+                idx, labels = batcher.get(step)
+                return resident_step(state, clips, torch.from_numpy(idx),
+                                     torch.from_numpy(labels))
         t0 = t_log = time.perf_counter()
         last_logged = state.step
         for step in range(state.step, total):
@@ -258,8 +307,9 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                          / cfg.data.sample_rate)
                 log(json.dumps({"step": done, **metrics,
                                 "seconds": now - t0}))
-                writer.write(done, {**metrics, "steps_per_sec": sps,
-                                    "train_audio_sec_per_sec": audio})
+                if writer is not None:
+                    writer.write(done, {**metrics, "steps_per_sec": sps,
+                                        "train_audio_sec_per_sec": audio})
                 bad = [k for k, v in metrics.items() if not np.isfinite(v)]
                 if bad:
                     raise FloatingPointError(f"non-finite {bad} at step "
@@ -268,17 +318,20 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
             if (t.ckpt_every and done % t.ckpt_every == 0) or done == total:
                 t_save = time.perf_counter()
                 nbytes = ckpt_lib.save(
-                    mngr, state, metrics if last_logged == done else None)
+                    mngr, state, metrics if last_logged == done else None,
+                    write=lead)
+                mesh.barrier()
                 log(json.dumps({"ckpt": {
                     "step": done, "bytes": nbytes,
                     "seconds": time.perf_counter() - t_save}}))
                 t_log += time.perf_counter() - t_save
-            if t.sample_every and done % t.sample_every == 0:
+            if lead and t.sample_every and done % t.sample_every == 0:
                 t_dump = time.perf_counter()
                 dump_samples(cfg, state, workdir, done, dev)
                 t_log += time.perf_counter() - t_dump
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         batcher.close()
     return state, metrics
 

@@ -21,6 +21,23 @@ for the G update (and the crop offsets of its real view when the
 spectral term is on), all from utils.prng generators of (seed, step,
 role). ``draws=`` replaces that stream (tests inject the reference's).
 
+Data parallelism (``mesh``, parallel/mesh.py) is the reference's global
+step split by rows, not a step per replica: every rank draws the global
+step's draws at the global batch B and takes its rows [r b, (r+1) b),
+b = B / dp (``rank_draws``): the crop offsets, z, eps, labels and
+shifts; the fused views' 2B shifts from each half, [real; fake]; the
+penalty's shifts, drawn at the global chunk size B / gp_batch_chunks and
+shared by every chunk, by global row (row j takes shift j mod the chunk
+size). ``raw`` and ``labels`` hold this rank's rows. After each backward
+the net's gradients are averaged over the ranks in one flat all-reduce,
+then Adam runs (ZeRO-1 with mesh.fsdp, train/state.py); the metrics are
+averaged too; G's spectral term compares means over the global batch
+(losses/stft_loss.py). Every loss is a mean over rows, so the rank-mean
+of the rank gradients is the gradient of the global step. No
+DistributedDataParallel: its reducer hooks run inside the backward,
+which neither the penalty's create_graph backward nor the calling-thread
+backward below would keep.
+
 Every backward of the step runs on the calling thread
 (``torch.autograd.set_multithreading_enabled(False)``), so the step is a
 function of (seed, step) to the bit from a process's first step on. The
@@ -39,6 +56,7 @@ algorithms (``cudnn_deterministic``).
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -52,6 +70,7 @@ from audiogan_tpu_torch.losses import (batch_spectral_matching_loss,
 from audiogan_tpu_torch.ops.framing import crop_offsets
 from audiogan_tpu_torch.ops.ingest import crop_slack, ingest_batch
 from audiogan_tpu_torch.ops.phase_shuffle import draw_shifts
+from audiogan_tpu_torch.parallel.mesh import DataMesh, make_mesh
 from audiogan_tpu_torch.train.state import TrainState
 from audiogan_tpu_torch.utils import prng
 
@@ -116,15 +135,60 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
     return {"critic": critic, "generator": g}
 
 
-def build_train_step(cfg: Config, device=None) -> Callable:
-    """step_fn(state, raw [num_views, B, store_len] int16, labels
-    [num_views, B], draws=None) -> metrics (0-d tensors on the device);
-    updates ``state`` in place. Runs on the card unless ``device`` says
-    otherwise. Raises NotImplementedError for a mesh the port does not
-    run (Config.check_single_device)."""
-    cfg.check_single_device()
-    gp_chunks = cfg.loss.gp_batch_chunks
-    if gp_chunks > 1 and cfg.data.num_classes:
+def penalty_rows(cfg: Config, mesh: DataMesh, batch: int) -> int:
+    """Rows per chunk of the penalty on this rank's rows. The reference
+    splits the global batch B into gp_batch_chunks chunks of
+    c = B / gp_batch_chunks rows; a rank's b rows split into chunks of
+    gcd(b, c) rows, so no chunk holds more rows than the reference's and
+    each lies inside one of the reference's. Any b and c that validate
+    accepts split so."""
+    return math.gcd(batch // mesh.dp, batch // cfg.loss.gp_batch_chunks)
+
+
+def rank_draws(cfg: Config, draws: dict, mesh: DataMesh,
+               batch: int) -> dict:
+    """This rank's part of the global step's draws (the module
+    docstring); at dp = 1 all of them. The penalty's shifts become a
+    list of one [sites, rows] block per chunk of ``penalty_rows``."""
+    rows = mesh.rows(batch)
+    lo, b = rows.start, rows.stop - rows.start
+    c = batch // cfg.loss.gp_batch_chunks
+    per = penalty_rows(cfg, mesh, batch)
+
+    def lead(t):
+        return None if t is None else t[rows]
+
+    def shifts(key, t):
+        if key == "both":
+            return torch.cat([t[:, rows], t[:, batch + lo:batch + lo + b]],
+                             1)
+        if key == "gp":
+            return [t[:, (lo + k) % c:(lo + k) % c + per]
+                    for k in range(0, b, per)]
+        return t[:, rows]
+
+    def part(dr):
+        out = {k: lead(v) for k, v in dr.items() if k != "shifts"}
+        sh = dr["shifts"]
+        out["shifts"] = ({k: shifts(k, v) for k, v in sh.items()}
+                         if isinstance(sh, dict) else sh[:, rows])
+        return out
+    return {"critic": [part(dr) for dr in draws["critic"]],
+            "generator": part(draws["generator"])}
+
+
+def build_train_step(cfg: Config, device=None,
+                     mesh: DataMesh | None = None) -> Callable:
+    """step_fn(state, raw [num_views, b, store_len] int16, labels
+    [num_views, b], draws=None) -> metrics (0-d tensors on the device);
+    updates ``state`` in place. b = B / dp rows of the global batch (all
+    B at dp = 1); ``draws`` are the global step's. Runs on the card
+    unless ``device`` says otherwise. ``mesh`` defaults to
+    parallel/mesh.py::make_mesh(cfg), which raises NotImplementedError
+    for cp or tp above 1 and ValueError when mesh.dp differs from the
+    number of processes."""
+    mesh = make_mesh(cfg) if mesh is None else mesh
+    if cfg.loss.gp_batch_chunks > 1 and cfg.data.num_classes:
         # the reference hands each chunk the whole batch's real labels
         # and fails at the projection (audiogan_tpu/train/step.py:226-229)
         raise ValueError("gp_batch_chunks > 1 with a conditional critic: "
@@ -148,12 +212,15 @@ def build_train_step(cfg: Config, device=None) -> Callable:
         lab_r = labels_real.long() if conditional else None
         with torch.no_grad():
             fake = state.g(on_dev(dr["z"]), lab_f)
-        shifts = {k: on_dev(v) for k, v in dr["shifts"].items()}
+        shifts = {k: on_dev(v) for k, v in dr["shifts"].items()
+                  if k != "gp"}
         real_s, fake_s = d_scores_real_fake(d, real, fake, lab_r, lab_f,
                                             shifts, fused)
-        gp, gnorm = gradient_penalty(
-            lambda x: d(x, lab_r, shifts["gp"]), real, fake,
-            on_dev(dr["eps"]), gp_chunks, list(d.parameters()))
+        # rank_draws: the penalty's shifts, one block per chunk
+        apply = [(lambda x, sh=on_dev(sh): d(x, lab_r, sh))
+                 for sh in dr["shifts"]["gp"]]
+        gp, gnorm = gradient_penalty(apply, real, fake, on_dev(dr["eps"]),
+                                     list(d.parameters()))
         loss = wgan_d_loss(real_s, fake_s) + gp_lambda * gp
         if drift:
             loss = loss + drift * real_s.square().mean()
@@ -161,6 +228,7 @@ def build_train_step(cfg: Config, device=None) -> Callable:
         state.opt_d.zero_grad(set_to_none=True)
         # inputs=: the engine then skips the grads nobody reads (x-hat's)
         loss.backward(inputs=list(d.parameters()))
+        mesh.mean_grads(list(d.parameters()))
         state.opt_d.step()
         return {"d_loss": loss.detach(), "w_dist": w_dist.detach(),
                 "gp": gp.detach(), "gp_grad_norm": gnorm.detach()}
@@ -173,11 +241,12 @@ def build_train_step(cfg: Config, device=None) -> Callable:
         if stft_w > 0:
             real = ingest_batch(raw, cfg.data, offsets=on_dev(dr["offsets"]))
             out["stft_loss"] = batch_spectral_matching_loss(
-                fake[..., 0], real, cfg.model.stft_resolutions)
+                fake[..., 0], real, cfg.model.stft_resolutions, mesh)
             loss = loss + stft_w * out["stft_loss"]
         state.opt_g.zero_grad(set_to_none=True)
         # the critic's weight gradients are not computed (kernels/autograd)
         loss.backward(inputs=list(state.g.parameters()))
+        mesh.mean_grads(list(state.g.parameters()))
         state.opt_g.step()
         return {"g_loss": loss.detach(),
                 **{k: v.detach() for k, v in out.items()}}
@@ -185,8 +254,10 @@ def build_train_step(cfg: Config, device=None) -> Callable:
     def step_fn(state: TrainState, raw: torch.Tensor, labels: torch.Tensor,
                 draws: dict | None = None) -> dict[str, torch.Tensor]:
         raw, labels = raw.to(dev), labels.to(dev)
+        batch = raw.shape[1] * mesh.dp
         if draws is None:
-            draws = draw_step(cfg, state.seed, state.step, raw.shape[1], dev)
+            draws = draw_step(cfg, state.seed, state.step, batch, dev)
+        draws = rank_draws(cfg, draws, mesh, batch)
         with torch.autograd.set_multithreading_enabled(False), \
                 cudnn_deterministic():
             d_metrics = [d_micro_step(state, raw[i], labels[i],
@@ -199,7 +270,7 @@ def build_train_step(cfg: Config, device=None) -> Callable:
             [m["d_loss"] for m in d_metrics]).mean()
         metrics.update(g_metrics)
         state.step += 1
-        return metrics
+        return mesh.mean_metrics(metrics)
 
     return step_fn
 

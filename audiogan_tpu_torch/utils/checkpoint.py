@@ -104,16 +104,25 @@ def _kept(mngr: CheckpointManager, steps: list[int]) -> set[int]:
                               else ranked)
 
 
-def save(mngr: CheckpointManager, state, metrics: dict | None = None) -> int:
+def save(mngr: CheckpointManager, state, metrics: dict | None = None,
+         write: bool = True) -> int:
     """Writes the checkpoint of ``state.step``, then drops the ones the
-    policy no longer keeps. Returns the checkpoint's size in bytes."""
+    policy no longer keeps. Returns the checkpoint's size in bytes.
+
+    The optimizers' moments are saved whole: a ZeRO-1 state gathers them
+    first, so every rank of its data axis calls ``save`` and only one,
+    with ``write``, writes (the others return 0). The file is the same
+    on any topology."""
     step = int(state.step)
     metrics = None if metrics is None else {k: float(v)
                                             for k, v in metrics.items()}
+    opt_g = state.opt_g.full_state_dict()
+    opt_d = state.opt_d.full_state_dict()
+    if not write:
+        return 0
     blob = {"step": step, "seed": int(state.seed), "config": mngr.config,
             "g": state.g.state_dict(), "d": state.d.state_dict(),
-            "opt_g": state.opt_g.state_dict(),
-            "opt_d": state.opt_d.state_dict(), "metrics": metrics}
+            "opt_g": opt_g, "opt_d": opt_d, "metrics": metrics}
     _write_atomic(mngr.metrics_path(step), lambda f: f.write(json.dumps(
         {"step": step, "metrics": metrics}).encode()))
     _write_atomic(mngr.path(step), lambda f: torch.save(blob, f))
@@ -157,7 +166,9 @@ def restore(mngr: CheckpointManager, state, step: int | None = None):
     The tensors are loaded on the CPU and copied into the state's
     parameters; ``Optimizer.load_state_dict`` moves Adam's moments to their
     parameters' devices and leaves each ``step`` count a CPU tensor, as a
-    fresh (neither capturable nor fused) Adam keeps it. The optimizers'
+    fresh (neither capturable nor fused) Adam keeps it; a ZeRO-1 Adam
+    keeps its rank's block of each whole moment. Every rank of a data
+    axis restores the same file, whatever topology wrote it. The optimizers'
     hyperparameters stay those of ``state`` (the config's), as the
     reference's optax transforms take theirs from the config."""
     blob = load(mngr, step)

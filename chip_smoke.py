@@ -48,7 +48,10 @@ non-zero:
             ([64, 220500] -> 176400, random offsets); the resampler
             (ops/resample.py) at 22050 -> 16000 on the card against
             scipy.signal.resample_poly in float64 and against its CPU
-            form.
+            form. Then the per-rank geometries of data parallelism, where
+            the tensor-core tiles are chosen again: the flagship's convs
+            and dx at dp=2 and dp=4 (G at B/dp, the critic at 2B/dp),
+            music's at dp=4, and K6/K7 at the fused sites at B/2 and B/4.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16; dual_stft's G is the flagship's) exported, loaded and
             served over HTTP on 127.0.0.1; a few requests (with labels for
@@ -104,6 +107,23 @@ non-zero:
             /generate); on dual_stft's and music_44k_dp16's, `cli eval
             --workdir` twice: the same JSON line, every value finite.
             Each run's seconds, each save's bytes and seconds.
+6c. dp      data parallelism on this card: two processes over gloo
+            (NCCL refuses two ranks on one device) through
+            audiogan_tpu_torch/tools/dp_check.py, each on its half of
+            the global batch: the flagship in f32 at B=8 (4 per rank) and
+            dual_stft's G spectral term at B=8, two steps each, against
+            the dp=1 steps on this card under the parity bounds; the bf16
+            flagship at B=64 (32 per rank) twice to the bit, ranks equal
+            to the bit, with mesh.fsdp (ZeRO-1) equal to replicated to the
+            bit and against the bf16 dp=1 steps on the same batches from
+            the same warm state (metrics and Adam moments no farther
+            apart than twice the dp=1 bf16 steps from the same steps in
+            f32), and K1',
+            K1 and K2 launches per rank held to the step's structure
+            (counts zeroed in each rank just before, read just after);
+            then train.loop.train at dp=2 on the sharded corpus
+            against the replicated one, the same records and states to
+            the bit.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -153,6 +173,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the step checks this script shares with tools/dp_check.py (parity bounds,
+# random batches, conv geometries and launch counts, states to the bit);
+# without the package beside it the script stops here
+from audiogan_tpu_torch.tools.step_checks import (
+    PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, compare_blobs,
+    compute_dtype, conv_step_launches, critic_dx_layers, critic_layers,
+    generator_dx_layers, generator_layers, hold_bf16_to_dp1, random_raw,
+    same_bits, same_checkpoint, state_parts, tensor_core)
+
 ROOT = Path(__file__).resolve().parent
 BATCH = 64
 SMALL = 8                     # a request for a prefix of the batch
@@ -162,15 +191,6 @@ F32_REL_TOL = 1e-4            # same sums in another order
 BF16_REL_TOL = 2e-2           # bf16 keeps 8 bits: one rounding of the output
 INGEST_ABS_TOL = 1e-5         # log1pf / division on the card vs torch, |y|<=1
 RESAMPLE_CPU_TOL = 1e-5       # the float64 polyphase product, card vs CPU
-PARITY_REL_TOL = 1e-3         # a full step's metrics, and its gradients and
-                              # Adam moments (relative L2 over each net),
-                              # card vs CPU
-# Adam normalizes each element: where a gradient is rounding noise (a sum
-# that cancels to ~0), the card and the CPU may step it by up to lr in
-# opposite directions. So a parameter may differ by up to 2.5 lr (lr 1e-4);
-# the share of elements off by more than 1e-6 is reported.
-PARITY_PARAM_TOL = 2.5e-4
-PARITY_PARAM_FINE = 1e-6
 # the served GRU G on the card vs the CPU in bf16: the scan carries f32
 # and rounds only what it writes, but h0 and cond_proj come from bf16
 # dense layers (cuBLAS vs the CPU), and three convT layers each round
@@ -201,6 +221,9 @@ SERVE_RUNS = ("wgan_gp_b64", "cond_gru_sc09", "dual_stft", "music_44k_dp16",
               "resample_22k")
 EVAL_PRESETS = ("dual_stft", "music_44k_dp16")
 CLI_TIMEOUT_S = 600
+# the dp phase: two ranks on this card; its f32 steps at this batch
+DP_RANKS, DP_F32_BATCH, DP_STEPS = 2, 8, 2
+DP_TIMEOUT_S = 600
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -224,66 +247,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # -- geometries ---------------------------------------------------------------
 
-def generator_layers(cfg, batch: int) -> list[dict]:
-    """The generator's conv-transpose layers as its forward runs them."""
-    from audiogan_tpu_torch.models.wavegan import _gen_channels
-    m = cfg.model
-    t = cfg.data.clip_len // m.total_stride
-    c_in = min(m.model_dim * 2 ** (len(m.strides) - 1), m.max_channels)
-    layers = []
-    chs = _gen_channels(m.model_dim, len(m.strides), m.max_channels)
-    for i, (s, c_out) in enumerate(zip(m.strides, chs)):
-        layers.append(dict(name=f"G{i} fwd", b=batch, t_in=t, cin=c_in,
-                           cout=c_out, k=m.kernel_size, s=s,
-                           pad_lo=(m.kernel_size - 1) // 2, out_len=t * s,
-                           act="relu" if i < len(chs) - 1 else "tanh"))
-        t, c_in = t * s, c_out
-    return layers
-
-
-def critic_layers(cfg, batch: int) -> list[dict]:
-    """The critic's SAME conv1d layers as its forward runs them."""
-    from audiogan_tpu_torch.kernels.conv import _same_pads
-    from audiogan_tpu_torch.models.wavegan import _disc_channels
-    m = cfg.model
-    t, c_in = cfg.data.clip_len, 1
-    layers = []
-    chs = _disc_channels(m.model_dim, len(m.strides), m.max_channels)
-    for i, (s, c_out) in enumerate(zip(m.strides, chs)):
-        t_out, lo, hi = _same_pads(t, m.kernel_size, s)
-        layers.append(dict(name=f"D{i} fwd", b=batch, t_in=t, cin=c_in,
-                           cout=c_out, k=m.kernel_size, s=s, lo=lo, hi=hi,
-                           act="leaky_relu"))
-        t, c_in = t_out, c_out
-    return layers
-
-
-def critic_dx_layers(cfg, batch: int) -> list[dict]:
-    """dx of each critic conv: convT of the flipped taps with pad_lo =
-    K-1-lo and out_len = t_in (kernels/autograd.py), no bias, no act."""
-    out = []
-    for L in critic_layers(cfg, batch):
-        t_out = (L["t_in"] + L["lo"] + L["hi"] - L["k"]) // L["s"] + 1
-        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
-                        t_in=t_out, cin=L["cout"], cout=L["cin"], k=L["k"],
-                        s=L["s"], pad_lo=L["k"] - 1 - L["lo"],
-                        out_len=L["t_in"], act="none"))
-    return out
-
-
-def generator_dx_layers(cfg, batch: int) -> list[dict]:
-    """dx of each generator convT: conv1d of the flipped taps with lo =
-    K-1-pad_lo, hi = max((T-1)*s + K - lo - out_len, 0)."""
-    out = []
-    for L in generator_layers(cfg, batch):
-        lo = L["k"] - 1 - L["pad_lo"]
-        hi = max((L["t_in"] - 1) * L["s"] + L["k"] - lo - L["out_len"], 0)
-        out.append(dict(name=L["name"].replace("fwd", "dx"), b=batch,
-                        t_in=L["out_len"], cin=L["cout"], cout=L["cin"],
-                        k=L["k"], s=L["s"], lo=lo, hi=hi, act="none"))
-    return out
-
-
 def fused_site_layers(cfg, batch: int) -> list[dict]:
     """The fused critic's shuffled-input convs (K6): conv i+1 reading the
     window of site i's masked reflect pad, xp [B, t + 2 rad, Cin]."""
@@ -303,6 +266,22 @@ def fused_site_dx_layers(cfg, batch: int) -> list[dict]:
                         s=L["s"], pad_lo=L["k"] - 1 - L["lo"],
                         out_len=L["t_in"], rad=L["rad"], act="none"))
     return out
+
+
+def per_rank_layers(cfg, batch: int, dps: tuple, tag: str = ""
+                    ) -> tuple[list[dict], list[dict]]:
+    """(K1, K1') geometries of a step at each dp of ``dps`` on a global
+    batch: G and its dx at batch / dp, the critic and its dx at
+    2 batch / dp (the fused views), named with their dp."""
+    convt, conv = [], []
+    for dp in dps:
+        def named(layers):
+            return [dict(L, name=f"{tag}{L['name']} (dp={dp})")
+                    for L in layers]
+        b = batch // dp
+        convt += named(generator_layers(cfg, b) + critic_dx_layers(cfg, 2 * b))
+        conv += named(critic_layers(cfg, 2 * b) + generator_dx_layers(cfg, b))
+    return convt, conv
 
 
 def fused_step_launches(cfg) -> tuple[int, int]:
@@ -333,52 +312,6 @@ class PathCounter:
     @launches.setter
     def launches(self, n: int) -> None:
         setattr(self.fn, self.attr, n)
-
-
-def tensor_core(family: str, L: dict, dtype=torch.bfloat16) -> bool:
-    """Whether the wrapper runs geometry L in dtype on the tensor cores."""
-    from audiogan_tpu_torch.kernels import conv as kconv
-    if family == "conv1d":
-        return kconv.conv1d_tensor_core(dtype, L["t_in"], L["cin"],
-                                        L["cout"], L["k"], L["s"])
-    return kconv.convt_tensor_core(dtype, L["cin"], L["cout"], L["k"],
-                                   L["s"])
-
-
-def compute_dtype(cfg) -> torch.dtype:
-    return getattr(torch, cfg.train.dtype)
-
-
-def conv_step_launches(cfg) -> dict:
-    """K1' and K1 launches of one WaveGAN training step, in total and on
-    the tensor-core path. Per critic micro-step, with V critic
-    calls on the views: each unfused critic conv runs V + 2 times (the
-    views' forwards, x-hat's forward, the penalty's d/dct of its dx) and
-    its dx V + 1 times (the loss's backward, the penalty's input gradient;
-    D0's dx only the latter); the G update adds one critic forward and
-    one dx per layer, and G runs forward n_critic + 1 times and its dx
-    once. With fused sites K6 and K7 take D1-D4's forward and dx. The
-    tensor-core counts follow the config's compute dtype."""
-    views = 1 if cfg.train.fused_d_views else 2
-    dtype = compute_dtype(cfg)
-    n = cfg.loss.n_critic
-    fused = cfg.model.fused_shuffle_sites != 0
-    counts = {"conv1d": 0, "convt1d": 0, "conv1d_tc": 0, "convt1d_tc": 0}
-
-    def add(family, L, times):
-        counts[family] += times
-        if tensor_core(family, L, dtype):
-            counts[family + "_tc"] += times
-    for i, (L, dx) in enumerate(zip(critic_layers(cfg, 2), critic_dx_layers(
-            cfg, 2))):
-        if fused and i > 0:
-            continue
-        add("conv1d", L, n * (views + 2) + 1)
-        add("convt1d", dx, n * (views + 1) + 1 if i > 0 else n + 1)
-    for L, dx in zip(generator_layers(cfg, 2), generator_dx_layers(cfg, 2)):
-        add("convt1d", L, n + 1)
-        add("conv1d", dx, 1)
-    return counts
 
 
 def convt_work(L: dict, itemsize: int) -> tuple[int, int]:
@@ -1573,14 +1506,6 @@ def serve_phase(cfg, dev, counters: dict, per_request: dict):
 
 # -- training -------------------------------------------------------------------
 
-def random_raw(cfg, n_views: int, batch: int, seed: int):
-    rng = np.random.default_rng(seed)
-    raw = (rng.standard_normal((n_views, batch, cfg.data.store_len)) * 6000
-           ).clip(-32768, 32767).astype(np.int16)
-    return torch.from_numpy(raw), torch.zeros(n_views, batch,
-                                              dtype=torch.long)
-
-
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
@@ -1683,8 +1608,8 @@ def gp_chunk_phase(cfg, dev, chunks: int = 2) -> dict:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        gp, _ = gradient_penalty(lambda x: d(x, None, sh), real, fake,
-                                 draws["critic"][0]["eps"], c,
+        gp, _ = gradient_penalty([lambda x: d(x, None, sh)] * c, real,
+                                 fake, draws["critic"][0]["eps"],
                                  list(d.parameters()))
         torch.autograd.grad(gp, list(d.parameters()), allow_unused=True)
         torch.cuda.synchronize()
@@ -2032,36 +1957,6 @@ def step_record(workdir: Path, step: int) -> dict:
     return [r for r in recs if r["step"] == step][-1]
 
 
-def same_checkpoint(a: Path, b: Path) -> int:
-    """Every tensor and number of two checkpoints equal to the bit; the
-    count of tensors compared."""
-    ca = torch.load(a, map_location="cpu", weights_only=True)
-    cb = torch.load(b, map_location="cpu", weights_only=True)
-    n = 0
-
-    def walk(x, y, path):
-        nonlocal n
-        if isinstance(x, dict):
-            if x.keys() != y.keys():
-                raise AssertionError(f"{path}: keys differ")
-            for k in x:
-                walk(x[k], y[k], f"{path}/{k}")
-        elif isinstance(x, (list, tuple)):
-            if len(x) != len(y):
-                raise AssertionError(f"{path}: lengths differ")
-            for i, (u, v) in enumerate(zip(x, y)):
-                walk(u, v, f"{path}/{i}")
-        elif isinstance(x, torch.Tensor):
-            n += 1
-            if x.dtype != y.dtype or not torch.equal(x, y):
-                raise AssertionError(f"{path}: tensors differ")
-        elif x != y:
-            raise AssertionError(f"{path}: {x!r} != {y!r}")
-    for part in ("step", "seed", "g", "d", "opt_g", "opt_d"):
-        walk(ca[part], cb[part], part)
-    return n
-
-
 def resume_case(preset: str, sets: tuple, base: Path) -> dict:
     """(a) uninterrupted to RESUME_STEPS; (b) killed after its
     RESUME_KILL_AT checkpoint, then run again: the same step record
@@ -2216,6 +2111,116 @@ def resume_phase() -> dict:
 
 
 # -- timing ---------------------------------------------------------------------
+
+def dp_phase(cfg, dcfg, dev) -> dict:
+    """Phase 6c (the module docstring): two ranks over gloo on this card."""
+    from audiogan_tpu_torch.config import MeshCfg
+    from audiogan_tpu_torch.tools import dp_check
+    from audiogan_tpu_torch.train.step import num_views
+
+    def on(c, dp, fsdp=False, **train):
+        return c.replace(mesh=MeshCfg(dp=dp, fsdp=fsdp),
+                         train=dataclasses.replace(c.train, **train))
+
+    def batches(c, seed):
+        return [random_raw(c, num_views(c), c.train.batch_size,
+                           seed + s) for s in range(DP_STEPS)]
+    f32 = {c.name: on(c, 1, dtype="float32", batch_size=DP_F32_BATCH)
+           for c in (cfg, dcfg)}
+    f32_batches = {name: batches(c, 40) for name, c in f32.items()}
+    t_ref = time.time()
+    # from a state after one warm step (Adam's second moment non-zero, the
+    # update smooth in the gradient, as parity_phase starts), the dp=1
+    # steps on this card, in this process; the bf16 steps start there too
+    warm = {name: dp_check.steps_job(dev, c.to_json(), batches(c, 30)[:1])
+            for name, c in f32.items()}
+    want = {name: dp_check.steps_job(dev, c.to_json(), f32_batches[name],
+                                     state=warm[name])
+            for name, c in f32.items()}
+    t_ref = time.time() - t_ref
+    bf = on(cfg, DP_RANKS)
+    bf_batches = batches(bf, 50)
+    # the bf16 steps at dp=1 on the same batches from the same warm state,
+    # and the same steps in f32
+    want_bf = dp_check.steps_job(dev, on(cfg, 1).to_json(), bf_batches,
+                                 state=warm[cfg.name])
+    exact_bf = dp_check.steps_job(dev, on(cfg, 1, dtype="float32").to_json(),
+                                  bf_batches, state=warm[cfg.name])
+    base = ROOT / "build" / "chip_smoke_dp"
+    shutil.rmtree(base, ignore_errors=True)
+    jobs = [{"name": name, "fn": "steps",
+             "kw": {"cfg_json": on(c, DP_RANKS).to_json(),
+                    "batches": f32_batches[name], "state": warm[name]}}
+            for name, c in f32.items()]
+    for name, fsdp in (("bf16_a", False), ("bf16_b", False),
+                       ("bf16_fsdp", True)):
+        jobs.append({"name": name, "fn": "steps", "kw": {
+            "cfg_json": on(cfg, DP_RANKS, fsdp).to_json(),
+            "batches": bf_batches, "state": warm[cfg.name]}})
+    for mode in ("replicate", "shard"):
+        c = on(bf, DP_RANKS, log_every=1).replace(data=dataclasses.replace(
+            bf.data, device_corpus=True, device_corpus_shard=mode))
+        jobs.append({"name": mode, "fn": "train", "kw": {
+            "cfg_json": c.to_json(), "workdir": str(base / mode),
+            "steps": DP_STEPS}})
+    t_run = time.time()
+    res = dp_check.spawn(DP_RANKS, jobs, base / "out", device=str(dev),
+                         backend="gloo", timeout_s=DP_TIMEOUT_S)
+    t_run = time.time() - t_run
+    report = {name: compare_blobs(res[name][0], want[name],
+                                  PARITY_REL_TOL, PARITY_PARAM_TOL)
+              for name in f32}
+    for name in f32:
+        report[name]["seconds"] = {"dp2": res[name][0]["seconds"],
+                                   "dp1": want[name]["seconds"]}
+    report["bf16"] = hold_bf16_to_dp1(res["bf16_a"][0], want_bf, exact_bf)
+    report["bf16"]["seconds"] = {"dp2": res["bf16_a"][0]["seconds"],
+                                 "dp1": want_bf["seconds"]}
+    if "stft_loss" not in res[dcfg.name][0]["metrics"][-1]:
+        raise AssertionError("dual_stft at dp=2: no stft_loss")
+    tensors = {}
+    for name in ("bf16_a", "bf16_b", "bf16_fsdp", "replicate", "shard"):
+        r0, r1 = res[name]
+        tensors[name + " ranks"] = same_bits(
+            state_parts(r0), state_parts(r1))
+    for name in ("bf16_b", "bf16_fsdp"):
+        if res[name][0]["metrics"] != res["bf16_a"][0]["metrics"]:
+            raise AssertionError(f"dp {name}: metrics differ from bf16_a")
+        tensors[name + " vs bf16_a"] = same_bits(
+            state_parts(res[name][0]), state_parts(res["bf16_a"][0]))
+    rows = res["bf16_fsdp"][1]["moment_rows"]
+    if not any(kept * DP_RANKS == n for kept, n in rows.values()):
+        raise AssertionError(f"ZeRO-1 kept whole moments: {rows}")
+    lines = {m: [ln for ln in res[m][0]["lines"] if "step" in ln]
+             for m in ("replicate", "shard")}
+    strip = [[{k: v for k, v in ln.items() if k != "seconds"} for ln in ls]
+             for ls in lines.values()]
+    if len(strip[0]) != DP_STEPS or strip[0] != strip[1]:
+        raise AssertionError(f"sharded corpus differs: {lines}")
+    tensors["shard vs replicate"] = same_bits(
+        state_parts(res["shard"][0]), state_parts(res["replicate"][0]))
+    corpus = [ln["init"]["corpus"] for m in ("replicate", "shard")
+              for ln in res[m][0]["lines"] if "init" in ln]
+    if corpus != ["replicate", "shard"]:
+        raise AssertionError(f"corpus placements {corpus}")
+    want_launches = {**conv_step_launches(bf), "ingest": num_views(bf)}
+    per_rank = []
+    for rank, r in enumerate(res["bf16_a"]):
+        got = r["launches"]
+        for name, n in want_launches.items():
+            if got[name] != n * DP_STEPS:
+                raise AssertionError(f"rank {rank}: {name} launched "
+                                     f"{got[name]} times in {DP_STEPS} "
+                                     f"steps, want {n} per step")
+        per_rank.append({k: v // DP_STEPS for k, v in got.items()})
+    return dict(ranks=DP_RANKS, backend="gloo", f32_batch=DP_F32_BATCH,
+                bf16_batch=bf.train.batch_size, steps=DP_STEPS,
+                parity=report, tensors_equal=tensors,
+                launches_per_rank_step=per_rank,
+                bf16_seconds=[r["seconds"] for r in res["bf16_a"]],
+                zero1_moment_rows=rows, dp1_seconds=t_ref,
+                spawn_seconds=t_run)
+
 
 def tc_tile_times(family: str, L: dict, x, w, b) -> dict:
     """The tensor-core kernel at each of its tiles (kernels/conv.py
@@ -2472,12 +2477,22 @@ def main() -> int:
     m_d_dx = music(critic_dx_layers(mcfg, 2 * BATCH))
     m_d_fwd = music(critic_layers(mcfg, 2 * BATCH))
     m_g_dx = music(generator_dx_layers(mcfg, BATCH))
-    errs = {"convt1d": compare_conv("convt1d",
-                                    g_fwd + d_dx + m_g_fwd + m_d_dx, dev),
-            "conv1d": compare_conv("conv1d",
-                                   d_fwd + g_dx + m_d_fwd + m_g_dx, dev),
-            "sconv1d": compare_sconv(False, s_fwd + s_fwd_b, dev),
-            "sconvt1d": compare_sconv(True, s_dx + s_dx_b, dev)}
+    # data parallelism runs every conv at the per-rank batch, where the
+    # tensor-core tiles are chosen again: G at B/dp, the critic at 2B/dp,
+    # the fused sites' x-hat at B/dp (the dp phase at dp=2, and
+    # tools/dp_check.py at dp=4 for the flagship and music)
+    r_convt, r_conv = per_rank_layers(cfg, BATCH, (2, 4))
+    rm_convt, rm_conv = per_rank_layers(mcfg, BATCH, (4,), "music ")
+    r_s_fwd = [dict(L, name=f"{L['name']} (B/{dp})") for dp in (2, 4)
+               for L in fused_site_layers(cfg, BATCH // dp)]
+    r_s_dx = [dict(L, name=f"{L['name']} (B/{dp})") for dp in (2, 4)
+              for L in fused_site_dx_layers(cfg, BATCH // dp)]
+    errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx + m_g_fwd
+                                    + m_d_dx + r_convt + rm_convt, dev),
+            "conv1d": compare_conv("conv1d", d_fwd + g_dx + m_d_fwd
+                                   + m_g_dx + r_conv + rm_conv, dev),
+            "sconv1d": compare_sconv(False, s_fwd + s_fwd_b + r_s_fwd, dev),
+            "sconvt1d": compare_sconv(True, s_dx + s_dx_b + r_s_dx, dev)}
     cases = ingest_cases(dev)
     errs["ingest"] = compare_ingest(cases, dev)
     errs["gru"] = compare_gru(gcfg, dev)
@@ -2611,6 +2626,11 @@ def main() -> int:
     t0 = time.time()
     phase("resume", t0, card=card, **resume_phase())
 
+    # 6c. data parallelism: two ranks on this card ---------------------------
+    t0 = time.time()
+    dp_run = dp_phase(cfg, dcfg, dev)
+    phase("dp", t0, card=card, **dp_run)
+
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()
     rows = {"convt1d": time_conv("convt1d", g_fwd + d_dx, dev,
@@ -2678,6 +2698,8 @@ def main() -> int:
             launches_tensor_core_per_train_step=per_step["convt1d_tc"],
             launches_tensor_core_per_train_step_gru=gper_step["convt1d_tc"],
             launches_tensor_core_per_train_step_music=mper_step["convt1d_tc"],
+            launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
+                "convt1d"],
             music=music_rows("convt1d")),
         kernel_entry(
             "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
@@ -2693,6 +2715,8 @@ def main() -> int:
             launches_tensor_core_per_train_step=per_step["conv1d_tc"],
             launches_tensor_core_per_train_step_gru=gper_step["conv1d_tc"],
             launches_tensor_core_per_train_step_music=mper_step["conv1d_tc"],
+            launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
+                "conv1d"],
             music=music_rows("conv1d")),
         kernel_entry(
             "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
@@ -2705,7 +2729,9 @@ def main() -> int:
             device_ms=rows["ingest"][0]["device_ms"],
             slack=rows["ingest"][1], music=music_rows("ingest"),
             launches_per_train_step_resample_22k=rtrained[
-                "launches_per_step"]["ingest"]),
+                "launches_per_step"]["ingest"],
+            launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
+                "ingest"]),
         kernel_entry(
             "gru_scan", "audiogan_tpu_torch/csrc/gru_scan.cu",
             "audiogan_tpu/kernels/gru.py:213",

@@ -151,7 +151,7 @@ def test_gp_first_and_second_order_match_jax(recorded_shifts):
     jax.effects_barrier()
     eps = np.array(jax.random.uniform(key_eps, (4, 1, 1))).reshape(4)
     shifts = torch.from_numpy(np.stack(recorded_shifts[:2]))
-    gp, gnorm = gradient_penalty(lambda v: td(v, None, shifts),
+    gp, gnorm = gradient_penalty([lambda v: td(v, None, shifts)],
                                  torch.from_numpy(real),
                                  torch.from_numpy(fake),
                                  torch.from_numpy(eps))
@@ -177,11 +177,10 @@ def test_gp_rejects_batch_chunks():
                                          device="cpu"), 0)
     x = torch.zeros(4, cfg.data.clip_len, 1)
     with pytest.raises(ValueError, match="divisible"):
-        gradient_penalty(lambda v: td(v), x, x, torch.zeros(4),
-                         batch_chunks=3, params=list(td.parameters()))
+        gradient_penalty([lambda v: td(v)] * 3, x, x, torch.zeros(4),
+                         params=list(td.parameters()))
     with pytest.raises(ValueError, match="params"):
-        gradient_penalty(lambda v: td(v), x, x, torch.zeros(4),
-                         batch_chunks=2)
+        gradient_penalty([lambda v: td(v)] * 2, x, x, torch.zeros(4))
 
 
 @pytest.mark.parametrize("chunks", [2, 4])
@@ -209,9 +208,9 @@ def test_chunked_gp_matches_jax_and_the_unchunked(chunks):
                             flatten_dict(jgrads, sep="/").items()})
     names = [n for n, _ in td.named_parameters()]
     for c in (chunks, 1):
-        gp, gnorm = gradient_penalty(lambda v: td(v), torch.from_numpy(real),
+        gp, gnorm = gradient_penalty([lambda v: td(v)] * c,
+                                     torch.from_numpy(real),
                                      torch.from_numpy(fake), eps,
-                                     batch_chunks=c,
                                      params=list(td.parameters()))
         _close(gp, jgp_val)
         _close(gnorm, jnorm)

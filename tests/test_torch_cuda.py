@@ -7,7 +7,9 @@ cell's, against the same code on the CPU; and that a training step on the
 card (the dual_stft step's too, and music_44k_dp16's at mesh.dp=1 and
 resample_22k's at their published widths) is bit-reproducible. K1 and K1'
 at every music_44k_dp16 geometry (strides 7, 7, 5, 5, 3) against their
-plain forms.
+plain forms, and at every flagship and music geometry at the batches a
+data-parallel rank runs (4, 8, 16, 32: G at B/dp and the critic at 2B/dp
+for dp 16 and 4), K6 and K7 at the fused sites at batches 8 and 32 too.
 
 Marked ``cuda``: each test skips where there is no CUDA device. These import
 torch and the port only, so they also run on a machine without JAX:
@@ -342,7 +344,7 @@ def test_second_order_through_kernels_matches_cpu(cuda_device, fused_sites):
     for name, (g, d) in nets.items():
         dev = next(g.parameters()).device
         fake = g(z.to(dev))
-        gp, _ = gradient_penalty(lambda v: d(v, None, shifts.to(dev)),
+        gp, _ = gradient_penalty([lambda v: d(v, None, shifts.to(dev))],
                                  real.to(dev), fake.detach(), eps.to(dev))
         loss = gp + wgan_g_loss(d(fake, None, shifts.to(dev)))
         params = list(g.parameters()) + list(d.parameters())
@@ -881,7 +883,7 @@ def _site_geoms():
     return out
 
 
-@pytest.mark.parametrize("batch", [9, 64])
+@pytest.mark.parametrize("batch", [9, 64, 8, 32])
 @pytest.mark.parametrize("site", range(4))
 def test_sconv1d_tensor_core_sites_match_plain_and_repeat_bit_for_bit(
         cuda_device, site, batch):
@@ -925,7 +927,7 @@ def test_sconv1d_tensor_core_sites_match_plain_and_repeat_bit_for_bit(
                                               hi, rad, "leaky_relu", 0.2))
 
 
-@pytest.mark.parametrize("batch", [9, 64])
+@pytest.mark.parametrize("batch", [9, 64, 8, 32])
 @pytest.mark.parametrize("site", range(4))
 def test_sconvt1d_tensor_core_sites_match_plain_and_repeat_bit_for_bit(
         cuda_device, site, batch):
@@ -1007,18 +1009,19 @@ def test_fused_bf16_train_step_on_card_is_bit_reproducible(cuda_device):
     assert tsconv.sconvt1d.launches_tc - before[3] == launched
 
 
-def _music_geometries():
-    """music_44k_dp16's conv geometries at batch 2: ("convt1d" or
+def _model_geometries(preset: str, b: int):
+    """A WaveGAN preset's conv geometries at batch b: ("convt1d" or
     "conv1d", name, (x's shape), kernel args after x, w, b, K, Cout): G's
     convT layers and their dx (conv1d), the critic's conv1d layers and
     their dx (convT), as kernels/autograd.py runs them."""
     from audiogan_tpu_torch.kernels.conv import _same_pads
     from audiogan_tpu_torch.models.wavegan import (_disc_channels,
                                                    _gen_channels)
-    m = _preset_cfg("music_44k_dp16", "bfloat16", 2).model
-    k, b, n = m.kernel_size, 2, len(m.strides)
+    cfg = _preset_cfg(preset, "bfloat16", b)
+    m, clip = cfg.model, cfg.data.clip_len
+    k, n = m.kernel_size, len(m.strides)
     out = []
-    t = 176400 // m.total_stride
+    t = clip // m.total_stride
     cin = min(m.model_dim * 2 ** (n - 1), m.max_channels)
     for i, (s, co) in enumerate(zip(m.strides,
                                     _gen_channels(m.model_dim, n,
@@ -1030,7 +1033,7 @@ def _music_geometries():
         out.append(("conv1d", f"G{i} dx", (b, t * s, co), (s, dlo, dhi), k,
                     cin))
         t, cin = t * s, co
-    t, cin = 176400, 1
+    t, cin = clip, 1
     for i, (s, co) in enumerate(zip(m.strides,
                                     _disc_channels(m.model_dim, n,
                                                    m.max_channels))):
@@ -1042,6 +1045,60 @@ def _music_geometries():
     return out
 
 
+def _music_geometries():
+    """music_44k_dp16's conv geometries at batch 2 (_model_geometries)."""
+    return _model_geometries("music_44k_dp16", 2)
+
+
+def _check_geometry(device, family, shape, args, k, cout, dtype, seed):
+    """K1 or K1' at one geometry against its plain form (f32 within 1e-4,
+    bf16 within 2e-2 of the output's peak), two launches to the same bits,
+    on the tensor-core path exactly where its predicate holds."""
+    gen = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(*shape, generator=gen, device=device).to(dtype)
+    w = (torch.randn(k, shape[2], cout, generator=gen, device=device)
+         / (k * shape[2] / 4) ** 0.5).to(dtype)
+    b = (torch.randn(cout, generator=gen, device=device) * 0.5).to(dtype)
+    if family == "conv1d":
+        fn, plain = tconv.conv1d_ba, tconv.conv1d_ba_plain
+        tc = tconv.conv1d_tensor_core(dtype, shape[1], shape[2], cout, k,
+                                      args[0])
+    else:
+        fn, plain = (tconv.conv_transpose1d_ba,
+                     tconv.conv_transpose1d_ba_plain)
+        tc = tconv.convt_tensor_core(dtype, shape[2], cout, k, args[0])
+    before = fn.launches_tc
+    got = fn(x, w, b, *args, act="leaky_relu")
+    again = fn(x, w, b, *args, act="leaky_relu")
+    want = plain(x.float(), w.float(), b.float(), *args, act="leaky_relu")
+    torch.cuda.synchronize()
+    assert fn.launches_tc - before == (2 if tc else 0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+    assert torch.equal(got, again)
+
+
+# the per-rank batches of data parallelism: G at B / dp and the critic at
+# 2B / dp, B = 64, dp = 16 and 4
+RANK_BATCHES = [4, 8, 16, 32]
+
+
+@pytest.mark.parametrize("geom", range(20))
+@pytest.mark.parametrize("batch", RANK_BATCHES)
+@pytest.mark.parametrize("preset", ["wgan_gp_b64", "music_44k_dp16"])
+def test_per_rank_batch_geometries_match_plain(cuda_device, preset, batch,
+                                               geom):
+    """K1 and K1' at every geometry of the flagship and of music_44k_dp16
+    at the batches a data-parallel rank runs, in bf16 (the presets'
+    dtype): the tiles and the rows a tensor-core tile stacks depend on the
+    batch."""
+    family, _, shape, args, k, cout = _model_geometries(preset,
+                                                        batch)[geom]
+    _check_geometry(cuda_device, family, shape, args, k, cout,
+                    torch.bfloat16, geom)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geom", range(20))
 def test_music_geometries_match_plain(cuda_device, geom, dtype):
@@ -1050,32 +1107,7 @@ def test_music_geometries_match_plain(cuda_device, geom, dtype):
     2e-2 of the output's peak, two bf16 launches to the same bits; in
     bf16 the tensor-core path wherever its predicate holds (16 of 20)."""
     family, _, shape, args, k, cout = _music_geometries()[geom]
-    gen = torch.Generator(cuda_device).manual_seed(geom)
-    x = torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
-    w = (torch.randn(k, shape[2], cout, generator=gen, device=cuda_device)
-         / (k * shape[2] / 4) ** 0.5).to(dtype)
-    b = (torch.randn(cout, generator=gen, device=cuda_device) * 0.5
-         ).to(dtype)
-    if family == "conv1d":
-        fn, plain, counter = (tconv.conv1d_ba, tconv.conv1d_ba_plain,
-                              tconv.conv1d_ba)
-        tc = tconv.conv1d_tensor_core(dtype, shape[1], shape[2], cout, k,
-                                      args[0])
-    else:
-        fn, plain, counter = (tconv.conv_transpose1d_ba,
-                              tconv.conv_transpose1d_ba_plain,
-                              tconv.conv_transpose1d_ba)
-        tc = tconv.convt_tensor_core(dtype, shape[2], cout, k, args[0])
-    before = counter.launches_tc
-    got = fn(x, w, b, *args, act="leaky_relu")
-    again = fn(x, w, b, *args, act="leaky_relu")
-    want = plain(x.float(), w.float(), b.float(), *args, act="leaky_relu")
-    torch.cuda.synchronize()
-    assert counter.launches_tc - before == (2 if tc else 0)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    err = (got.float() - want).abs().max().item()
-    assert err <= tol * want.abs().max().item(), err
-    assert torch.equal(got, again)
+    _check_geometry(cuda_device, family, shape, args, k, cout, dtype, geom)
 
 
 def test_music_geometry_count():

@@ -228,7 +228,7 @@ def test_dual_penalty_and_its_gradient_match_jax(geometry, recorded_shifts):
     jax.effects_barrier()
     eps = np.array(jax.random.uniform(key_eps, (4, 1, 1))).reshape(4)
     shifts = torch.from_numpy(np.stack(recorded_shifts[:2]))
-    gp, gnorm = gradient_penalty(lambda v: td(v, None, shifts),
+    gp, gnorm = gradient_penalty([lambda v: td(v, None, shifts)],
                                  torch.from_numpy(real),
                                  torch.from_numpy(fake),
                                  torch.from_numpy(eps))

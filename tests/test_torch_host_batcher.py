@@ -1,7 +1,7 @@
 """audiogan_tpu_torch's host batcher and the loop's two data paths against
 the JAX package's (audiogan_tpu/data/corpus.py::HostBatcher,
-audiogan_tpu/train/loop.py:146-175), and the port's rejection of a mesh
-it does not run.
+audiogan_tpu/train/loop.py:146-175), and the port's checks of the mesh
+before any device is touched.
 
 The batcher must give the reference's indices, labels and clip bytes for
 every step, gathered or as indices; ``loop.train`` with
@@ -24,6 +24,7 @@ from audiogan_tpu.data.corpus import build_corpus as jbuild_corpus
 from audiogan_tpu.data.synthetic import make_synthetic_sc09 as jsynth
 from audiogan_tpu_torch.config import Config, MeshCfg, get_preset
 from audiogan_tpu_torch.data.corpus import Corpus, HostBatcher
+from audiogan_tpu_torch.parallel.mesh import check_world
 from audiogan_tpu_torch.train import loop as tloop
 from audiogan_tpu_torch.train.step import build_train_step
 
@@ -139,16 +140,25 @@ def test_oversized_corpus_falls_back_to_the_host_batcher(tmp_path,
 
 MESHES = [MeshCfg(dp=2), MeshCfg(cp=2), MeshCfg(tp=2),
           MeshCfg(fsdp=True)]
+# in one process: dp=2 asks for two processes (the reference's "mesh needs
+# N devices"); cp and tp are not ported; fsdp at dp=1 runs
+RAISES = {2: (ValueError, "mesh needs 2 devices"),
+          1: (NotImplementedError, "data parallelism only")}
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=str)
 def test_a_mesh_the_port_does_not_run_raises(tmp_path, mesh):
-    """build_train_step and loop.train raise NotImplementedError for dp,
-    cp or tp above 1 and for fsdp, the loop before it writes anything."""
+    """build_train_step and loop.train raise ValueError for dp=2 in one
+    process and NotImplementedError for cp or tp above 1, the loop before
+    it writes anything; fsdp at dp=1 builds a step."""
     cfg = _tiny().replace(mesh=mesh).validate()
-    with pytest.raises(NotImplementedError, match="one device"):
+    if mesh.fsdp:
         build_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
+        return
+    exc, match = RAISES[mesh.dp]
+    with pytest.raises(exc, match=match):
+        build_train_step(cfg, device="cpu")
+    with pytest.raises(exc, match=match):
         tloop.train(cfg, tmp_path / "w", device="cpu", tensorboard=False)
     assert not (tmp_path / "w").exists()
 
@@ -157,19 +167,38 @@ def test_a_mesh_the_port_does_not_run_raises(tmp_path, mesh):
                                   ["mesh.fsdp=true"],
                                   ["data.device_corpus_shard=shard"]],
                          ids=str)
-def test_cli_train_rejects_the_mesh_before_the_card(tmp_path, sets):
-    """`cli train --preset music_44k_dp16` (dp=16), without --device cpu,
-    raises NotImplementedError where this machine has no card: the check
-    runs before the device is resolved. So do cp, tp, fsdp and the
-    sharded corpus with mesh.dp=1."""
-    from audiogan_tpu_torch.cli import main
+def test_cli_train_rejects_the_mesh_before_the_card(tmp_path, monkeypatch,
+                                                    sets):
+    """`cli train --preset music_44k_dp16` (dp=16) in one process raises
+    ValueError (the mesh needs 16 processes), cp and tp
+    NotImplementedError, before the device is resolved; nothing is
+    written. With mesh.dp=1, fsdp and the sharded corpus pass the checks
+    and reach the device and the loop with what was set (both stand-ins
+    here, so the case does not depend on the machine)."""
+    from audiogan_tpu_torch import cli
+    calls = []
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda device: calls.append("device") or "cpu")
+    monkeypatch.setattr(tloop, "train",
+                        lambda cfg, *a, **k: calls.append(cfg))
     extra = ["--set", "mesh.dp=1"] if sets else []
     for item in sets:
         extra += ["--set", item]
-    with pytest.raises(NotImplementedError):
-        main(["train", "--preset", "music_44k_dp16", "--total_steps", "1",
-              "--workdir", str(tmp_path / "m"), *extra])
-    assert not (tmp_path / "m").exists()
+    argv = ["train", "--preset", "music_44k_dp16", "--total_steps", "1",
+            "--workdir", str(tmp_path / "m"), *extra]
+    if not sets or any(k in sets[0] for k in ("cp", "tp")):
+        with pytest.raises(ValueError if not sets else NotImplementedError):
+            cli.main(argv)
+        assert calls == []
+        assert not (tmp_path / "m").exists()
+        return
+    assert cli.main(argv) == 0
+    assert calls[0] == "device"
+    cfg = calls[1]
+    assert (cfg.mesh.dp, cfg.mesh.fsdp, cfg.data.device_corpus_shard) == (
+        1, sets[0] == "mesh.fsdp=true",
+        "shard" if "shard" in sets[0] else get_preset(
+            "music_44k_dp16").data.device_corpus_shard)
 
 
 def test_music_preset_keeps_the_reference_mesh_and_trains_at_dp1():
@@ -178,5 +207,5 @@ def test_music_preset_keeps_the_reference_mesh_and_trains_at_dp1():
     cfg = get_preset("music_44k_dp16")
     assert cfg.mesh.dp == 16
     one = apply_overrides(cfg, ["mesh.dp=1"]).validate()
-    one.check_single_device()
+    check_world(one)
     build_train_step(one, device="cpu")

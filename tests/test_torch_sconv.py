@@ -322,8 +322,8 @@ def _port(cfg) -> Config:
 def _scores_and_gp(d, x, lab, shifts, eps):
     d.zero_grad()
     score = d(x, lab, shifts)
-    gp, _ = gradient_penalty(lambda v: d(v, lab, shifts), x, x.flip(0) * 0.5,
-                             eps)
+    gp, _ = gradient_penalty([lambda v: d(v, lab, shifts)], x,
+                             x.flip(0) * 0.5, eps)
     (score.sum() + gp).backward()
     return score.detach(), gp.detach(), {
         n: p.grad.clone() for n, p in d.named_parameters()}
@@ -432,7 +432,7 @@ def test_fused_critic_matches_jax(fused, num_classes, recorded_shifts):
     eps = torch.from_numpy(np.array(jax.random.uniform(
         key_eps, (4, 1, 1))).reshape(4))
     td.zero_grad()
-    gp, _ = gradient_penalty(lambda v: td(v, tlab, shifts),
+    gp, _ = gradient_penalty([lambda v: td(v, tlab, shifts)],
                              torch.from_numpy(real),
                              torch.from_numpy(fake.copy()), eps)
     gp.backward()
