@@ -185,25 +185,24 @@ class Config:
         return self
 
     def check_mesh_ported(self) -> None:
-        """Raises NotImplementedError for cp or tp above 1: the reference
-        runs those as shard_map steps that fold each replica's draws
-        (audiogan_tpu/train/cp_step.py, tp_step.py), not ported yet.
+        """Raises NotImplementedError for tp above 1: the reference runs
+        it as a shard_map step (audiogan_tpu/train/tp_step.py), not
+        ported yet.
 
-        dp and fsdp run. The reference's DP, at cp = tp = 1, is one global
-        step partitioned by XLA: its loop jits the plain step with a
-        replicated state and batch-sharded inputs
+        dp, fsdp and cp run. The reference's DP, at cp = tp = 1, is one
+        global step partitioned by XLA: its loop jits the plain step with
+        a replicated state and batch-sharded inputs
         (audiogan_tpu/train/loop.py:203-213), so DP over N devices equals
         the same step on one device for the same global batch
         (tests/parallel/test_dp.py:182). The port's DP is that global step
-        split by rows (train/step.py)."""
-        mesh = self.mesh
-        asked = [f"mesh.{k}={getattr(mesh, k)}" for k in ("cp", "tp")
-                 if getattr(mesh, k) > 1]
-        if asked:
+        split by rows (train/step.py). With cp above 1 the loop runs the
+        context-parallel step (train/cp_step.py), as the reference's does
+        (audiogan_tpu/train/loop.py:191-196)."""
+        if self.mesh.tp > 1:
             raise NotImplementedError(
-                f"{', '.join(asked)}: audiogan_tpu_torch runs data "
-                "parallelism only (context and tensor parallelism are not "
-                "ported); run with --set mesh.cp=1 (and tp 1)")
+                f"mesh.tp={self.mesh.tp}: audiogan_tpu_torch runs data and "
+                "context parallelism only (tensor parallelism is not "
+                "ported); run with --set mesh.tp=1")
 
     def _validate_mesh(self) -> None:
         """The cp/tp geometry checks of audiogan_tpu/config.py:242-292."""

@@ -76,9 +76,11 @@ def polyphase_taps(up: int, down: int, taps_per_phase: int = 10,
 @functools.lru_cache(maxsize=None)
 def _taps_on(up: int, down: int, taps_per_phase: int, beta: float,
              device: torch.device) -> torch.Tensor:
-    """polyphase_taps' G as a float64 tensor on ``device``, copied once."""
+    """polyphase_taps' G as a float64 tensor on ``device``, copied once,
+    outside inference mode (as ops/stft.py::_basis_on)."""
     g, _ = polyphase_taps(up, down, taps_per_phase, beta)
-    return torch.from_numpy(np.array(g)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.array(g)).to(device)
 
 
 def resample_poly(x: torch.Tensor, target_rate: int, source_rate: int,

@@ -54,9 +54,13 @@ def _windowed_basis(n_fft: int, win_len: int) -> tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def _basis_on(n_fft: int, win_len: int, device: torch.device
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """_windowed_basis as f32 tensors on ``device``, copied there once."""
-    return tuple(torch.from_numpy(b).to(device)
-                 for b in _windowed_basis(n_fft, win_len))
+    """_windowed_basis as f32 tensors on ``device``, copied there once.
+    Made outside inference mode whoever asks first (``evaluate`` and
+    ``sample`` run under it): an inference tensor cannot be saved for
+    backward, so a basis cached there would fail every later loss."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(b).to(device)
+                     for b in _windowed_basis(n_fft, win_len))
 
 
 def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:

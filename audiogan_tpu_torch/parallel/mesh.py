@@ -1,6 +1,16 @@
-"""The data axis the port trains over, the counterpart of
-audiogan_tpu/parallel/mesh.py for data parallelism: one process per card,
-``dp`` processes in one ``torch.distributed`` group.
+"""The mesh the port trains over, the counterpart of
+audiogan_tpu/parallel/mesh.py: one process per card, ``dp * cp``
+processes, the data axis (``DataMesh``) and the context-parallel axis
+(``CpMesh``).
+
+The reference builds its ('data', 'cp') mesh as ``devices.reshape(dp,
+cp)`` (audiogan_tpu/parallel/mesh.py:35-36), so global rank r holds data
+index r // cp and cp index r % cp; on several hosts the outer ('dcn')
+tier is the outer part of the data axis (parallel/multihost.py), and a
+cp group is cp consecutive ranks of one host. ``make_meshes`` builds one
+``torch.distributed`` group per cp group and per data group (every rank
+creates every group, in one order). At cp = 1 the data group is the
+default group.
 
 The reference's DP at cp = tp = 1 is ONE global step that XLA partitions
 over the batch: its loop jits the plain step with a replicated state and
@@ -27,9 +37,10 @@ equals the replicated update to the bit (``zero1_update``).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
@@ -45,28 +56,45 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+def world_rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
 def check_world(cfg: Config) -> None:
-    """The mesh's cp and tp (NotImplementedError above 1), then its size
-    against the processes (ValueError), as the reference's "mesh needs N
+    """The mesh's tp (NotImplementedError above 1), then its size against
+    the processes (ValueError), as the reference's "mesh needs N
     devices" (audiogan_tpu/parallel/mesh.py:30-33): the port runs one
-    process per device, so the world size must equal dp * cp * tp."""
+    process per device, so the world size must equal dp * cp * tp. A cp
+    group must not straddle two hosts: under torchrun cp must divide the
+    processes per host."""
     cfg.check_mesh_ported()
     m = cfg.mesh
     need, have = m.dp * m.cp * m.tp, world_size()
     if need != have:
         raise ValueError(
-            f"mesh needs {need} devices (mesh.dp={m.dp}), have {have} "
-            f"process{'es' if have != 1 else ''}: launch "
-            f"`torchrun --nproc_per_node {need} ...` or set mesh.dp={have}")
+            f"mesh needs {need} devices (mesh.dp={m.dp}, mesh.cp={m.cp}), "
+            f"have {have} process{'es' if have != 1 else ''}: launch "
+            f"`torchrun --nproc_per_node {need} ...` or set mesh.dp and "
+            f"mesh.cp to multiply to {have}")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0"))
+    if m.cp > 1 and local and local % m.cp:
+        raise ValueError(f"mesh.cp={m.cp} does not divide the {local} "
+                         "processes per host: a cp group must stay on "
+                         "one host")
 
 
 @dataclass(frozen=True)
 class DataMesh:
-    """The data axis: ``dp`` ranks of the default process group (none at
-    dp = 1) and this process's ``rank``."""
+    """The data axis: ``dp`` ranks of ``group`` (None: the default
+    group; no collective at dp = 1) and this process's ``rank`` on it,
+    its data replica."""
 
     dp: int = 1
     rank: int = 0
+    group: Any = None
 
     @property
     def parallel(self) -> bool:
@@ -78,13 +106,15 @@ class DataMesh:
         return slice(self.rank * b, (self.rank + 1) * b)
 
     def barrier(self) -> None:
-        if self.parallel:
+        """A barrier of every process (both axes), where rank 0 writes
+        files the others read."""
+        if world_size() > 1:
             dist.barrier()
 
     def all_reduce_mean_(self, flat: torch.Tensor) -> torch.Tensor:
         """flat <- the mean over the ranks of flat, in place."""
         if self.parallel:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
             flat.div_(self.dp)
         return flat
 
@@ -117,10 +147,10 @@ class DataMesh:
         own = [t[self.shard(t)] for t in tensors]
         flat = torch.cat([t.reshape(-1) for t in own])
         out = [torch.empty_like(flat) for _ in range(self.dp)]
-        dist.all_gather(out, flat)
+        dist.all_gather(out, flat, group=self.group)
         for r, buf in enumerate(out):
             if r != self.rank:
-                mesh_r = DataMesh(self.dp, r)
+                mesh_r = dataclasses.replace(self, rank=r)
                 _unflatten_into(buf, [t[mesh_r.shard(t)] for t in tensors])
 
     def shard(self, t: torch.Tensor) -> slice:
@@ -137,14 +167,66 @@ def _unflatten_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]
         off += n
 
 
-def make_mesh(cfg: Config) -> DataMesh:
-    """The data axis of cfg.mesh over the initialized process group (or
-    one process). Raises before any device is touched when the mesh asks
-    for another number of processes (``check_world``)."""
+@dataclass(frozen=True)
+class CpMesh:
+    """The cp axis of one data replica: ``cp`` ranks of ``group`` (None:
+    the default group; no collective at cp = 1), each holding one
+    contiguous time slice of every clip, and this process's ``index`` on
+    it (parallel/halo.py)."""
+
+    cp: int = 1
+    index: int = 0
+    group: Any = None
+
+    @property
+    def parallel(self) -> bool:
+        return self.cp > 1
+
+
+# (default group, dp, cp) -> (this rank's data group, its cp group)
+_GROUPS: dict = {}
+
+
+def _axis_groups(dp: int, cp: int) -> tuple[Any, Any]:
+    """This rank's data group and cp group of the (dp, cp) mesh over the
+    default group (None where an axis is the whole world). Every rank
+    creates every group, in one order; the groups are made once per
+    process group."""
+    if cp == 1 or dp == 1:
+        return None, None
+    key = (dist.group.WORLD, dp, cp)
+    if key not in _GROUPS:
+        rank = dist.get_rank()
+        mine = [None, None]
+        for d in range(dp):
+            g = dist.new_group(list(range(d * cp, (d + 1) * cp)))
+            if rank // cp == d:
+                mine[1] = g
+        for c in range(cp):
+            g = dist.new_group(list(range(c, dp * cp, cp)))
+            if rank % cp == c:
+                mine[0] = g
+        _GROUPS[key] = tuple(mine)
+    return _GROUPS[key]
+
+
+def make_meshes(cfg: Config) -> tuple[DataMesh, CpMesh]:
+    """Both axes of cfg.mesh over the initialized process group (or one
+    process). Raises before any device is touched when the mesh asks for
+    another number of processes (``check_world``)."""
     check_world(cfg)
-    if cfg.mesh.dp == 1:
-        return DataMesh()
-    return DataMesh(cfg.mesh.dp, dist.get_rank())
+    dp, cp = cfg.mesh.dp, cfg.mesh.cp
+    if dp * cp == 1:
+        return DataMesh(), CpMesh()
+    rank = dist.get_rank()
+    data_group, cp_group = _axis_groups(dp, cp)
+    return (DataMesh(dp, rank // cp, data_group),
+            CpMesh(cp, rank % cp, cp_group))
+
+
+def make_mesh(cfg: Config) -> DataMesh:
+    """The data axis of cfg.mesh (``make_meshes``)."""
+    return make_meshes(cfg)[0]
 
 
 def fsdp_shardable(x: torch.Tensor, dp: int) -> bool:

@@ -25,7 +25,9 @@ copy, so it equals the replicated gather, and the host batcher's stream,
 to the bit. Each rank sends and receives about V b store_len 2 bytes per
 step, a 1/dp share of the step's clips. Over gloo (the CPU tests; two
 ranks on one card) the exchange runs on host tensors: a CUDA buffer is
-copied to the host and back.
+copied to the host and back. Under context parallelism the exchange
+runs within each data group (the ranks of one cp index): the corpus is
+sharded over the data axis and replicated over cp.
 """
 
 from __future__ import annotations
@@ -104,11 +106,12 @@ def sharded_corpus_gather(local_clips: torch.Tensor, idx: np.ndarray,
         return local_clips[flat.to(dev)].reshape(v, batch, length)
     send, n_send, n_recv, place = gather_plan(idx, n_local, mesh)
     out = local_clips[torch.from_numpy(send).to(dev)].view(torch.uint8)
-    staged = dev.type != "cpu" and dist.get_backend() == "gloo"
+    staged = dev.type != "cpu" and dist.get_backend(mesh.group) == "gloo"
     if staged:
         out = out.cpu()
     got = out.new_empty(int(n_recv.sum()), out.shape[1])
-    dist.all_to_all_single(got, out, n_recv.tolist(), n_send.tolist())
+    dist.all_to_all_single(got, out, n_recv.tolist(), n_send.tolist(),
+                           group=mesh.group)
     got = got.to(dev).view(local_clips.dtype)
     return got[torch.from_numpy(place).to(dev)].reshape(
         v, batch // mesh.dp, length)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Checks of the port's data parallelism, run in one process per rank.
+"""Checks of the port's data and context parallelism, run in one process
+per rank.
 
 As a library: ``spawn(world, jobs, out_dir, device, backend)`` starts
 ``world`` processes (``torch.multiprocessing``, spawned), joins them in a
@@ -7,8 +8,11 @@ process group (gloo on the CPU, or on one card for two ranks; NCCL under
 torchrun), runs each job of ``jobs`` on every rank and returns each rank's
 result. A job is {"name", "fn" (a key of JOBS), "kw"}: ``steps`` (train
 steps from a given state on given global batches, optionally with
-injected draws), ``train`` (train/loop.py::train into a workdir) and
-``gather`` (the sharded corpus's gather). Each result holds the rank's
+injected draws; with mesh.cp above 1 the cp step, or with ``cp1`` the cp
+step at cp = 1), ``train`` (train/loop.py::train into a workdir),
+``gather`` (the sharded corpus's gather), ``halo`` (the ops of
+parallel/halo.py on each rank's slices, every rank one cp rank) and
+``cp_model`` (parallel/cp_models.py likewise). Each result holds the rank's
 whole state (``state_blob``: both nets, both optimizers with whole
 moments, the per-rank moment rows). The CPU tests (tests/test_torch_dp.py,
 tests/test_torch_sharded_corpus.py) and chip_smoke.py's ``dp`` phase drive
@@ -36,6 +40,17 @@ checkpoint and resumed, against an uninterrupted one, to the bit
 (``--checks_only`` stops before ``cli train``; ``--presets`` picks the
 presets). Prints one JSON line per check and a summary line; ``--out``
 keeps them.
+
+With ``--cp``, context parallelism instead, for music_44k_dp16 on the
+four cards: an f32 step at cp=4 (B=8, shuffle off) against the cp step
+at cp=1 on rank 0's card from one warm state (the parity bounds); at
+cp=4 and at dp=2 x cp=2 the preset's batch (its cp step computes in
+f32) twice to the same bits on every rank, K1', K1 and K2 launches and
+each conv's route per rank, one profiled step (the halo all-gathers'
+and the all-reduces' NCCL device time) and each rank's peak memory,
+beside the dp=1 step's on rank 0's card in the preset's dtype and in
+f32; then ``cli train`` at both meshes (steps/s of steps 11-30) and a
+cp=4 run killed after its step-3 checkpoint and resumed, to the bit.
 """
 
 from __future__ import annotations
@@ -95,8 +110,10 @@ def _counter(module: str, fn: str):
 
 
 def zero_launches() -> None:
+    from audiogan_tpu_torch.parallel import halo
     for _, module, fn, attr in COUNTERS:
         setattr(_counter(module, fn), attr, 0)
+    halo.ROUTES.clear()
 
 
 def read_launches() -> dict[str, int]:
@@ -143,12 +160,18 @@ def load_blob(state, blob: dict) -> None:
 
 
 def steps_job(dev, cfg_json: str, batches: list, draws: list | None = None,
-              state: dict | None = None, solo: bool = False) -> dict | None:
+              state: dict | None = None, solo: bool = False,
+              cp1: bool = False) -> dict | None:
     """len(batches) steps of cfg (global [V, B, L] clips and [V, B]
     labels each) from ``state`` (a state_blob) or the seeded init, each
-    rank on its rows; ``draws`` the global steps' (else the port's own).
-    ``solo``: rank 0 alone runs the step at dp = 1 (the others wait and
-    return None)."""
+    rank on its rows (its data replica's, with mesh.cp above 1);
+    ``draws`` the global steps' (the cp step's: one per replica; else
+    the port's own). ``solo``: rank 0 alone runs the step at dp = 1 (the
+    others wait and return None). ``cp1``: the context-parallel step at
+    cp = 1 (train/cp_step.py on whole clips, no exchange)."""
+    from audiogan_tpu_torch.parallel import halo
+    from audiogan_tpu_torch.parallel.mesh import CpMesh
+    from audiogan_tpu_torch.train.cp_step import build_cp_train_step
     from audiogan_tpu_torch.train.state import create_train_state
     from audiogan_tpu_torch.train.step import build_train_step
     cfg = Config.from_json(cfg_json)
@@ -163,7 +186,8 @@ def steps_job(dev, cfg_json: str, batches: list, draws: list | None = None,
     st = create_train_state(cfg, device=dev, mesh=mesh)
     if state is not None:
         load_blob(st, state)
-    step = build_train_step(cfg, dev, mesh)
+    step = (build_cp_train_step(cfg, dev, mesh, CpMesh()) if cp1
+            else build_train_step(cfg, dev, mesh))
     metrics = []
     zero_launches()
     t0 = time.perf_counter()
@@ -173,6 +197,7 @@ def steps_job(dev, cfg_json: str, batches: list, draws: list | None = None,
                  draws=None if draws is None else draws[i])
         metrics.append({k: float(v) for k, v in m.items()})
     out = {"metrics": metrics, "launches": read_launches(),
+           "routes": dict(halo.ROUTES),
            "seconds": time.perf_counter() - t0, **state_blob(st)}
     if solo and dist.is_initialized():
         dist.barrier()
@@ -207,7 +232,115 @@ def gather_job(dev, clips: np.ndarray, idx: np.ndarray) -> dict:
             "local_rows": local.shape[0]}
 
 
-JOBS = {"steps": steps_job, "train": train_job, "gather": gather_job}
+def _slice(t: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """This cp rank's block of t along dim."""
+    n = t.shape[dim] // mesh.cp
+    return t.narrow(dim, mesh.index * n, n).contiguous()
+
+
+def _total(t: torch.Tensor) -> torch.Tensor:
+    """t summed over every rank (a parameter's gradient)."""
+    t = t.detach().clone()
+    dist.all_reduce(t)
+    return t
+
+
+def _halo_case(dev, mesh, case: dict) -> dict:
+    """One case of ``halo_job``: the op on this rank's slices of the
+    global inputs, y; dL/d(inputs) of L = sum(y r) (the time inputs'
+    slices, the parameters' totals); for conv1d and convt1d also the
+    gradients of sum(dL/dx q), the second order the penalty takes."""
+    from audiogan_tpu_torch.parallel import halo
+    op = case["op"]
+    t = {k: v.to(dev) for k, v in case.items() if isinstance(v, torch.Tensor)}
+    dim = 2 if op == "conv2d" else 1
+    if op == "scan":
+        a = t["a"].requires_grad_(True)
+
+        def step(carry):
+            h = torch.tanh(carry[0] @ a + t["c"])
+            return (h,), h
+        y = halo.cp_chunked_scan(step, (t["h0"],), case["length"], mesh)
+        (da,) = torch.autograd.grad(
+            halo.cp_sum((y * _slice(t["r"], mesh, 0)).sum(), mesh), a)
+        return {"y": y.detach().cpu(), "da": _total(da).cpu()}
+    x = _slice(t["x"], mesh, dim).requires_grad_(True)
+    if op == "halo":
+        return {"y": halo.gather_halo(x, case["left"], case["right"],
+                                      mesh).detach().cpu()}
+    if op == "shuffle":
+        y = halo.cp_phase_shuffle(x, t["shifts"], case["rad"], mesh)
+        params = []
+    else:
+        w, b = t["w"].requires_grad_(True), t["b"].requires_grad_(True)
+        params = [w, b]
+        if op == "conv1d":
+            y = halo.cp_conv1d_ba(x, w, b, case["stride"], mesh, case["act"])
+        elif op == "convt1d":
+            y = halo.cp_conv_transpose1d_ba(x, w, b, case["stride"], mesh,
+                                            case["act"])
+        else:
+            y = halo.cp_conv2d_frames(x, w, b, case["stride"], mesh)
+    loss = halo.cp_sum((y * _slice(t["r"], mesh, dim)).sum(), mesh)
+    second = op in ("conv1d", "convt1d")
+    grads = torch.autograd.grad(loss, [x, *params], create_graph=second)
+    out = {"y": y.detach().cpu(), "dx": grads[0].detach().cpu(),
+           **{f"d{n}": _total(g).cpu() for n, g in zip("wb", grads[1:])}}
+    if second:
+        loss2 = halo.cp_sum((grads[0] * _slice(t["q"], mesh)).sum(), mesh)
+        dx2, dw2 = torch.autograd.grad(loss2, [x, params[0]],
+                                       materialize_grads=True)
+        out.update(dx2=dx2.cpu(), dw2=_total(dw2).cpu())
+    return out
+
+
+def halo_job(dev, cases: list[dict]) -> dict:
+    """Each case (a dict: "op" of conv1d, convt1d, conv2d, shuffle, scan,
+    halo; its global inputs and settings) through parallel/halo.py with
+    every rank one cp rank of one group: this rank's results
+    (``_halo_case``) and the routes its convs took."""
+    from audiogan_tpu_torch.parallel import halo
+    from audiogan_tpu_torch.parallel.mesh import CpMesh
+    mesh = CpMesh(dist.get_world_size(), dist.get_rank())
+    halo.ROUTES.clear()
+    results = [_halo_case(dev, mesh, case) for case in cases]
+    return {"results": results, "routes": dict(halo.ROUTES)}
+
+
+def cp_model_job(dev, cfg_json: str, state: dict, x: torch.Tensor,
+                 shifts: torch.Tensor | None, z: torch.Tensor,
+                 labels: torch.Tensor | None,
+                 real: torch.Tensor | None = None) -> dict:
+    """parallel/cp_models.py on this rank's time slice (every rank one cp
+    rank of one group) with the nets of ``state`` (a state_blob): the
+    critic's scores of x [B, T, 1] with the wave critic's shifts, G's
+    slice for z (labels for both when conditional), and with ``real``
+    the spectral matching loss of G's output against it."""
+    from audiogan_tpu_torch.parallel import cp_models
+    from audiogan_tpu_torch.parallel.mesh import CpMesh
+    from audiogan_tpu_torch.train.state import create_train_state
+    cfg = Config.from_json(cfg_json)
+    mesh = CpMesh(dist.get_world_size(), dist.get_rank())
+    st = create_train_state(cfg, device=dev)
+    load_blob(st, state)
+    lab = None if labels is None else labels.to(dev)
+    with torch.no_grad():
+        score = cp_models.cp_discriminator_forward(
+            st.d, _slice(x.to(dev), mesh), mesh,
+            None if shifts is None else shifts.to(dev), lab)
+        g = (cp_models.cp_gru_generator_forward
+             if cfg.model.generator == "gru"
+             else cp_models.cp_generator_forward)(st.g, z.to(dev), mesh, lab)
+        out = {"score": score.cpu(), "g": g.cpu()}
+        if real is not None:
+            out["stft"] = cp_models.cp_batch_spectral_matching_loss(
+                g[..., 0], _slice(real.to(dev), mesh),
+                cfg.model.stft_resolutions, mesh).cpu()
+    return out
+
+
+JOBS = {"steps": steps_job, "train": train_job, "gather": gather_job,
+        "halo": halo_job, "cp_model": cp_model_job}
 
 
 def run_jobs(dev, jobs: list[dict], out_dir: Path) -> None:
@@ -293,9 +426,11 @@ def _gather(obj) -> list:
 
 
 def _profile_step(cfg, dev, mesh, raw, labels) -> dict:
-    """One bf16 step of a fresh state under torch.profiler: the device
-    time of NCCL's kernels (the all-reduces, and ZeRO-1's all-gathers),
-    of all kernels, and the step's wall time."""
+    """One step of a fresh state after a warm one under torch.profiler:
+    the device time of NCCL's kernels (all, and the all-gathers and
+    all-reduces apart: the cp step's halo shifts and its sums and
+    gradient reductions; ZeRO-1's all-gathers), of all kernels, and the
+    step's wall time; then the peak memory of one more step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,19 +448,32 @@ def _profile_step(cfg, dev, mesh, raw, labels) -> dict:
         step(st, raw, labels)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    nccl, total, calls = 0.0, 0.0, 0
+    out = {"wall_ms": wall, "device_ms": 0.0, "nccl_ms": 0.0,
+           "nccl_kernels": 0, "all_gather_ms": 0.0, "all_gather_kernels": 0,
+           "all_reduce_ms": 0.0, "all_reduce_kernels": 0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        total += us / 1e3
-        if "nccl" in e.key.lower():
-            nccl += us / 1e3
-            calls += e.count
-    return {"wall_ms": wall, "device_ms": total, "nccl_ms": nccl,
-            "nccl_kernels": calls}
+        out["device_ms"] += us / 1e3
+        key = e.key.lower()
+        if "nccl" not in key:
+            continue
+        out["nccl_ms"] += us / 1e3
+        out["nccl_kernels"] += e.count
+        for kind in ("all_gather", "all_reduce"):
+            if kind.replace("_", "") in key.replace("_", ""):
+                out[kind + "_ms"] += us / 1e3
+                out[kind + "_kernels"] += e.count
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step(st, raw, labels)
+    torch.cuda.synchronize()
+    out["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
 
 
 def allreduce_ms(cfg, dev, iters: int = 10) -> dict:
@@ -495,7 +643,92 @@ def preset_checks(cfg, dev, out: Path) -> dict | None:
     return report if rank == 0 else None
 
 
-def worker_main(work: Path, presets: tuple[str, ...] = PRESETS) -> int:
+CP_MESHES = ((1, 4), (2, 2))
+
+
+def cp_checks(cfg, dev, out: Path) -> dict | None:
+    """The in-process checks of the context-parallel step of one preset
+    on four ranks (the module docstring); rank 0's report, None
+    elsewhere."""
+    from audiogan_tpu_torch.config import MeshCfg
+    from audiogan_tpu_torch.tools.step_checks import cp_step_launches
+    from audiogan_tpu_torch.train.step import num_views
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out.mkdir(parents=True, exist_ok=True)
+
+    def on(c, dp=1, cp=1, **train):
+        return c.replace(mesh=MeshCfg(dp=dp, cp=cp),
+                         train=dataclasses.replace(c.train, **train))
+
+    def batches(c, seed, n=2):
+        return [random_raw(c, num_views(c), c.train.batch_size, seed + s)
+                for s in range(n)]
+    report = {"preset": cfg.name, "world": world}
+    # f32 at F32_BATCH, shuffle off: cp=world against the cp step at cp=1
+    # on rank 0's card, from one warm state (the runs below start there)
+    c32 = on(cfg, dtype="float32", batch_size=F32_BATCH).replace(
+        model=dataclasses.replace(cfg.model, phase_shuffle=0))
+    warm = steps_job(dev, c32.to_json(), batches(c32, 30, 1), solo=True,
+                     cp1=True)
+    if rank == 0:
+        torch.save(warm, out / "warm.pt")
+    dist.barrier()
+    warm = torch.load(out / "warm.pt", weights_only=False)
+    f32_batches = batches(c32, 40)
+    want = steps_job(dev, c32.to_json(), f32_batches, state=warm, solo=True,
+                     cp1=True)
+    got = steps_job(dev, on(c32, cp=world).to_json(), f32_batches,
+                    state=warm)
+    if rank == 0:
+        report["f32"] = compare_blobs(got, want, PARITY_REL_TOL,
+                                      PARITY_PARAM_TOL)
+        report["f32"].update(batch=F32_BATCH, cp=world)
+    if len(set(_gather(digest(got)))) != 1:
+        raise AssertionError(f"{cfg.name} f32 cp: ranks differ")
+    del want, got
+    # the preset's batch and config (its cp step computes in f32) at each
+    # mesh: twice to the same bits on every rank, launches, routes, the
+    # exchanges' device time and the peak memory per rank
+    runs = batches(cfg, 50)
+    want_l = {**cp_step_launches(cfg), "ingest": num_views(cfg)}
+    for dp, cp in CP_MESHES:
+        c = on(cfg, dp, cp)
+        a, b = (steps_job(dev, c.to_json(), runs, state=warm)
+                for _ in range(2))
+        digests = _gather((digest(a), digest(b)))
+        if len({d for pair in digests for d in pair}) != 1:
+            raise AssertionError(f"{cfg.name} dp={dp} cp={cp}: states "
+                                 f"differ {digests}")
+        for r, got_l in enumerate(_gather(a["launches"])):
+            for name, n in want_l.items():
+                if got_l[name] != n * len(runs):
+                    raise AssertionError(
+                        f"dp={dp} cp={cp} rank {r}: {name} {got_l[name]} "
+                        f"in {len(runs)} steps, want {n}")
+        prof = _gather(_profile_step(c, dev, make_mesh(c), *runs[0]))
+        if rank == 0:
+            report[f"dp{dp}_cp{cp}"] = {
+                "batch": cfg.train.batch_size, "steps": len(runs),
+                "states_equal": 2 * world,
+                "launches_per_rank_step": {k: v // len(runs) for k, v in
+                                           a["launches"].items()},
+                "routes_per_rank_step": {k: v // len(runs) for k, v in
+                                         a["routes"].items()},
+                "seconds": a["seconds"], "profile_by_rank": prof,
+                "last": a["metrics"][-1]}
+        del a, b
+    # the same batch at dp=1 on rank 0's card: the plain step in the
+    # preset's dtype and in f32, its peak memory and time
+    for dtype in (cfg.train.dtype, "float32"):
+        if rank == 0:
+            report[f"dp1_{dtype}"] = _profile_step(
+                on(cfg, dtype=dtype), dev, DataMesh(), *runs[0])
+        dist.barrier()
+    return report if rank == 0 else None
+
+
+def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
+                cp: bool = False) -> int:
     """--worker: one rank under torchrun (NCCL on cuda:LOCAL_RANK); its
     workdirs under ``work``."""
     from audiogan_tpu_torch.cli import apply_overrides
@@ -511,7 +744,9 @@ def worker_main(work: Path, presets: tuple[str, ...] = PRESETS) -> int:
             cfg = apply_overrides(get_preset(name),
                                   [f"mesh.dp={world}"]).validate()
             t0 = time.time()
-            rep = preset_checks(cfg, dev, work / name)
+            rep = (cp_checks(cfg.replace(mesh=dataclasses.replace(
+                cfg.mesh, dp=1)), dev, work / f"{name}_cp") if cp
+                else preset_checks(cfg, dev, work / name))
             if rep is not None:
                 rep["seconds"] = time.time() - t0
                 print(json.dumps({"check": rep}), flush=True)
@@ -547,12 +782,13 @@ def _records(workdir: Path) -> dict[int, dict]:
         json.loads, (workdir / "metrics.jsonl").read_text().splitlines())}
 
 
-def rate(preset: str, ranks: int, workdir: Path) -> dict:
-    """cli train of the preset at dp = ranks (torchrun; one plain process
-    on card 0 at 1): steps/s of steps RATE_LOG + 1 to RATE_STEPS."""
-    sets = ["--set", f"mesh.dp={ranks}", "--set",
-            f"train.log_every={RATE_LOG}", "--set", "train.ckpt_every=0",
-            "--set", "train.sample_every=0"]
+def rate(preset: str, ranks: int, workdir: Path, cp: int = 1) -> dict:
+    """cli train of the preset at dp = ranks / cp and cp (torchrun; one
+    plain process on card 0 at 1): steps/s of steps RATE_LOG + 1 to
+    RATE_STEPS."""
+    sets = ["--set", f"mesh.dp={ranks // cp}", "--set", f"mesh.cp={cp}",
+            "--set", f"train.log_every={RATE_LOG}", "--set",
+            "train.ckpt_every=0", "--set", "train.sample_every=0"]
     args = _cli("--preset", preset, "--total_steps", RATE_STEPS,
                 "--workdir", workdir, *sets)
     if ranks == 1:
@@ -563,8 +799,8 @@ def rate(preset: str, ranks: int, workdir: Path) -> dict:
     recs = _records(workdir)
     window = [recs[s]["steps_per_sec"]
               for s in range(2 * RATE_LOG, RATE_STEPS + 1, RATE_LOG)]
-    return {"preset": preset, "dp": ranks,
-            "batch_per_rank": 64 // ranks,
+    return {"preset": preset, "dp": ranks // cp, "cp": cp,
+            "batch_per_rank": 64 // (ranks // cp),
             "steps_per_s": sum(window) / len(window), "windows": window,
             "seconds": secs,
             "last": {k: recs[RATE_STEPS][k] for k in
@@ -614,16 +850,17 @@ def _kill_tree(proc: subprocess.Popen) -> None:
         time.sleep(0.1)
 
 
-def kill_and_resume(ranks: int, base: Path) -> dict:
-    """The flagship at dp = ranks: uninterrupted to RESUME_STEPS, and
-    killed (the whole process group) when it logs its RESUME_KILL_AT
-    checkpoint, then run again: the same last record (but time and
-    rates) and checkpoint, to the bit."""
+def kill_and_resume(ranks: int, base: Path, preset: str = "wgan_gp_b64",
+                    cp: int = 1) -> dict:
+    """The preset at dp = ranks / cp and cp: uninterrupted to
+    RESUME_STEPS, and killed (the whole process group) when it logs its
+    RESUME_KILL_AT checkpoint, then run again: the same last record (but
+    time and rates) and checkpoint, to the bit."""
     def cmd(workdir):
         return _torchrun(ranks, *_cli(
-            "--preset", "wgan_gp_b64", "--total_steps", RESUME_STEPS,
-            "--set", f"mesh.dp={ranks}", "--set",
-            f"train.ckpt_every={RESUME_KILL_AT}", "--set",
+            "--preset", preset, "--total_steps", RESUME_STEPS,
+            "--set", f"mesh.dp={ranks // cp}", "--set", f"mesh.cp={cp}",
+            "--set", f"train.ckpt_every={RESUME_KILL_AT}", "--set",
             "train.log_every=1", "--workdir", workdir))
     a, b = base / "a", base / "b"
     _, a_s = _run(cmd(a))
@@ -644,7 +881,7 @@ def kill_and_resume(ranks: int, base: Path) -> dict:
         proc.stdout.close()
     k_s = time.time() - t0
     if not killed:
-        raise AssertionError("the dp run was not killed at its checkpoint")
+        raise AssertionError("the run was not killed at its checkpoint")
     left = sorted(int(q.stem) for q in (b / "ckpt").glob("*.pt"))
     if left != [RESUME_KILL_AT]:
         raise AssertionError(f"the killed run left {left}")
@@ -658,7 +895,8 @@ def kill_and_resume(ranks: int, base: Path) -> dict:
         raise AssertionError(f"step {RESUME_STEPS} differs: {ra} != {rb}")
     last = f"ckpt/{RESUME_STEPS}.pt"
     n = same_checkpoint(a / last, b / last)
-    return {"dp": ranks, "restored_step": restored[0],
+    return {"preset": preset, "dp": ranks // cp, "cp": cp,
+            "restored_step": restored[0],
             "compared_keys": keys, "tensors_equal": n,
             "seconds": {"uninterrupted": a_s, "killed": k_s,
                         "resumed": r_s}, "w_dist": rb["w_dist"]}
@@ -674,6 +912,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--checks_only", action="store_true",
                     help="only the in-process checks: no cli train rates, "
                          "no kill-and-resume")
+    ap.add_argument("--cp", action="store_true",
+                    help="context parallelism instead: music_44k_dp16 at "
+                         "cp=4 and at dp=2 x cp=2 (the in-process checks, "
+                         "cli train's rates, a cp=4 run killed and resumed)")
     ap.add_argument("--worker", action="store_true",
                     help="one rank under torchrun (internal)")
     args = ap.parse_args(argv)
@@ -681,8 +923,10 @@ def main(argv: list[str] | None = None) -> int:
     # workdirs and checkpoints: build/, which neither git nor the chip
     # tool's output directory takes
     work = ROOT / "build" / "dp_check"
+    if args.cp:
+        args.presets = ["music_44k_dp16"]
     if args.worker:
-        return worker_main(work / "checks", tuple(args.presets))
+        return worker_main(work / "checks", tuple(args.presets), args.cp)
     import concurrent.futures
 
     from audiogan_tpu_torch.kernels import _build
@@ -711,10 +955,17 @@ def main(argv: list[str] | None = None) -> int:
     show("build_seconds", time.time() - t0)
     lines, secs = _run(_torchrun(args.ranks, "-m",
                                  "audiogan_tpu_torch.tools.dp_check",
-                                 "--worker", "--presets", *args.presets))
+                                 "--worker", "--presets", *args.presets,
+                                 *(["--cp"] if args.cp else [])))
     show("checks", [ln["check"] for ln in lines if "check" in ln])
     show("checks_seconds", secs)
-    if not args.checks_only:
+    if args.cp and not args.checks_only:
+        show("rates", [rate(args.presets[0], args.ranks,
+                            work / f"rate_cp{cp}", cp)
+                       for cp in (args.ranks, args.ranks // 2)])
+        show("resume", kill_and_resume(args.ranks, work / "resume",
+                                       args.presets[0], args.ranks))
+    elif not args.checks_only:
         rates = []
         for preset in args.presets:
             for ranks in (args.ranks, 1):

@@ -153,6 +153,70 @@ def conv_step_launches(cfg) -> dict:
 
 
 
+def cp_rank_layers(cfg, batch: int, cp: int) -> tuple[list[dict], list[dict]]:
+    """(K1, K1') geometries one rank of a cp group runs
+    (parallel/halo.py): the critic's convs on halo-extended slices with
+    VALID pads at 2 batch (the fused views) and their dx, G's convT on
+    slices extended by ceil(pad / s) input rows each side (pad_lo
+    (k-1)//2, out_len the extended length times s) at batch and their
+    dx; a layer whose slice is narrower than its halo runs the whole
+    signal (the all-gather route). Named with "(cp=N)"."""
+    from audiogan_tpu_torch.kernels.conv import _same_pads
+    from audiogan_tpu_torch.models.wavegan import (_disc_channels,
+                                                   _gen_channels)
+    m = cfg.model
+    k, n = m.kernel_size, len(m.strides)
+    tag = f" (cp={cp})"
+    convt, conv = [], []
+    t, c_in = cfg.data.clip_len // cp, 1
+    for i, (s, c_out) in enumerate(zip(m.strides, _disc_channels(
+            m.model_dim, n, m.max_channels))):
+        total = max(k - s, 0)
+        lo, hi = total // 2, total - total // 2
+        if lo > t or hi > t:
+            t_in = t * cp
+            _, lo, hi = _same_pads(t_in, k, s)
+        else:
+            t_in, lo, hi = t + lo + hi, 0, 0
+        L = dict(name=f"D{i} fwd{tag}", b=2 * batch, t_in=t_in, cin=c_in,
+                 cout=c_out, k=k, s=s, lo=lo, hi=hi, act="leaky_relu")
+        conv.append(L)
+        convt.append(dict(name=f"D{i} dx{tag}", b=2 * batch,
+                          t_in=(t_in + lo + hi - k) // s + 1, cin=c_out,
+                          cout=c_in, k=k, s=s, pad_lo=k - 1 - lo,
+                          out_len=t_in, act="none"))
+        t, c_in = t // s, c_out
+    t = cfg.data.clip_len // m.total_stride // cp
+    c_in = min(m.model_dim * 2 ** (n - 1), m.max_channels)
+    pad_lo = (k - 1) // 2
+    for i, (s, c_out) in enumerate(zip(m.strides, _gen_channels(
+            m.model_dim, n, m.max_channels))):
+        lx, rx = -(-pad_lo // s), -(-max(k - 1 - pad_lo, 0) // s)
+        t_in = t * cp if lx > t or rx > t else t + lx + rx
+        L = dict(name=f"G{i} fwd{tag}", b=batch, t_in=t_in, cin=c_in,
+                 cout=c_out, k=k, s=s, pad_lo=pad_lo, out_len=t_in * s,
+                 act="relu" if i < n - 1 else "tanh")
+        convt.append(L)
+        lo = k - 1 - pad_lo
+        conv.append(dict(name=f"G{i} dx{tag}", b=batch, t_in=t_in * s,
+                         cin=c_out, cout=c_in, k=k, s=s, lo=lo,
+                         hi=max((t_in - 1) * s + k - lo - t_in * s, 0),
+                         act="none"))
+        t, c_in = t * s, c_out
+    return convt, conv
+
+
+def cp_step_launches(cfg) -> dict:
+    """K1' and K1 launches of one context-parallel step on each rank:
+    the WaveGAN step's structure (``conv_step_launches``), every shuffle
+    site unfused (the cp critic ignores fused_shuffle_sites) and none on
+    the tensor cores (the cp step computes in f32)."""
+    import dataclasses
+    return conv_step_launches(cfg.replace(
+        model=dataclasses.replace(cfg.model, fused_shuffle_sites=0),
+        train=dataclasses.replace(cfg.train, dtype="float32")))
+
+
 # -- states to the bit ------------------------------------------------------
 
 def bits_of(t: torch.Tensor) -> torch.Tensor:

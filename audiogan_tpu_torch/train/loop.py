@@ -13,15 +13,19 @@ host (a prefetch thread) and ``HostFeed`` ships them from pinned memory,
 the next step's copy on a side stream while the current step runs. Every
 path gives the step the same clips, so they train to the same bits.
 
-Data parallelism: under torchrun (one process per card) the loop joins
-the process group (parallel/multihost.py); each rank builds the same
-state from the seed, feeds its rows of the global batch and runs the
-global step's rows (train/step.py). Rank 0 alone builds the corpus and
-writes config.json, the checkpoints, metrics.jsonl, TensorBoard and the
-sample dumps, and logs; the others wait at a barrier where they need its
-files. Every rank restores the same checkpoint. cp or tp above 1, and a
-mesh whose size is not the number of processes, raise before the device
-is touched (``check_ported``).
+Data and context parallelism: under torchrun (one process per card) the
+loop joins the process group (parallel/multihost.py); each rank builds
+the same state from the seed and feeds its data replica's rows of the
+global batch; at cp = 1 it runs the global step's rows (train/step.py),
+with mesh.cp above 1 the context-parallel step on its time slice of
+those clips (train/cp_step.py), on each of the three corpus paths (the
+corpus is sharded over the data axis only). Global rank 0 alone builds
+the corpus and writes config.json, the checkpoints (the whole state,
+replicated over cp, which restores on any topology), metrics.jsonl,
+TensorBoard and the sample dumps, and logs; the others wait at a barrier
+where they need its files. Every rank restores the same checkpoint. tp
+above 1, and a mesh whose size is not the number of processes, raise
+before the device is touched (``check_ported``).
 
 Crash-only, as the reference: a checkpoint every ckpt_every steps and at
 the last one; ``resume`` picks up the latest complete checkpoint; the data
@@ -53,7 +57,8 @@ from audiogan_tpu_torch.data.corpus import Corpus, HostBatcher, build_corpus
 from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
 from audiogan_tpu_torch.data.wavio import write_wav
 from audiogan_tpu_torch.device import resolve_device
-from audiogan_tpu_torch.parallel.mesh import DataMesh, check_world
+from audiogan_tpu_torch.parallel.mesh import (DataMesh, check_world,
+                                              world_rank)
 from audiogan_tpu_torch.parallel.multihost import make_train_mesh
 from audiogan_tpu_torch.parallel.sharded_corpus import (corpus_num_shards,
                                                         local_shard,
@@ -109,7 +114,7 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
 
 def check_ported(cfg: Config) -> None:
     """Raises NotImplementedError for the reference loop's options the
-    port has not ported (cp or tp above 1, three tracing options), and
+    port has not ported (tp above 1, three tracing options), and
     ValueError when the mesh asks for another number of processes than
     run (parallel/mesh.py::check_world)."""
     check_world(cfg)
@@ -234,7 +239,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     check_ported(cfg)
     dev = resolve_device(device)
     mesh = make_train_mesh(cfg, dev)
-    lead = mesh.rank == 0
+    lead = world_rank() == 0
     say = functools.partial(print, flush=True) if lead else _quiet
     log = log if lead else _quiet
     total = cfg.train.total_steps if steps is None else steps
@@ -252,6 +257,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                              "d_params": param_count(state.d),
                              "corpus_clips": len(corpus),
                              "device": str(dev), "dp": mesh.dp,
+                             "cp": cfg.mesh.cp,
                              "corpus": placement}}))
     mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts,
                                  config=cfg)

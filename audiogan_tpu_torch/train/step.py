@@ -95,8 +95,9 @@ def d_scores_real_fake(d, real, fake, lab_r, lab_f, shifts, fused: bool):
 
 
 def draw_step(cfg: Config, seed: int, step: int, batch: int,
-              device) -> dict:
-    """The port's own draws for one step (see the module docstring)."""
+              device, tag: str = "") -> dict:
+    """The port's own draws for one step (see the module docstring);
+    ``tag`` ends every role (the cp step's data replica)."""
     m, d = cfg.model, cfg.data
     sites = len(m.strides) - 1 if m.phase_shuffle else 0
     rad = m.phase_shuffle
@@ -111,7 +112,7 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
 
     critic = []
     for i in range(cfg.loss.n_critic):
-        gen = prng.generator(seed, step, f"critic/{i}", device)
+        gen = prng.generator(seed, step, f"critic/{i}{tag}", device)
         dr = {"offsets": crop_offsets(gen, batch, max_off, device),
               "z": torch.randn(batch, m.latent_dim, generator=gen,
                                device=device),
@@ -126,7 +127,7 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
                 "fake": draw_shifts(gen, sites, batch, rad, device)}
         dr["shifts"]["gp"] = draw_shifts(gen, sites, gp_batch, rad, device)
         critic.append(dr)
-    gen = prng.generator(seed, step, "generator", device)
+    gen = prng.generator(seed, step, f"generator{tag}", device)
     g = {"z": torch.randn(batch, m.latent_dim, generator=gen, device=device),
          "labels": labels(gen),
          "shifts": draw_shifts(gen, sites, batch, rad, device)}
@@ -185,9 +186,13 @@ def build_train_step(cfg: Config, device=None,
     B at dp = 1); ``draws`` are the global step's. Runs on the card
     unless ``device`` says otherwise. ``mesh`` defaults to
     parallel/mesh.py::make_mesh(cfg), which raises NotImplementedError
-    for cp or tp above 1 and ValueError when mesh.dp differs from the
-    number of processes."""
+    for tp above 1 and ValueError when the mesh's size differs from the
+    number of processes. With mesh.cp above 1 this is the context-
+    parallel step (train/cp_step.py), whose ``draws`` are per replica."""
     mesh = make_mesh(cfg) if mesh is None else mesh
+    if cfg.mesh.cp > 1:
+        from audiogan_tpu_torch.train.cp_step import build_cp_train_step
+        return build_cp_train_step(cfg, device, mesh)
     if cfg.loss.gp_batch_chunks > 1 and cfg.data.num_classes:
         # the reference hands each chunk the whole batch's real labels
         # and fails at the projection (audiogan_tpu/train/step.py:226-229)

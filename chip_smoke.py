@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six paths, each driven through the user's entry points: the flagship
+Seven paths, each driven through the user's entry points: the flagship
 WaveGAN (wgan_gp_b64), the same preset trained with every phase-shuffle
 site fused into its consuming conv (`cli train --set
 model.fused_shuffle_sites=-1`), the class-conditional GRU generator
@@ -11,7 +11,9 @@ model.fused_shuffle_sites=-1`), the class-conditional GRU generator
 with G's spectral term (dual_stft), 4 s music clips at 44.1 kHz with
 strides 7/7/5/5/3 (music_44k_dp16 as `--set mesh.dp=1`, its published
 widths) and a 22050 Hz corpus resampled to the 16 kHz model in the
-ingest (resample_22k); beside them the fused GRU cell
+ingest (resample_22k), and the flagship and dual_stft with each clip's
+time axis split over two ranks (context parallelism, `--set
+mesh.cp=2`); beside them the fused GRU cell
 (`ops/gru.py::gru_cell`, impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
 line with its own ``seconds``; any failure raises and the script exits
 non-zero:
@@ -51,7 +53,10 @@ non-zero:
             form. Then the per-rank geometries of data parallelism, where
             the tensor-core tiles are chosen again: the flagship's convs
             and dx at dp=2 and dp=4 (G at B/dp, the critic at 2B/dp),
-            music's at dp=4, and K6/K7 at the fused sites at B/2 and B/4.
+            music's at dp=4, and K6/K7 at the fused sites at B/2 and B/4;
+            and music's per-rank geometries at cp=4, each conv on its
+            halo-extended slice with explicit pads (K1' VALID, K1 with
+            pad_lo and out_len), which the cp step runs in f32.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16; dual_stft's G is the flagship's) exported, loaded and
             served over HTTP on 127.0.0.1; a few requests (with labels for
@@ -124,6 +129,16 @@ non-zero:
             then train.loop.train at dp=2 on the sharded corpus
             against the replicated one, the same records and states to
             the bit.
+6d. cp      context parallelism on this card: two gloo ranks, each one
+            half of every clip's time axis (train/cp_step.py: halo
+            exchanges per conv, one sum over cp per head), f32 at B=8,
+            shuffle off: the flagship and dual_stft (its STFT critic and
+            G's spectral term), two steps each from one warm state with
+            the same draws, against the cp step at cp=1 (the parity
+            bounds) and against the plain step on this card (held for
+            the flagship, reported for dual_stft), ranks equal to
+            the bit, K1', K1 and K2 launches per rank held to the step's
+            structure (cp_step_launches, num_views), each conv's route.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -142,7 +157,9 @@ non-zero:
             and the host loop on the same inputs; each sampler's clips/s.
             K1's and K1''s rows at music_44k_dp16's geometries (each
             tile of the tensor-core path) and K2's at its ingest go into
-            the kernels line's "music" entries.
+            the kernels line's "music" entries; their rows at music's
+            cp=4 geometries, f32 (the CUDA-core tiles, the bound at the
+            f32 rate), into its "cp" entries.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -178,14 +195,16 @@ import torch.nn.functional as F
 # without the package beside it the script stops here
 from audiogan_tpu_torch.tools.step_checks import (
     PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, compare_blobs,
-    compute_dtype, conv_step_launches, critic_dx_layers, critic_layers,
-    generator_dx_layers, generator_layers, hold_bf16_to_dp1, random_raw,
-    same_bits, same_checkpoint, state_parts, tensor_core)
+    compute_dtype, conv_step_launches, cp_rank_layers, cp_step_launches,
+    critic_dx_layers, critic_layers, generator_dx_layers, generator_layers,
+    hold_bf16_to_dp1, random_raw, same_bits, same_checkpoint, state_parts,
+    tensor_core)
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 64
 SMALL = 8                     # a request for a prefix of the batch
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor rate
+PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
 F32_REL_TOL = 1e-4            # same sums in another order
 BF16_REL_TOL = 2e-2           # bf16 keeps 8 bits: one rounding of the output
@@ -224,6 +243,9 @@ CLI_TIMEOUT_S = 600
 # the dp phase: two ranks on this card; its f32 steps at this batch
 DP_RANKS, DP_F32_BATCH, DP_STEPS = 2, 8, 2
 DP_TIMEOUT_S = 600
+# the cp phase: two ranks on this card, f32 at this batch; and the
+# per-rank conv geometries of music_44k_dp16 at cp=4 (compare, timing)
+CP_RANKS, CP_BATCH, CP_STEPS, CP_MUSIC = 2, 8, 2, 4
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -365,8 +387,9 @@ def sconvt_work(L: dict, itemsize: int) -> tuple[int, int]:
                                        - L["cout"]) + 4 * L["b"]
 
 
-def bound(flops: int, nbytes: int) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: int, nbytes: int,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -2222,6 +2245,90 @@ def dp_phase(cfg, dcfg, dev) -> dict:
                 spawn_seconds=t_run)
 
 
+def cp_phase(cfg, dcfg, dev) -> dict:
+    """Phase 6d (the module docstring): two ranks over gloo on this card,
+    each one half of every clip's time axis."""
+    from audiogan_tpu_torch.config import MeshCfg
+    from audiogan_tpu_torch.tools import dp_check
+    from audiogan_tpu_torch.train.step import draw_step, num_views
+
+    def on(c, cp):
+        return c.replace(
+            mesh=MeshCfg(cp=cp),
+            model=dataclasses.replace(c.model, phase_shuffle=0),
+            train=dataclasses.replace(c.train, dtype="float32",
+                                      batch_size=CP_BATCH))
+    cases = {c.name: on(c, 1) for c in (cfg, dcfg)}
+    want, want_plain, jobs = {}, {}, []
+    t_ref = time.time()
+    for name, c in cases.items():
+        raws = [random_raw(c, num_views(c), CP_BATCH, 60 + s)
+                for s in range(CP_STEPS + 1)]
+        # one warm plain step, then the same draws for every side
+        warm = dp_check.steps_job(dev, c.to_json(), raws[:1])
+        draws = [draw_step(c, c.train.seed, warm["step"] + s, CP_BATCH,
+                           "cpu") for s in range(CP_STEPS)]
+        per_replica = [[d] for d in draws]
+        want_plain[name] = dp_check.steps_job(dev, c.to_json(), raws[1:],
+                                              draws=draws, state=warm)
+        want[name] = dp_check.steps_job(dev, c.to_json(), raws[1:],
+                                        draws=per_replica, state=warm,
+                                        cp1=True)
+        jobs.append({"name": name, "fn": "steps", "kw": {
+            "cfg_json": on(c, CP_RANKS).to_json(), "batches": raws[1:],
+            "draws": per_replica, "state": warm}})
+    t_ref = time.time() - t_ref
+    base = ROOT / "build" / "chip_smoke_cp"
+    shutil.rmtree(base, ignore_errors=True)
+    t_run = time.time()
+    res = dp_check.spawn(CP_RANKS, jobs, base / "out", device=str(dev),
+                         backend="gloo", timeout_s=DP_TIMEOUT_S)
+    t_run = time.time() - t_run
+    report, tensors, per_rank = {}, {}, {}
+    for name, c in cases.items():
+        got = res[name][0]
+        plain = dict(want_plain[name], metrics=[
+            {k: v for k, v in m.items() if k != "d_loss_mean"}
+            for m in want_plain[name]["metrics"]])
+        # dual_stft's G against the plain step is reported, not held: its
+        # spectral term and STFT critic differentiate log-magnitudes at
+        # near-zero bins, where another conv and DFT order (VALID convs on
+        # extended slices, a zero-padded and masked tail) is amplified
+        # (ROADMAP Queue 3's thin margin); cp=2 against cp=1 is held
+        held = name == cfg.name
+        report[name] = {
+            "vs_cp1": compare_blobs(got, want[name], PARITY_REL_TOL,
+                                    PARITY_PARAM_TOL),
+            "vs_plain": compare_blobs(
+                got, plain, PARITY_REL_TOL if held else float("inf"),
+                PARITY_PARAM_TOL if held else None),
+            "vs_plain_held": held,
+            "seconds": {"cp2": got["seconds"],
+                        "cp1": want[name]["seconds"],
+                        "plain": want_plain[name]["seconds"]}}
+        tensors[name + " ranks"] = same_bits(state_parts(res[name][0]),
+                                             state_parts(res[name][1]))
+        want_launches = {**cp_step_launches(c), "ingest": num_views(c)}
+        per_rank[name] = []
+        for rank, r in enumerate(res[name]):
+            for kname, n in want_launches.items():
+                if r["launches"][kname] != n * CP_STEPS:
+                    raise AssertionError(
+                        f"cp {name} rank {rank}: {kname} launched "
+                        f"{r['launches'][kname]} times in {CP_STEPS} "
+                        f"steps, want {n} per step")
+            per_rank[name].append({k: v // CP_STEPS
+                                   for k, v in r["launches"].items()})
+        report[name]["routes_per_rank_step"] = {
+            k: v // CP_STEPS for k, v in res[name][0]["routes"].items()}
+    if "stft_loss" not in res[dcfg.name][0]["metrics"][-1]:
+        raise AssertionError("dual_stft at cp=2: no stft_loss")
+    return dict(ranks=CP_RANKS, backend="gloo", batch=CP_BATCH,
+                steps=CP_STEPS, dtype="float32", parity=report,
+                tensors_equal=tensors, launches_per_rank_step=per_rank,
+                in_process_seconds=t_ref, spawn_seconds=t_run)
+
+
 def tc_tile_times(family: str, L: dict, x, w, b) -> dict:
     """The tensor-core kernel at each of its tiles (kernels/conv.py
     TC_TILES), launched with that tile's plan: the measured alternatives
@@ -2247,18 +2354,23 @@ def tc_tile_times(family: str, L: dict, x, w, b) -> dict:
     return out
 
 
-def time_conv(family: str, layers: list[dict], dev, errs: dict) -> list:
+def time_conv(family: str, layers: list[dict], dev, errs: dict,
+              dtype=torch.bfloat16) -> list:
+    """Each geometry in dtype (bf16; f32 where the path computes in it:
+    the cp step), its bound at that dtype's peak rate."""
     from audiogan_tpu_torch.kernels import conv as kconv
     kname, pname, args_of, work, library = FAMILIES[family]
     kernel, plain = getattr(kconv, kname), getattr(kconv, pname)
+    f32 = dtype == torch.float32
     rows = []
     for i, L in enumerate(layers):
-        x, w, b = conv_inputs(L, torch.bfloat16, dev, seed=i)
+        x, w, b = conv_inputs(L, dtype, dev, seed=i)
         args = args_of(L)
-        flops, nbytes = work(L, 2)
-        bound_ms, bound_by = bound(flops, nbytes)
+        flops, nbytes = work(L, 4 if f32 else 2)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS if f32
+                                   else PEAK_BF16_FLOPS)
         ms = cuda_ms(lambda: kernel(x, w, b, *args))
-        tc = tensor_core(family, L)
+        tc = tensor_core(family, L, dtype)
         extra = {}
         if tc:
             if family == "conv1d":
@@ -2278,8 +2390,8 @@ def time_conv(family: str, layers: list[dict], dev, errs: dict) -> list:
             "plain_ms": cuda_ms(lambda: plain(x, w, b, *args)),
             "library_ms": cuda_ms(library(L, x, w, b)),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "flops": flops, "bytes": nbytes,
-            "max_abs_err": errs[(L["name"], "bf16")],
+            "flops": flops, "bytes": nbytes, "dtype": "f32" if f32 else "bf16",
+            "max_abs_err": errs[(L["name"], "f32" if f32 else "bf16")],
         })
         print(json.dumps({"timing": family, **rows[-1]}), flush=True)
     return rows
@@ -2487,10 +2599,17 @@ def main() -> int:
                for L in fused_site_layers(cfg, BATCH // dp)]
     r_s_dx = [dict(L, name=f"{L['name']} (B/{dp})") for dp in (2, 4)
               for L in fused_site_dx_layers(cfg, BATCH // dp)]
+    # context parallelism runs each conv on a halo-extended slice with
+    # explicit pads, in f32: music's at cp=4 (tools/dp_check.py --cp)
+    c_convt, c_conv = (music(layers) for layers in cp_rank_layers(
+        apply_overrides(mcfg, [f"mesh.cp={CP_MUSIC}"]).validate(), BATCH,
+        CP_MUSIC))
     errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx + m_g_fwd
-                                    + m_d_dx + r_convt + rm_convt, dev),
+                                    + m_d_dx + r_convt + rm_convt + c_convt,
+                                    dev),
             "conv1d": compare_conv("conv1d", d_fwd + g_dx + m_d_fwd
-                                   + m_g_dx + r_conv + rm_conv, dev),
+                                   + m_g_dx + r_conv + rm_conv + c_conv,
+                                   dev),
             "sconv1d": compare_sconv(False, s_fwd + s_fwd_b + r_s_fwd, dev),
             "sconvt1d": compare_sconv(True, s_dx + s_dx_b + r_s_dx, dev)}
     cases = ingest_cases(dev)
@@ -2631,6 +2750,11 @@ def main() -> int:
     dp_run = dp_phase(cfg, dcfg, dev)
     phase("dp", t0, card=card, **dp_run)
 
+    # 6d. context parallelism: two ranks on this card ------------------------
+    t0 = time.time()
+    cp_run = cp_phase(cfg, dcfg, dev)
+    phase("cp", t0, card=card, **cp_run)
+
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()
     rows = {"convt1d": time_conv("convt1d", g_fwd + d_dx, dev,
@@ -2640,6 +2764,10 @@ def main() -> int:
                                        errs["convt1d"]),
             "conv1d_music": time_conv("conv1d", m_d_fwd + m_g_dx, dev,
                                       errs["conv1d"]),
+            "convt1d_cp": time_conv("convt1d", c_convt, dev,
+                                    errs["convt1d"], torch.float32),
+            "conv1d_cp": time_conv("conv1d", c_conv, dev, errs["conv1d"],
+                                   torch.float32),
             "ingest": time_ingest(cases, errs["ingest"]),
             **time_gru(gcfg, dev, errs["gru"], gru_launches),
             "sconv1d": time_sconv(False, s_fwd, dev, errs["sconv1d"]),
@@ -2679,6 +2807,18 @@ def main() -> int:
                 "launches_per_train_step": mper_step[family],
                 "launches_serve": mserved["launches"][family],
                 "geometries": rows_m}
+    def cp_rows(family):
+        rows_c = rows[family + "_cp"]
+        return {"ms": sum(r["ms"] for r in rows_c),
+                "plain_ms": sum(r["plain_ms"] for r in rows_c),
+                "bound_ms": sum(r["bound_ms"] for r in rows_c),
+                "library_ms": sum(r["library_ms"] for r in rows_c),
+                "per": f"one rank of music_44k_dp16 at cp={CP_MUSIC}: the "
+                       "halo-extended geometries (critic 2B=128, G B=64), "
+                       "f32, the CUDA-core tiles",
+                "launches_per_rank_step_cp2": cp_run[
+                    "launches_per_rank_step"][cfg.name][0][family],
+                "geometries": rows_c}
     gru_per = ("one scan of cond_gru_sc09's G (B=64, H=512, F=256, 256 "
                "frames), bf16")
     kernels = [
@@ -2700,7 +2840,7 @@ def main() -> int:
             launches_tensor_core_per_train_step_music=mper_step["convt1d_tc"],
             launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
                 "convt1d"],
-            music=music_rows("convt1d")),
+            music=music_rows("convt1d"), cp=cp_rows("convt1d")),
         kernel_entry(
             "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
             "audiogan_tpu/kernels/conv.py:285",
@@ -2717,7 +2857,7 @@ def main() -> int:
             launches_tensor_core_per_train_step_music=mper_step["conv1d_tc"],
             launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
                 "conv1d"],
-            music=music_rows("conv1d")),
+            music=music_rows("conv1d"), cp=cp_rows("conv1d")),
         kernel_entry(
             "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
             "audiogan_tpu/kernels/ingest.py:124", "ingest_fused (body _kernel)",
@@ -2731,7 +2871,9 @@ def main() -> int:
             launches_per_train_step_resample_22k=rtrained[
                 "launches_per_step"]["ingest"],
             launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
-                "ingest"]),
+                "ingest"],
+            launches_per_rank_step_cp2=cp_run["launches_per_rank_step"][
+                cfg.name][0]["ingest"]),
         kernel_entry(
             "gru_scan", "audiogan_tpu_torch/csrc/gru_scan.cu",
             "audiogan_tpu/kernels/gru.py:213",

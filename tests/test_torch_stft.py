@@ -165,3 +165,20 @@ def test_stft_losses_match_jax(rank):
 def test_default_resolutions_are_the_reference():
     assert tuple(stft_loss.DEFAULT_RESOLUTIONS) == \
         tuple(jloss.DEFAULT_RESOLUTIONS)
+
+
+def test_a_basis_first_made_under_inference_mode_stays_differentiable():
+    """ops/stft.py caches its basis per (n_fft, win_len, device), and the
+    first call may come from ``evaluate`` or ``sample``, which run under
+    inference mode. A basis made there would be an inference tensor,
+    which no later loss can save for backward: in a test process where
+    an eval test ran first, test_stft_losses_match_jax failed so. The
+    resampler's cached taps (ops/resample.py) likewise."""
+    from audiogan_tpu_torch.ops import resample
+    with torch.inference_mode():
+        stft.stft_magnitude(torch.zeros(2, 480), 96, 24)
+        taps = resample._taps_on(7, 5, 3, 4.0, torch.device("cpu"))
+    assert not taps.is_inference()
+    x = torch.from_numpy(_signal((2, 480), seed=5)).requires_grad_(True)
+    (g,) = torch.autograd.grad(stft.stft_magnitude(x, 96, 24).sum(), x)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
