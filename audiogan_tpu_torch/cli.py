@@ -20,6 +20,9 @@ Usage:
     torchrun --nproc_per_node 4 -m audiogan_tpu_torch.cli train \\
         --preset music_44k_dp16 --set mesh.dp=1 --set mesh.cp=4 \\
         --total_steps 10 --workdir /tmp/music_cp4
+    torchrun --nproc_per_node 4 -m audiogan_tpu_torch.cli train \\
+        --preset wgan_gp_b64 --set mesh.dp=2 --set mesh.tp=2 \\
+        --total_steps 10 --workdir /tmp/flagship_tp2
     torchrun --nproc_per_node 2 -m audiogan_tpu_torch.cli train \\
         --preset tiny_sc09 --set mesh.dp=2 --device cpu --total_steps 2 \\
         --batch_size 2 --workdir /tmp/tiny2
@@ -52,16 +55,17 @@ train.total_steps), from the workdir's latest checkpoint unless
 --no_resume. It writes ``config.json``, ``ckpt/<step>.pt`` every
 train.ckpt_every steps and at the end, ``metrics.jsonl`` and, every
 train.sample_every steps, ``samples/``, and prints one JSON line of
-metrics per log_every steps. Data and context parallelism run one
-process per card under ``torchrun`` (NCCL; gloo with ``--device cpu``),
-mesh.dp times mesh.cp equal to the number of processes (with mesh.fsdp,
-ZeRO-1 over the data axis; with mesh.cp above 1 each clip's time axis
-split over cp consecutive ranks, train/cp_step.py), rank 0 alone
-printing and writing; ``music_44k_dp16`` asks for dp=16, so run it on
-16 processes or with ``--set mesh.dp=N`` (and ``--set mesh.cp=M``) on
-N M. A mesh of another size than the number of processes raises
-ValueError, and mesh.tp above 1 NotImplementedError, before the card is
-touched.
+metrics per log_every steps. Data, context and tensor parallelism run
+one process per card under ``torchrun`` (NCCL; gloo with ``--device
+cpu``), mesh.dp times mesh.cp times mesh.tp equal to the number of
+processes (with mesh.fsdp, ZeRO-1 over the data axis; with mesh.cp
+above 1 each clip's time axis split over cp consecutive ranks,
+train/cp_step.py; with mesh.tp above 1 the critic's channels split over
+tp consecutive ranks, train/tp_step.py), rank 0 alone printing and
+writing; ``music_44k_dp16`` asks for dp=16, so run it on 16 processes
+or with ``--set mesh.dp=N`` (and ``--set mesh.cp=M`` or ``--set
+mesh.tp=M``) on N M. A mesh of another size than the number of
+processes raises ValueError before the card is touched.
 ``--config PATH`` (a config.json) takes the
 place of ``--preset``; ``--set KEY=VALUE`` overrides any config field by
 dotted path, as the JAX CLI's does (the flags above it win). ``info``

@@ -5,8 +5,7 @@ The fields, their defaults and the JSON form are those of
 ``meta.json`` written by either package loads in the other. Fields of
 parts not ported yet (meshes, the JAX kernel tiers) are carried so the
 JSON round-trips, and ``validate`` rejects what the reference's
-``validate`` rejects. ``check_mesh_ported`` rejects the mesh axes the
-port does not run yet (cp and tp above 1); dp and fsdp run over a
+``validate`` rejects. Every mesh axis runs (dp, fsdp, cp, tp) over a
 process group, one process per card (``parallel/``).
 
 Presets, each equal in JSON to the reference's: ``tiny_sc09``
@@ -183,26 +182,6 @@ class Config:
                              "not in einsum|conv")
         self._validate_mesh()
         return self
-
-    def check_mesh_ported(self) -> None:
-        """Raises NotImplementedError for tp above 1: the reference runs
-        it as a shard_map step (audiogan_tpu/train/tp_step.py), not
-        ported yet.
-
-        dp, fsdp and cp run. The reference's DP, at cp = tp = 1, is one
-        global step partitioned by XLA: its loop jits the plain step with
-        a replicated state and batch-sharded inputs
-        (audiogan_tpu/train/loop.py:203-213), so DP over N devices equals
-        the same step on one device for the same global batch
-        (tests/parallel/test_dp.py:182). The port's DP is that global step
-        split by rows (train/step.py). With cp above 1 the loop runs the
-        context-parallel step (train/cp_step.py), as the reference's does
-        (audiogan_tpu/train/loop.py:191-196)."""
-        if self.mesh.tp > 1:
-            raise NotImplementedError(
-                f"mesh.tp={self.mesh.tp}: audiogan_tpu_torch runs data and "
-                "context parallelism only (tensor parallelism is not "
-                "ported); run with --set mesh.tp=1")
 
     def _validate_mesh(self) -> None:
         """The cp/tp geometry checks of audiogan_tpu/config.py:242-292."""

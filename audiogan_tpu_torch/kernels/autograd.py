@@ -256,6 +256,34 @@ def _ba_backward(ctx, gy, dx_fn, dw_fn):
     return dx, dw, db
 
 
+class BiasAct(torch.autograd.Function):
+    """act(x + b) in torch ops, with the fused Functions' backward: the
+    activation's derivative from the OUTPUT (``_act_out_grad``), so the
+    backward is linear in its incoming gradient alone. torch's own
+    activations pass a zero gradient back to their input in the double
+    backward, which would run the whole forward graph below them (its
+    convs and collectives) on zeros. The bias of the tp critic's row
+    layers, added after the sum over tp (parallel/tp_models.py)."""
+
+    @staticmethod
+    def forward(ctx, x, b, act, slope):
+        y = kconv._apply_act(x + b, act, slope)
+        ctx.save_for_backward(y)
+        ctx.act, ctx.slope = act, slope
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        (y,) = ctx.saved_tensors
+        gd = _act_out_grad(y, ctx.act, ctx.slope)
+        gpre = gy if gd is None else gy * gd
+        db = None
+        if ctx.needs_input_grad[1]:
+            acc = torch.promote_types(gpre.dtype, torch.float32)
+            db = gpre.to(acc).sum(dim=tuple(range(gpre.dim() - 1)))
+        return gpre, db, None, None
+
+
 class Conv1dBA(torch.autograd.Function):
     """act(conv1d(x, w) + b), one fused kernel forward
     (primitives.py conv1d_ba_p)."""

@@ -7,7 +7,7 @@ parameters: every conv is a halo-exchange conv (the kernels K1' and K1
 on the extended slice), the phase shuffle is the reflect-exact cp form,
 and each dense head contracts this rank's rows of the flattened
 features against its rows of the head weights, summed over the group
-once (``cp_sum``). The result equals the unsharded module's.
+once (``axis_sum``). The result equals the unsharded module's.
 
 As in the reference: the cp critic takes the select-form shuffle of the
 shifts it is given and ignores ``model.fused_shuffle_sites`` (so K6 and
@@ -44,7 +44,7 @@ from audiogan_tpu_torch.parallel.halo import (cp_chunked_scan,
                                               cp_conv1d_ba,
                                               cp_conv2d_frames,
                                               cp_conv_transpose1d_ba,
-                                              cp_phase_shuffle, cp_sum,
+                                              cp_phase_shuffle, axis_sum,
                                               gather_halo)
 from audiogan_tpu_torch.parallel.mesh import CpMesh
 
@@ -64,10 +64,10 @@ def _head(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     the dense head's score [B]: this rank's rows of the head weights,
     then one sum over cp, then the bias."""
     n_loc = h.shape[1]
-    w_rows = as_compute(kernel, F32).reshape(mesh.cp * n_loc, -1)
+    w_rows = as_compute(kernel, F32).reshape(mesh.size * n_loc, -1)
     w_local = w_rows[mesh.index * n_loc:(mesh.index + 1) * n_loc]
     score = torch.einsum("btc,tc->b", h, w_local)
-    return cp_sum(score, mesh) + as_compute(bias, F32)[0]
+    return axis_sum(score, mesh) + as_compute(bias, F32)[0]
 
 
 def _projection(pooled_sum: torch.Tensor, count: int, embed: torch.nn.Module,
@@ -76,7 +76,7 @@ def _projection(pooled_sum: torch.Tensor, count: int, embed: torch.nn.Module,
     rank's rows, summed over cp, over the global count."""
     if labels is None:
         raise ValueError("conditional D needs labels")
-    pooled = cp_sum(pooled_sum, mesh) / count
+    pooled = axis_sum(pooled_sum, mesh) / count
     emb = as_compute(embed.embedding, F32)[labels]
     return (pooled * emb).sum(-1)
 
@@ -110,7 +110,7 @@ def _wave_critic_score(d: WaveGANDiscriminator, x_loc: torch.Tensor,
     # are a contiguous block of the flattened vector
     score = _head(h, d.head.kernel, d.head.bias, mesh)
     if d.num_classes:
-        score = score + _projection(h.sum(1), mesh.cp * h.shape[1],
+        score = score + _projection(h.sum(1), mesh.size * h.shape[1],
                                     d.proj_embed, labels, mesh)
     return score
 
@@ -137,7 +137,7 @@ def _stft_critic_score(d: STFTCritic, x_loc: torch.Tensor, mesh: CpMesh,
     flat = h.permute(0, 2, 3, 1).reshape(b, f_loc, bins * c)
     score = _head(flat, d.head.kernel, d.head.bias, mesh)
     if d.num_classes:
-        score = score + _projection(h.sum((2, 3)), mesh.cp * f_loc * bins,
+        score = score + _projection(h.sum((2, 3)), mesh.size * f_loc * bins,
                                     d.proj_embed, labels, mesh)
     return score
 
@@ -160,13 +160,13 @@ def cp_generator_forward(g: WaveGANGenerator, z: torch.Tensor, mesh: CpMesh,
     the [B, base_len, c0] seed, then every layer a halo-exchange
     conv-transpose, so no activation holds the whole clip
     (cp_models.py:150). base_len must divide by cp."""
-    if g.base_len % mesh.cp:
+    if g.base_len % mesh.size:
         raise ValueError(f"base_len {g.base_len} must divide over "
-                         f"cp={mesh.cp}")
+                         f"cp={mesh.size}")
     h = _conditioning(g, z, labels)
     h = h @ _p(g.project, "kernel") + _p(g.project, "bias")
     h = torch.relu(h.reshape(h.shape[0], g.base_len, g.c0))
-    n = g.base_len // mesh.cp
+    n = g.base_len // mesh.size
     h = h[:, mesh.index * n:(mesh.index + 1) * n]
     n_layers = len(g.strides)
     for i, s in enumerate(g.strides):
@@ -184,9 +184,9 @@ def cp_gru_generator_forward(g: GRUGenerator, z: torch.Tensor, mesh: CpMesh,
     ``cp_chunked_scan``'s carry handoff (hidden state and the previous
     frame's features), the upsampling stack time-sharded with halos
     (cp_models.py:199). n_frames must divide by cp."""
-    if g.n_frames % mesh.cp:
+    if g.n_frames % mesh.size:
         raise ValueError(f"n_frames {g.n_frames} must divide over "
-                         f"cp={mesh.cp}")
+                         f"cp={mesh.size}")
     cond = _conditioning(g, z, labels)
     h0 = torch.tanh(cond @ _p(g.init_state, "kernel")
                     + _p(g.init_state, "bias"))
@@ -203,7 +203,7 @@ def cp_gru_generator_forward(g: GRUGenerator, z: torch.Tensor, mesh: CpMesh,
         return (h, feat), feat
 
     feats = cp_chunked_scan(step, (h0, torch.zeros_like(cond_proj)),
-                            g.n_frames // mesh.cp, mesh)   # [F_loc, B, F]
+                            g.n_frames // mesh.size, mesh)   # [F_loc, B, F]
     h = feats.transpose(0, 1)
     for i, s in enumerate(g.strides):
         h = cp_conv_transpose1d_ba(
@@ -232,7 +232,7 @@ def cp_batch_spectral_matching_loss(fake_loc: torch.Tensor,
             raise ValueError(f"cp shard length {t_loc} needs hop {hop} "
                              f"alignment and a halo {win - hop} within it")
         f_loc = t_loc // hop
-        n_valid = (mesh.cp * t_loc - win) // hop + 1
+        n_valid = (mesh.size * t_loc - win) // hop + 1
         gidx = mesh.index * f_loc + torch.arange(f_loc,
                                                  device=fake_loc.device)
         mask = (gidx < n_valid).to(F32)[:, None]             # [f_loc, 1]
@@ -242,10 +242,10 @@ def cp_batch_spectral_matching_loss(fake_loc: torch.Tensor,
             return stft_magnitude(x_ext, n_fft, hop, win).mean(0)
 
         fm, rm = mean_mag(fake_loc), mean_mag(real_loc)
-        num = torch.sqrt(cp_sum(((rm - fm).square() * mask).sum(), mesh))
-        den = torch.sqrt(cp_sum((rm.square() * mask).sum(), mesh))
+        num = torch.sqrt(axis_sum(((rm - fm).square() * mask).sum(), mesh))
+        den = torch.sqrt(axis_sum((rm.square() * mask).sum(), mesh))
         sc = num / (den + 1e-8)
-        la = cp_sum(((torch.log(fm + 1e-7) - torch.log(rm + 1e-7)).abs()
+        la = axis_sum(((torch.log(fm + 1e-7) - torch.log(rm + 1e-7)).abs()
                      * mask).sum(), mesh)
         total = total + sc + la / (n_valid * fm.shape[-1])
     return total / len(resolutions)

@@ -53,7 +53,7 @@ from audiogan_tpu_torch.kernels import autograd as kad
 from audiogan_tpu_torch.kernels.conv import conv1d_pads
 from audiogan_tpu_torch.models.stft_critic import same_pads
 from audiogan_tpu_torch.ops.sconv import window_select
-from audiogan_tpu_torch.parallel.mesh import CpMesh
+from audiogan_tpu_torch.parallel.mesh import AxisMesh, CpMesh
 
 # forward calls by (op, route): "conv1d/halo", "convt1d/gather", ...
 ROUTES: collections.Counter = collections.Counter()
@@ -67,7 +67,7 @@ def _flag(value: bool, device: torch.device) -> torch.Tensor:
         return torch.tensor(value, device=device)
 
 
-def _staged(x: torch.Tensor, mesh: CpMesh) -> bool:
+def _staged(x: torch.Tensor, mesh: AxisMesh) -> bool:
     return x.device.type != "cpu" and dist.get_backend(mesh.group) == "gloo"
 
 
@@ -77,14 +77,14 @@ def _all_gather(x: torch.Tensor, mesh: CpMesh) -> list[torch.Tensor]:
     staged = _staged(x, mesh)
     if staged:
         src = src.cpu()
-    out = [torch.empty_like(src) for _ in range(mesh.cp)]
+    out = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(out, src, group=mesh.group)
     return [o.to(x.device) for o in out] if staged else out
 
 
-def _all_reduce_sum(x: torch.Tensor, mesh: CpMesh) -> torch.Tensor:
-    """The sum of x over the group, a new tensor (the same bits on every
-    rank)."""
+def _all_reduce_sum(x: torch.Tensor, mesh: AxisMesh) -> torch.Tensor:
+    """The sum of x over the mesh's group, a new tensor (the same bits on
+    every rank)."""
     out = x.detach().clone().contiguous()
     if not mesh.parallel:
         return out
@@ -101,7 +101,7 @@ def _neighbour(x: torch.Tensor, mesh: CpMesh, step: int) -> torch.Tensor:
         return torch.zeros_like(x)
     got = _all_gather(x, mesh)
     src = mesh.index - step
-    return got[src] if 0 <= src < mesh.cp else torch.zeros_like(x)
+    return got[src] if 0 <= src < mesh.size else torch.zeros_like(x)
 
 
 class ShiftFromLeft(torch.autograd.Function):
@@ -130,9 +130,10 @@ class ShiftFromRight(torch.autograd.Function):
         return ShiftFromLeft.apply(g, ctx.mesh), None
 
 
-class CpSum(torch.autograd.Function):
-    """Forward: the sum over the cp group. Backward: ``CpVary`` of the
-    incoming gradient, which passes it on unchanged. What is computed
+class AxisSum(torch.autograd.Function):
+    """Forward: the sum over the group of ``mesh``, either inner axis (on
+    the tp axis Megatron's g, parallel/tp.py). Backward: ``AxisVary`` of
+    the incoming gradient, which passes it on unchanged. What is computed
     from the sum is the same on every rank, so each rank's incoming
     gradient is the whole gradient of its own term: the transpose of the
     reference's ``lax.psum`` under shard_map (an invariant value made
@@ -146,16 +147,17 @@ class CpSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return CpVary.apply(g, ctx.mesh), None
+        return AxisVary.apply(g, ctx.mesh), None
 
 
-class CpVary(torch.autograd.Function):
+class AxisVary(torch.autograd.Function):
     """Forward: x unchanged, a value the same on every rank handed to
-    rank-local compute. Backward: the sum over cp (``CpSum``), as the
-    transpose of the reference's pvary is a psum. The penalty's double
-    backprop takes this path: the conditional head's input gradient
-    carries proj_embed(y) into every rank's slice, so proj_embed's
-    gradient through the penalty sums over the ranks."""
+    rank-local compute (Megatron's f on the tp axis). Backward: the sum
+    over the group (``AxisSum``), as the transpose of the reference's
+    pvary is a psum. The penalty's double backprop takes this path: the
+    conditional head's input gradient carries proj_embed(y) into every
+    rank's slice, so proj_embed's gradient through the penalty sums over
+    the ranks."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -164,11 +166,15 @@ class CpVary(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return CpSum.apply(g, ctx.mesh), None
+        return AxisSum.apply(g, ctx.mesh), None
 
 
-def cp_sum(x: torch.Tensor, mesh: CpMesh) -> torch.Tensor:
-    return CpSum.apply(x, mesh) if mesh.parallel else x
+def axis_sum(x: torch.Tensor, mesh: AxisMesh) -> torch.Tensor:
+    return AxisSum.apply(x, mesh) if mesh.parallel else x
+
+
+def axis_vary(x: torch.Tensor, mesh: AxisMesh) -> torch.Tensor:
+    return AxisVary.apply(x, mesh) if mesh.parallel else x
 
 
 class GatherTime(torch.autograd.Function):
@@ -194,7 +200,7 @@ class ScatterTime(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g, mesh, dim):
         ctx.mesh, ctx.dim = mesh, dim
-        n = g.shape[dim] // mesh.cp
+        n = g.shape[dim] // mesh.size
         return _all_reduce_sum(g, mesh).narrow(dim, mesh.index * n,
                                                n).contiguous()
 
@@ -321,7 +327,7 @@ def cp_chunked_scan(step_fn, carry0: tuple, length: int,
     reference's ``jax.checkpoint``), and the output [length, ...] exists
     only for this rank's slice."""
     carry, ys = tuple(carry0), None
-    n = mesh.cp
+    n = mesh.size
     for j in range(n):
         *new_carry, new_ys = torch.utils.checkpoint.checkpoint(
             _stage, step_fn, carry, length, use_reentrant=False)
@@ -348,7 +354,7 @@ def cp_phase_shuffle(x: torch.Tensor, shifts: torch.Tensor, rad: int,
         raise ValueError(f"phase shuffle of radius {rad} needs T_loc > "
                          f"{rad}, got {t}")
     first = _flag(mesh.index == 0, x.device)
-    last = _flag(mesh.index == mesh.cp - 1, x.device)
+    last = _flag(mesh.index == mesh.size - 1, x.device)
     left = torch.where(first, x[:, 1:rad + 1].flip(1),
                        ShiftFromLeft.apply(x[:, t - rad:], mesh))
     right = torch.where(last, x[:, t - rad - 1:t - 1].flip(1),

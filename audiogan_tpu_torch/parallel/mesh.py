@@ -1,16 +1,18 @@
 """The mesh the port trains over, the counterpart of
-audiogan_tpu/parallel/mesh.py: one process per card, ``dp * cp``
-processes, the data axis (``DataMesh``) and the context-parallel axis
-(``CpMesh``).
+audiogan_tpu/parallel/mesh.py: one process per card, ``dp * cp * tp``
+processes, the data axis (``DataMesh``), the context-parallel axis
+and the tensor-parallel axis (one ``AxisMesh`` each, named ``CpMesh`` and
+``TpMesh`` by role); cp and tp do not combine (config.py's validate).
 
-The reference builds its ('data', 'cp') mesh as ``devices.reshape(dp,
-cp)`` (audiogan_tpu/parallel/mesh.py:35-36), so global rank r holds data
-index r // cp and cp index r % cp; on several hosts the outer ('dcn')
-tier is the outer part of the data axis (parallel/multihost.py), and a
-cp group is cp consecutive ranks of one host. ``make_meshes`` builds one
-``torch.distributed`` group per cp group and per data group (every rank
-creates every group, in one order). At cp = 1 the data group is the
-default group.
+The reference builds its mesh as ``devices.reshape(dp, cp)``, or
+``reshape(dp, 1, tp)`` with tp (audiogan_tpu/parallel/mesh.py:29-36),
+so global rank r holds data index r // n and index r % n on the inner
+axis, n = cp * tp; on several hosts the outer ('dcn') tier is the outer
+part of the data axis (parallel/multihost.py), and a cp or tp group is
+n consecutive ranks of one host. ``make_meshes`` builds one
+``torch.distributed`` group per inner group and per data group (every
+rank creates every group, in one order). With no inner axis the data
+group is the default group.
 
 The reference's DP at cp = tp = 1 is ONE global step that XLA partitions
 over the batch: its loop jits the plain step with a replicated state and
@@ -64,26 +66,27 @@ def world_rank() -> int:
 
 
 def check_world(cfg: Config) -> None:
-    """The mesh's tp (NotImplementedError above 1), then its size against
-    the processes (ValueError), as the reference's "mesh needs N
-    devices" (audiogan_tpu/parallel/mesh.py:30-33): the port runs one
-    process per device, so the world size must equal dp * cp * tp. A cp
-    group must not straddle two hosts: under torchrun cp must divide the
-    processes per host."""
-    cfg.check_mesh_ported()
+    """The mesh's size against the processes (ValueError), as the
+    reference's "mesh needs N devices" (audiogan_tpu/parallel/mesh.py:
+    30-33): the port runs one process per device, so the world size must
+    equal dp * cp * tp. A cp or tp group must not straddle two hosts
+    (audiogan_tpu/parallel/multihost.py:39-44): under torchrun cp and tp
+    must divide the processes per host."""
     m = cfg.mesh
     need, have = m.dp * m.cp * m.tp, world_size()
     if need != have:
         raise ValueError(
-            f"mesh needs {need} devices (mesh.dp={m.dp}, mesh.cp={m.cp}), "
-            f"have {have} process{'es' if have != 1 else ''}: launch "
-            f"`torchrun --nproc_per_node {need} ...` or set mesh.dp and "
-            f"mesh.cp to multiply to {have}")
+            f"mesh needs {need} devices (mesh.dp={m.dp}, mesh.cp={m.cp}, "
+            f"mesh.tp={m.tp}), have {have} process"
+            f"{'es' if have != 1 else ''}: launch `torchrun "
+            f"--nproc_per_node {need} ...` or set mesh.dp, mesh.cp and "
+            f"mesh.tp to multiply to {have}")
     local = int(os.environ.get("LOCAL_WORLD_SIZE", "0"))
-    if m.cp > 1 and local and local % m.cp:
-        raise ValueError(f"mesh.cp={m.cp} does not divide the {local} "
-                         "processes per host: a cp group must stay on "
-                         "one host")
+    for axis, n in (("cp", m.cp), ("tp", m.tp)):
+        if n > 1 and local and local % n:
+            raise ValueError(f"mesh.{axis}={n} does not divide the {local} "
+                             f"processes per host: a {axis} group must "
+                             "stay on one host")
 
 
 @dataclass(frozen=True)
@@ -167,61 +170,84 @@ def _unflatten_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]
         off += n
 
 
-@dataclass(frozen=True)
-class CpMesh:
-    """The cp axis of one data replica: ``cp`` ranks of ``group`` (None:
-    the default group; no collective at cp = 1), each holding one
-    contiguous time slice of every clip, and this process's ``index`` on
-    it (parallel/halo.py)."""
+def sum_grads(grads: Sequence[torch.Tensor], group, reduce: bool,
+              dp: int) -> None:
+    """grads <- their sum over ``group`` (when ``reduce``; None: every
+    rank) divided by dp, in one flat buffer: the cp and tp steps'
+    gradient reductions (train/cp_step.py, train/tp_step.py)."""
+    if not grads or (not reduce and dp == 1):
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    if reduce:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    if dp > 1:
+        flat.div_(dp)
+    _unflatten_into(flat, grads)
 
-    cp: int = 1
+
+@dataclass(frozen=True)
+class AxisMesh:
+    """One inner axis (cp or tp) of one data replica: ``size`` ranks of
+    ``group`` (None: the default group; no collective at size 1), and
+    this process's ``index`` on it. Under cp each rank holds one
+    contiguous time slice of every clip (parallel/halo.py); under tp it
+    computes one 1/size slice of the critic's channels (parallel/tp.py).
+    """
+
+    size: int = 1
     index: int = 0
     group: Any = None
 
     @property
     def parallel(self) -> bool:
-        return self.cp > 1
+        return self.size > 1
 
 
-# (default group, dp, cp) -> (this rank's data group, its cp group)
+# the axis by its role, where a signature names it
+CpMesh = TpMesh = AxisMesh
+
+
+# (default group, dp, n) -> (this rank's data group, its inner group)
 _GROUPS: dict = {}
 
 
-def _axis_groups(dp: int, cp: int) -> tuple[Any, Any]:
-    """This rank's data group and cp group of the (dp, cp) mesh over the
-    default group (None where an axis is the whole world). Every rank
-    creates every group, in one order; the groups are made once per
-    process group."""
-    if cp == 1 or dp == 1:
+def _axis_groups(dp: int, n: int) -> tuple[Any, Any]:
+    """This rank's data group and inner (cp or tp) group of the (dp, n)
+    mesh over the default group (None where an axis is the whole
+    world). Every rank creates every group, in one order; the groups are
+    made once per process group."""
+    if n == 1 or dp == 1:
         return None, None
-    key = (dist.group.WORLD, dp, cp)
+    key = (dist.group.WORLD, dp, n)
     if key not in _GROUPS:
         rank = dist.get_rank()
         mine = [None, None]
         for d in range(dp):
-            g = dist.new_group(list(range(d * cp, (d + 1) * cp)))
-            if rank // cp == d:
+            g = dist.new_group(list(range(d * n, (d + 1) * n)))
+            if rank // n == d:
                 mine[1] = g
-        for c in range(cp):
-            g = dist.new_group(list(range(c, dp * cp, cp)))
-            if rank % cp == c:
+        for c in range(n):
+            g = dist.new_group(list(range(c, dp * n, n)))
+            if rank % n == c:
                 mine[0] = g
         _GROUPS[key] = tuple(mine)
     return _GROUPS[key]
 
 
-def make_meshes(cfg: Config) -> tuple[DataMesh, CpMesh]:
-    """Both axes of cfg.mesh over the initialized process group (or one
-    process). Raises before any device is touched when the mesh asks for
-    another number of processes (``check_world``)."""
+def make_meshes(cfg: Config) -> tuple[DataMesh, CpMesh, TpMesh]:
+    """The three axes of cfg.mesh over the initialized process group (or
+    one process). Raises before any device is touched when the mesh asks
+    for another number of processes (``check_world``)."""
     check_world(cfg)
-    dp, cp = cfg.mesh.dp, cfg.mesh.cp
-    if dp * cp == 1:
-        return DataMesh(), CpMesh()
+    dp, cp, tp = cfg.mesh.dp, cfg.mesh.cp, cfg.mesh.tp
+    n = cp * tp
+    if dp * n == 1:
+        return DataMesh(), CpMesh(), TpMesh()
     rank = dist.get_rank()
-    data_group, cp_group = _axis_groups(dp, cp)
-    return (DataMesh(dp, rank // cp, data_group),
-            CpMesh(cp, rank % cp, cp_group))
+    data_group, inner = _axis_groups(dp, n)
+    return (DataMesh(dp, rank // n, data_group),
+            CpMesh(cp, rank % n, inner) if cp > 1 else CpMesh(),
+            TpMesh(tp, rank % n, inner) if tp > 1 else TpMesh())
 
 
 def make_mesh(cfg: Config) -> DataMesh:

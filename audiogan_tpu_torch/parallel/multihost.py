@@ -80,8 +80,9 @@ def maybe_initialize_distributed(device: torch.device,
 
 
 def make_train_mesh(cfg: Config, device: torch.device) -> DataMesh:
-    """The mesh train/loop.py runs on: initializes the process group when
-    launched under torchrun (unless the caller already has), then checks
-    it against cfg.mesh."""
+    """The data axis train/loop.py runs on: initializes the process group
+    when launched under torchrun (unless the caller already has), then
+    checks it against cfg.mesh (a cp or tp group on one host) and builds
+    every axis's groups (parallel/mesh.py::make_meshes)."""
     maybe_initialize_distributed(device)
     return make_mesh(cfg)

@@ -25,9 +25,11 @@ copy, so it equals the replicated gather, and the host batcher's stream,
 to the bit. Each rank sends and receives about V b store_len 2 bytes per
 step, a 1/dp share of the step's clips. Over gloo (the CPU tests; two
 ranks on one card) the exchange runs on host tensors: a CUDA buffer is
-copied to the host and back. Under context parallelism the exchange
-runs within each data group (the ranks of one cp index): the corpus is
-sharded over the data axis and replicated over cp.
+copied to the host and back. Under context or tensor parallelism the
+exchange runs within each data group (the ranks of one cp or tp index):
+the corpus is sharded over the data axis and replicated over cp and tp
+(audiogan_tpu/parallel/sharded_corpus.py:38-45), so every rank of a
+replica receives the replica's clips.
 """
 
 from __future__ import annotations

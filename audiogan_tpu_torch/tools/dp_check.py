@@ -8,8 +8,8 @@ process group (gloo on the CPU, or on one card for two ranks; NCCL under
 torchrun), runs each job of ``jobs`` on every rank and returns each rank's
 result. A job is {"name", "fn" (a key of JOBS), "kw"}: ``steps`` (train
 steps from a given state on given global batches, optionally with
-injected draws; with mesh.cp above 1 the cp step, or with ``cp1`` the cp
-step at cp = 1), ``train`` (train/loop.py::train into a workdir),
+injected draws; with mesh.cp above 1 the cp step, with ``step`` the cp or
+tp step at 1), ``train`` (train/loop.py::train into a workdir),
 ``gather`` (the sharded corpus's gather), ``halo`` (the ops of
 parallel/halo.py on each rank's slices, every rank one cp rank) and
 ``cp_model`` (parallel/cp_models.py likewise). Each result holds the rank's
@@ -41,6 +41,24 @@ checkpoint and resumed, against an uninterrupted one, to the bit
 presets). Prints one JSON line per check and a summary line; ``--out``
 keeps them.
 
+With ``--tp``, tensor parallelism instead, on the four cards: for the
+flagship the f32 parity protocol at tp=4 (B=8, shuffle off,
+``parity_job``: a frozen step held to the parity bounds at six batch
+seeds, two steps at the preset's lr reported, against the tp step at
+tp=1 and the plain step on rank 0's card); at
+dp=2 x tp=2 and at tp=4 the preset's batch (G in bf16, the critic in
+f32) twice to the same bits on every rank, K1', K1 and K2 launches per
+rank (``tp_step_launches``), one profiled step (the collectives' NCCL
+device time and count) and each rank's peak memory; cond_gru_sc09 at
+dp=2 x tp=2 twice to the same bits (K4 6 and K5 1 per rank per step);
+music_44k_dp16 at tp=4 the same and a profiled step. Then ``cli train``
+(steps/s of steps 11-30) for the flagship at both meshes, cond_gru_sc09
+at dp=2 x tp=2 and music at tp=4, and the flagship at both meshes
+killed after its step-3 checkpoint and resumed, to the bit. With
+``--dryrun`` (alone, or after ``--tp``'s checks), one full-width
+flagship step from the seeded init at dp=2 x cp=2 and dp=2 x tp=2, each
+with and without mesh.fsdp: every metric finite and the ranks equal.
+
 With ``--cp``, context parallelism instead, for music_44k_dp16 on the
 four cards: an f32 step at cp=4 (B=8, shuffle off) against the cp step
 at cp=1 on rank 0's card from one warm state (the parity bounds); at
@@ -66,6 +84,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -77,8 +96,9 @@ from audiogan_tpu_torch.parallel.mesh import DataMesh, make_mesh
 from audiogan_tpu_torch.parallel.multihost import \
     maybe_initialize_distributed
 from audiogan_tpu_torch.tools.step_checks import (
-    PARITY_PARAM_TOL, PARITY_REL_TOL, bits_of, compare_blobs,
-    conv_step_launches, hold_bf16_to_dp1, random_raw, same_checkpoint,
+    PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS, PARITY_STEPS, bits_of,
+    compare_blobs, conv_step_launches, frozen, hold_bf16_to_dp1,
+    hold_launches, parity_errors, random_raw, same_bits, same_checkpoint,
     state_parts)
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -161,19 +181,22 @@ def load_blob(state, blob: dict) -> None:
 
 def steps_job(dev, cfg_json: str, batches: list, draws: list | None = None,
               state: dict | None = None, solo: bool = False,
-              cp1: bool = False) -> dict | None:
+              step: str | None = None) -> dict | None:
     """len(batches) steps of cfg (global [V, B, L] clips and [V, B]
     labels each) from ``state`` (a state_blob) or the seeded init, each
-    rank on its rows (its data replica's, with mesh.cp above 1);
-    ``draws`` the global steps' (the cp step's: one per replica; else
-    the port's own). ``solo``: rank 0 alone runs the step at dp = 1 (the
-    others wait and return None). ``cp1``: the context-parallel step at
-    cp = 1 (train/cp_step.py on whole clips, no exchange)."""
+    rank on its rows (its data replica's, with mesh.cp or mesh.tp above
+    1); ``draws`` the global steps' (the cp and tp steps': one per
+    replica; else the port's own). ``solo``: rank 0 alone runs the step
+    at dp = 1 (the others wait and return None). ``step``: None for the
+    step cfg's mesh picks (train/step.py::build_train_step), "cp" for
+    the context-parallel step at cp = 1 (train/cp_step.py on whole clips,
+    no exchange), "tp" for the tensor-parallel step at tp = 1."""
     from audiogan_tpu_torch.parallel import halo
-    from audiogan_tpu_torch.parallel.mesh import CpMesh
+    from audiogan_tpu_torch.parallel.mesh import AxisMesh
     from audiogan_tpu_torch.train.cp_step import build_cp_train_step
     from audiogan_tpu_torch.train.state import create_train_state
     from audiogan_tpu_torch.train.step import build_train_step
+    from audiogan_tpu_torch.train.tp_step import build_tp_train_step
     cfg = Config.from_json(cfg_json)
     if solo:
         rank = dist.get_rank() if dist.is_initialized() else 0
@@ -186,15 +209,17 @@ def steps_job(dev, cfg_json: str, batches: list, draws: list | None = None,
     st = create_train_state(cfg, device=dev, mesh=mesh)
     if state is not None:
         load_blob(st, state)
-    step = (build_cp_train_step(cfg, dev, mesh, CpMesh()) if cp1
-            else build_train_step(cfg, dev, mesh))
+    build = {None: lambda: build_train_step(cfg, dev, mesh),
+             "cp": lambda: build_cp_train_step(cfg, dev, mesh, AxisMesh()),
+             "tp": lambda: build_tp_train_step(cfg, dev, mesh, AxisMesh())}
+    step_fn = build[step]()
     metrics = []
     zero_launches()
     t0 = time.perf_counter()
     for i, (raw, labels) in enumerate(batches):
         rows = mesh.rows(raw.shape[1])
-        m = step(st, raw[:, rows], labels[:, rows],
-                 draws=None if draws is None else draws[i])
+        m = step_fn(st, raw[:, rows], labels[:, rows],
+                    draws=None if draws is None else draws[i])
         metrics.append({k: float(v) for k, v in m.items()})
     out = {"metrics": metrics, "launches": read_launches(),
            "routes": dict(halo.ROUTES),
@@ -234,7 +259,7 @@ def gather_job(dev, clips: np.ndarray, idx: np.ndarray) -> dict:
 
 def _slice(t: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
     """This cp rank's block of t along dim."""
-    n = t.shape[dim] // mesh.cp
+    n = t.shape[dim] // mesh.size
     return t.narrow(dim, mesh.index * n, n).contiguous()
 
 
@@ -262,7 +287,7 @@ def _halo_case(dev, mesh, case: dict) -> dict:
             return (h,), h
         y = halo.cp_chunked_scan(step, (t["h0"],), case["length"], mesh)
         (da,) = torch.autograd.grad(
-            halo.cp_sum((y * _slice(t["r"], mesh, 0)).sum(), mesh), a)
+            halo.axis_sum((y * _slice(t["r"], mesh, 0)).sum(), mesh), a)
         return {"y": y.detach().cpu(), "da": _total(da).cpu()}
     x = _slice(t["x"], mesh, dim).requires_grad_(True)
     if op == "halo":
@@ -281,13 +306,13 @@ def _halo_case(dev, mesh, case: dict) -> dict:
                                             case["act"])
         else:
             y = halo.cp_conv2d_frames(x, w, b, case["stride"], mesh)
-    loss = halo.cp_sum((y * _slice(t["r"], mesh, dim)).sum(), mesh)
+    loss = halo.axis_sum((y * _slice(t["r"], mesh, dim)).sum(), mesh)
     second = op in ("conv1d", "convt1d")
     grads = torch.autograd.grad(loss, [x, *params], create_graph=second)
     out = {"y": y.detach().cpu(), "dx": grads[0].detach().cpu(),
            **{f"d{n}": _total(g).cpu() for n, g in zip("wb", grads[1:])}}
     if second:
-        loss2 = halo.cp_sum((grads[0] * _slice(t["q"], mesh)).sum(), mesh)
+        loss2 = halo.axis_sum((grads[0] * _slice(t["q"], mesh)).sum(), mesh)
         dx2, dw2 = torch.autograd.grad(loss2, [x, params[0]],
                                        materialize_grads=True)
         out.update(dx2=dx2.cpu(), dw2=_total(dw2).cpu())
@@ -339,8 +364,155 @@ def cp_model_job(dev, cfg_json: str, state: dict, x: torch.Tensor,
     return out
 
 
+def tp_model_job(dev, cfg_json: str, state: dict, cases: list[dict]
+                 ) -> dict:
+    """parallel/tp.py and parallel/tp_models.py with every rank one tp
+    rank of one group. Each case is {"op": "pair", x, w1, b1, w2, b2,
+    stride} (a column then a row conv, the relu between, and the row
+    layer's bias after the sum: y and the gradients of sum(y r)) or
+    {"op": "critic", x, fake, eps, shifts, labels} with the nets of
+    ``state`` (a state_blob): the critic's scores of x; the gradient of
+    sum D(x-hat) at x-hat = eps x + (1 - eps) fake; and of the WGAN-GP
+    loss D(fake) - D(x) + 10 GP every parameter's gradient, summed over
+    the ranks where the parameter is used through a slice
+    (tp_models.sliced_params), this rank's where it is used whole."""
+    from audiogan_tpu_torch.losses import gradient_penalty, wgan_d_loss
+    from audiogan_tpu_torch.parallel import tp as ptp
+    from audiogan_tpu_torch.parallel.mesh import TpMesh
+    from audiogan_tpu_torch.parallel.tp_models import (
+        sliced_params, tp_discriminator_forward)
+    from audiogan_tpu_torch.train.state import create_train_state
+    cfg = Config.from_json(cfg_json)
+    mesh = TpMesh(dist.get_world_size(), dist.get_rank())
+    st = create_train_state(cfg, device=dev)
+    load_blob(st, state)
+    out = []
+    for case in cases:
+        t = {k: v.to(dev) for k, v in case.items()
+             if isinstance(v, torch.Tensor)}
+        if case["op"] == "pair":
+            x = t["x"].requires_grad_(True)
+            w1, b1, w2, b2 = (t[k].requires_grad_(True)
+                              for k in ("w1", "b1", "w2", "b2"))
+            h = ptp.tp_conv1d_col(x, w1, b1, case["stride"], mesh, "relu")
+            y = ptp.tp_conv1d_row(h, w2, 1, mesh) + b2
+            grads = torch.autograd.grad((y * t["r"]).sum(),
+                                        [x, w1, b1, w2, b2])
+            out.append({"y": y.detach().cpu(), "dx": grads[0].cpu(),
+                        **{f"d{n}": _total(g).cpu() for n, g in zip(
+                            ("w1", "b1", "w2"), grads[1:4])},
+                        "db2": grads[4].cpu()})
+            continue
+        lab = t.get("labels")
+        shifts = t.get("shifts")
+
+        def d(v, st=st, lab=lab, shifts=shifts):
+            return tp_discriminator_forward(st.d, v, mesh, shifts, lab)
+        with torch.no_grad():
+            score = d(t["x"])
+        e = t["eps"].reshape(-1, 1, 1)
+        xhat = (e * t["x"] + (1 - e) * t["fake"]).requires_grad_(True)
+        (dxhat,) = torch.autograd.grad(d(xhat).sum(), xhat)
+        params = dict(st.d.named_parameters())
+        gp, _ = gradient_penalty([d], t["x"], t["fake"], t["eps"])
+        loss = wgan_d_loss(d(t["x"]), d(t["fake"])) + 10.0 * gp
+        grads = torch.autograd.grad(loss, list(params.values()))
+        sliced = sliced_params(st.d)
+        out.append({"score": score.cpu(), "dxhat": dxhat.cpu(),
+                    "loss": loss.detach().cpu(),
+                    "grads": {n: (_total(g) if n in sliced else g).cpu()
+                              for n, g in zip(params, grads)}})
+    return {"results": out}
+
+
+def parity_job(dev, cfg_json: str, axis: str, work: str,
+               seeds: tuple = PARITY_SEEDS, held_seeds: tuple = (),
+               plain_held: bool = True) -> dict:
+    """The f32 parity protocol of the cp or tp step (``axis``) at cfg's
+    mesh (dp 1) on every rank. For each batch seed s: one plain step on
+    rank 0 from the seeded init on the batch of seed s (the warm state),
+    then from there, with the same draws, the step of cfg's mesh against
+    the same axis's step at 1 and against the plain step, both run on
+    rank 0 alone:
+
+    - ``frozen``: one step from step_checks.frozen(warm) on the batch of
+      seed s+1 (the parameters must stay as they were, to the bit), held
+      to the parity bounds at every seed;
+    - ``steps``: PARITY_STEPS steps from the warm state at the preset's
+      lr on the batches of seeds s+1, ..., reported beside the bounds
+      and held at ``held_seeds`` (step_checks.PARITY_SEEDS says why).
+
+    The plain step's comparisons are held only with ``plain_held``.
+    Every rank's state equal to the bit after each run. Each rank
+    returns its launches and conv routes over its runs of the step, the
+    count of those steps and its last metrics; rank 0 also the report:
+    per seed both runs' comparisons (step_checks.parity_errors) and
+    ``failed``, every held comparison beyond a bound."""
+    from audiogan_tpu_torch.config import MeshCfg
+    from audiogan_tpu_torch.train.step import draw_step, num_views
+    cfg = Config.from_json(cfg_json)
+    one = cfg.replace(mesh=MeshCfg())
+    batch, rank = cfg.train.batch_size, dist.get_rank()
+    work = Path(work)
+    work.mkdir(parents=True, exist_ok=True)
+    launches, routes, n_run = Counter(), Counter(), 0
+    report = {"axis": axis, "seeds": {}, "held_seeds": list(held_seeds),
+              "plain_held": plain_held, "failed": []}
+    t0 = time.perf_counter()
+    for seed in seeds:
+        raws = [random_raw(one, num_views(one), batch, seed + s)
+                for s in range(PARITY_STEPS + 1)]
+        warm = steps_job(dev, one.to_json(), raws[:1], solo=True)
+        if rank == 0:
+            torch.save(warm, work / "warm.pt")
+        dist.barrier()
+        warm = torch.load(work / "warm.pt", weights_only=False)
+        draws = [draw_step(one, one.train.seed, warm["step"] + s, batch,
+                           "cpu") for s in range(PARITY_STEPS)]
+        for kind, state, n, held in (
+                ("frozen", frozen(warm), 1, True),
+                ("steps", warm, PARITY_STEPS, seed in held_seeds)):
+            got = steps_job(dev, cfg_json, raws[1:n + 1], state=state,
+                            draws=[[d] for d in draws[:n]])
+            if len(set(_gather(digest(got)))) != 1:
+                raise AssertionError(f"{cfg.name} {axis} seed {seed} "
+                                     f"{kind}: ranks differ")
+            launches.update(got["launches"])
+            routes.update(got["routes"])
+            n_run += n
+            want = steps_job(dev, one.to_json(), raws[1:n + 1], state=state,
+                             draws=[[d] for d in draws[:n]], solo=True,
+                             step=axis)
+            plain = steps_job(dev, one.to_json(), raws[1:n + 1],
+                              state=state, draws=draws[:n], solo=True)
+            if rank:
+                continue
+            if kind == "frozen":
+                same_bits({k: state[k] for k in ("g", "d")},
+                          {k: got[k] for k in ("g", "d")})
+            # the plain step also reports the mean of the critic's losses
+            plain["metrics"] = [{k: v for k, v in m.items()
+                                 if k != "d_loss_mean"}
+                                for m in plain["metrics"]]
+            entry = report["seeds"].setdefault(seed, {})[kind] = {
+                "held": held, f"vs_{axis}1": parity_errors(got, want),
+                "vs_plain": parity_errors(got, plain)}
+            for name, hold in ((f"vs_{axis}1", held),
+                               ("vs_plain", held and plain_held)):
+                if hold and entry[name]["over"]:
+                    report["failed"].append(
+                        f"seed {seed} {kind} {name}: {entry[name]['over']}")
+        last = got["metrics"][-1]
+        del warm, got, want, plain
+    report["seconds"] = time.perf_counter() - t0
+    return {"launches": dict(launches), "routes": dict(routes),
+            "steps": n_run, "last": last,
+            "report": report if rank == 0 else None}
+
+
 JOBS = {"steps": steps_job, "train": train_job, "gather": gather_job,
-        "halo": halo_job, "cp_model": cp_model_job}
+        "halo": halo_job, "cp_model": cp_model_job,
+        "tp_model": tp_model_job, "parity": parity_job}
 
 
 def run_jobs(dev, jobs: list[dict], out_dir: Path) -> None:
@@ -395,6 +567,8 @@ F32_BATCH = 8            # 2 rows per rank at dp=4
 RATE_STEPS, RATE_LOG = 30, 10      # cli train: the rate of steps 11-30
 RESUME_STEPS, RESUME_KILL_AT = 6, 3
 RUN_TIMEOUT_S = 900
+# a collective of the worker's waits at most this long for the slowest rank
+WORKER_TIMEOUT_S = 300.0
 
 
 def digest(blob: dict) -> str:
@@ -588,13 +762,9 @@ def preset_checks(cfg, dev, out: Path) -> dict | None:
     if len({d for ds in digests.values() for d in ds}) != 1:
         raise AssertionError(f"{cfg.name} bf16: states differ {digests}")
     launches = _gather(runs["a"]["launches"])
-    want_l = {**conv_step_launches(cfg),
-              "ingest": num_views(cfg)}
-    for r, got_l in enumerate(launches):
-        for name, n in want_l.items():
-            if got_l[name] != n * len(bf_batches):
-                raise AssertionError(f"rank {r}: {name} {got_l[name]} in "
-                                     f"{len(bf_batches)} steps, want {n}")
+    hold_launches(launches, {**conv_step_launches(cfg),
+                             "ingest": num_views(cfg)}, len(bf_batches),
+                  cfg.name)
     rows = runs["fsdp"]["moment_rows"]
     if not any(kept * world == n for kept, n in rows.values()):
         raise AssertionError(f"ZeRO-1 kept whole moments: {rows}")
@@ -669,14 +839,14 @@ def cp_checks(cfg, dev, out: Path) -> dict | None:
     c32 = on(cfg, dtype="float32", batch_size=F32_BATCH).replace(
         model=dataclasses.replace(cfg.model, phase_shuffle=0))
     warm = steps_job(dev, c32.to_json(), batches(c32, 30, 1), solo=True,
-                     cp1=True)
+                     step="cp")
     if rank == 0:
         torch.save(warm, out / "warm.pt")
     dist.barrier()
     warm = torch.load(out / "warm.pt", weights_only=False)
     f32_batches = batches(c32, 40)
     want = steps_job(dev, c32.to_json(), f32_batches, state=warm, solo=True,
-                     cp1=True)
+                     step="cp")
     got = steps_job(dev, on(c32, cp=world).to_json(), f32_batches,
                     state=warm)
     if rank == 0:
@@ -699,12 +869,8 @@ def cp_checks(cfg, dev, out: Path) -> dict | None:
         if len({d for pair in digests for d in pair}) != 1:
             raise AssertionError(f"{cfg.name} dp={dp} cp={cp}: states "
                                  f"differ {digests}")
-        for r, got_l in enumerate(_gather(a["launches"])):
-            for name, n in want_l.items():
-                if got_l[name] != n * len(runs):
-                    raise AssertionError(
-                        f"dp={dp} cp={cp} rank {r}: {name} {got_l[name]} "
-                        f"in {len(runs)} steps, want {n}")
+        hold_launches(_gather(a["launches"]), want_l, len(runs),
+                      f"dp={dp} cp={cp}")
         prof = _gather(_profile_step(c, dev, make_mesh(c), *runs[0]))
         if rank == 0:
             report[f"dp{dp}_cp{cp}"] = {
@@ -727,15 +893,126 @@ def cp_checks(cfg, dev, out: Path) -> dict | None:
     return report if rank == 0 else None
 
 
+# --tp: per preset, the meshes (dp, tp) of the in-process checks, whether
+# to hold f32 at tp=4 to tp=1 and whether to profile a step per mesh
+TP_PRESETS = ("wgan_gp_b64", "cond_gru_sc09", "music_44k_dp16")
+TP_PLAN = {"wgan_gp_b64": (((2, 2), (1, 4)), True, True),
+           "cond_gru_sc09": (((2, 2),), False, False),
+           "music_44k_dp16": (((1, 4),), False, True)}
+
+
+def tp_checks(cfg, dev, out: Path) -> dict | None:
+    """The in-process checks of the tensor-parallel step of one preset
+    on four ranks (the module docstring); rank 0's report, None
+    elsewhere."""
+    from audiogan_tpu_torch.config import MeshCfg
+    from audiogan_tpu_torch.tools.step_checks import tp_step_launches
+    from audiogan_tpu_torch.train.step import num_views
+    rank, world = dist.get_rank(), dist.get_world_size()
+    meshes, parity, profile = TP_PLAN[cfg.name]
+    out.mkdir(parents=True, exist_ok=True)
+
+    def on(c, dp=1, tp=1, **train):
+        return c.replace(mesh=MeshCfg(dp=dp, tp=tp),
+                         train=dataclasses.replace(c.train, **train))
+
+    def batches(c, seed, n=2):
+        return [random_raw(c, num_views(c), c.train.batch_size, seed + s)
+                for s in range(n)]
+    report = {"preset": cfg.name, "world": world}
+    # one warm state for the runs below: the tp step at tp=1 on rank 0's
+    # card (f32, B=8, shuffle off)
+    c32 = on(cfg, dtype="float32", batch_size=F32_BATCH).replace(
+        model=dataclasses.replace(cfg.model, phase_shuffle=0))
+    warm = steps_job(dev, c32.to_json(), batches(c32, 30, 1), solo=True,
+                     step="tp")
+    if rank == 0:
+        torch.save(warm, out / "warm.pt")
+    dist.barrier()
+    warm = torch.load(out / "warm.pt", weights_only=False)
+    if parity:
+        # tp=world against tp=1 and the plain step (parity_job); a held
+        # comparison beyond a bound is reported, and main exits non-zero
+        # after the other checks and measurements have run
+        got = parity_job(dev, on(c32, tp=world).to_json(), "tp",
+                         str(out / "parity"))
+        if rank == 0:
+            report["f32"] = dict(got["report"], batch=F32_BATCH, tp=world)
+    # the preset's batch and config (G in its dtype, the critic in f32)
+    # at each mesh: twice to the same bits on every rank, launches, and
+    # with ``profile`` the collectives' device time and peak memory
+    runs = batches(cfg, 50)
+    want_l = {**tp_step_launches(cfg), "ingest": num_views(cfg)}
+    for dp, tp in meshes:
+        c = on(cfg, dp, tp)
+        a, b = (steps_job(dev, c.to_json(), runs, state=warm)
+                for _ in range(2))
+        digests = _gather((digest(a), digest(b)))
+        if len({d for pair in digests for d in pair}) != 1:
+            raise AssertionError(f"{cfg.name} dp={dp} tp={tp}: states "
+                                 f"differ {digests}")
+        hold_launches(_gather(a["launches"]), want_l, len(runs),
+                      f"{cfg.name} dp={dp} tp={tp}")
+        entry = {"batch": cfg.train.batch_size, "steps": len(runs),
+                 "states_equal": 2 * world,
+                 "launches_per_rank_step": {k: v // len(runs) for k, v in
+                                            a["launches"].items()},
+                 "seconds": a["seconds"], "last": a["metrics"][-1]}
+        del a, b
+        if profile:
+            entry["profile_by_rank"] = _gather(_profile_step(
+                c, dev, make_mesh(c), *runs[0]))
+        if rank == 0:
+            report[f"dp{dp}_tp{tp}"] = entry
+    return report if rank == 0 else None
+
+
+# --dryrun: one full-width flagship step at each mesh, every metric finite
+DRYRUN_MESHES = ((2, 2, 1, False), (2, 1, 2, False), (2, 2, 1, True),
+                 (2, 1, 2, True))
+
+
+def dryrun_checks(dev) -> dict | None:
+    """One step of the flagship (B=64, its dtype) from the seeded init at
+    each (dp, cp, tp, fsdp) of DRYRUN_MESHES on four ranks: every metric
+    finite, the ranks' states equal (the counterpart of the reference's
+    multi-device dry run of its cp and tp steps, __graft_entry__.py:
+    211-253); rank 0's report, None elsewhere."""
+    from audiogan_tpu_torch.config import MeshCfg, get_preset
+    from audiogan_tpu_torch.train.step import num_views
+    cfg = get_preset("wgan_gp_b64")
+    report = {}
+    for dp, cp, tp, fsdp in DRYRUN_MESHES:
+        c = cfg.replace(mesh=MeshCfg(dp=dp, cp=cp, tp=tp,
+                                     fsdp=fsdp)).validate()
+        raw = random_raw(c, num_views(c), c.train.batch_size, 70)
+        got = steps_job(dev, c.to_json(), [raw])
+        last = got["metrics"][-1]
+        bad = [k for k, v in last.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"dryrun dp={dp} cp={cp} tp={tp} "
+                                 f"fsdp={fsdp}: {bad} not finite")
+        if len(set(_gather(digest(got)))) != 1:
+            raise AssertionError(f"dryrun dp={dp} cp={cp} tp={tp} "
+                                 f"fsdp={fsdp}: ranks differ")
+        report[f"dp{dp}_cp{cp}_tp{tp}" + ("_fsdp" if fsdp else "")] = {
+            "metrics": last, "seconds": got["seconds"]}
+    return report if dist.get_rank() == 0 else None
+
+
 def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
-                cp: bool = False) -> int:
+                cp: bool = False, tp: bool = False,
+                dryrun: bool = False) -> int:
     """--worker: one rank under torchrun (NCCL on cuda:LOCAL_RANK); its
-    workdirs under ``work``."""
+    workdirs under ``work``. A rank
+    that fails exits at once, without the group's teardown: it would wait
+    for ranks still in a collective, and torchrun ends the others when
+    one exits."""
     from audiogan_tpu_torch.cli import apply_overrides
     from audiogan_tpu_torch.config import get_preset
     from audiogan_tpu_torch.device import resolve_device
     dev = resolve_device(None)
-    maybe_initialize_distributed(dev)
+    maybe_initialize_distributed(dev, "nccl", WORKER_TIMEOUT_S)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     world = dist.get_world_size()
@@ -744,14 +1021,28 @@ def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
             cfg = apply_overrides(get_preset(name),
                                   [f"mesh.dp={world}"]).validate()
             t0 = time.time()
-            rep = (cp_checks(cfg.replace(mesh=dataclasses.replace(
-                cfg.mesh, dp=1)), dev, work / f"{name}_cp") if cp
-                else preset_checks(cfg, dev, work / name))
+            one = cfg.replace(mesh=dataclasses.replace(cfg.mesh, dp=1))
+            if cp:
+                rep = cp_checks(one, dev, work / f"{name}_cp")
+            elif tp:
+                rep = tp_checks(one, dev, work / f"{name}_tp")
+            else:
+                rep = preset_checks(cfg, dev, work / name)
             if rep is not None:
                 rep["seconds"] = time.time() - t0
                 print(json.dumps({"check": rep}), flush=True)
-    finally:
-        dist.destroy_process_group()
+        if dryrun:
+            t0 = time.time()
+            rep = dryrun_checks(dev)
+            if rep is not None:
+                print(json.dumps({"dryrun": rep,
+                                  "seconds": time.time() - t0}), flush=True)
+    except Exception:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
     return 0
 
 
@@ -766,14 +1057,28 @@ def _cli(*args) -> list[str]:
             "--no_tensorboard"]
 
 
-def _run(cmd: list[str], env=None) -> tuple[list[dict], float]:
+def _run(cmd: list[str], log: Path, env=None) -> tuple[list[dict], float]:
+    """Runs cmd (its process tree ended after RUN_TIMEOUT_S), its output
+    kept in log.out and log.err as it is written, so a run that hangs
+    leaves its log; the JSON lines of its output and its seconds."""
+    log.parent.mkdir(parents=True, exist_ok=True)
+    out, err = (log.with_name(f"{log.name}.{k}") for k in ("out", "err"))
     t0 = time.time()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=RUN_TIMEOUT_S, env=env)
-    if proc.returncode:
-        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
-                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return ([json.loads(ln) for ln in proc.stdout.splitlines()
+    with out.open("w") as fo, err.open("w") as fe:
+        fe.write(" ".join(cmd) + "\n")
+        fe.flush()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fo, stderr=fe,
+                                text=True, env=env)
+        try:
+            rc = proc.wait(timeout=RUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            _kill_tree(proc)
+            rc = f"timeout after {RUN_TIMEOUT_S} s"
+    text = out.read_text()
+    if rc:
+        raise RuntimeError(f"{' '.join(cmd)} exited {rc}:\n{text[-2000:]}"
+                           f"\n{err.read_text()[-4000:]}")
+    return ([json.loads(ln) for ln in text.splitlines()
              if ln.startswith("{")], time.time() - t0)
 
 
@@ -782,25 +1087,31 @@ def _records(workdir: Path) -> dict[int, dict]:
         json.loads, (workdir / "metrics.jsonl").read_text().splitlines())}
 
 
-def rate(preset: str, ranks: int, workdir: Path, cp: int = 1) -> dict:
-    """cli train of the preset at dp = ranks / cp and cp (torchrun; one
-    plain process on card 0 at 1): steps/s of steps RATE_LOG + 1 to
-    RATE_STEPS."""
-    sets = ["--set", f"mesh.dp={ranks // cp}", "--set", f"mesh.cp={cp}",
+def _mesh_sets(ranks: int, cp: int, tp: int) -> list[str]:
+    return ["--set", f"mesh.dp={ranks // (cp * tp)}", "--set",
+            f"mesh.cp={cp}", "--set", f"mesh.tp={tp}"]
+
+
+def rate(preset: str, ranks: int, workdir: Path, cp: int = 1,
+         tp: int = 1) -> dict:
+    """cli train of the preset at dp = ranks / (cp tp), cp and tp
+    (torchrun; one plain process on card 0 at 1): steps/s of steps
+    RATE_LOG + 1 to RATE_STEPS."""
+    sets = [*_mesh_sets(ranks, cp, tp),
             "--set", f"train.log_every={RATE_LOG}", "--set",
             "train.ckpt_every=0", "--set", "train.sample_every=0"]
     args = _cli("--preset", preset, "--total_steps", RATE_STEPS,
                 "--workdir", workdir, *sets)
     if ranks == 1:
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
-        _, secs = _run([sys.executable, *args], env)
+        _, secs = _run([sys.executable, *args], workdir / "run", env)
     else:
-        _, secs = _run(_torchrun(ranks, *args))
+        _, secs = _run(_torchrun(ranks, *args), workdir / "run")
     recs = _records(workdir)
     window = [recs[s]["steps_per_sec"]
               for s in range(2 * RATE_LOG, RATE_STEPS + 1, RATE_LOG)]
-    return {"preset": preset, "dp": ranks // cp, "cp": cp,
-            "batch_per_rank": 64 // (ranks // cp),
+    return {"preset": preset, "dp": ranks // (cp * tp), "cp": cp, "tp": tp,
+            "batch_per_rank": 64 // (ranks // (cp * tp)),
             "steps_per_s": sum(window) / len(window), "windows": window,
             "seconds": secs,
             "last": {k: recs[RATE_STEPS][k] for k in
@@ -851,19 +1162,19 @@ def _kill_tree(proc: subprocess.Popen) -> None:
 
 
 def kill_and_resume(ranks: int, base: Path, preset: str = "wgan_gp_b64",
-                    cp: int = 1) -> dict:
-    """The preset at dp = ranks / cp and cp: uninterrupted to
+                    cp: int = 1, tp: int = 1) -> dict:
+    """The preset at dp = ranks / (cp tp), cp and tp: uninterrupted to
     RESUME_STEPS, and killed (the whole process group) when it logs its
     RESUME_KILL_AT checkpoint, then run again: the same last record (but
     time and rates) and checkpoint, to the bit."""
     def cmd(workdir):
         return _torchrun(ranks, *_cli(
             "--preset", preset, "--total_steps", RESUME_STEPS,
-            "--set", f"mesh.dp={ranks // cp}", "--set", f"mesh.cp={cp}",
+            *_mesh_sets(ranks, cp, tp),
             "--set", f"train.ckpt_every={RESUME_KILL_AT}", "--set",
             "train.log_every=1", "--workdir", workdir))
     a, b = base / "a", base / "b"
-    _, a_s = _run(cmd(a))
+    _, a_s = _run(cmd(a), base / "a_run")
     t0 = time.time()
     proc = subprocess.Popen(cmd(b), cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.DEVNULL, text=True)
@@ -885,7 +1196,7 @@ def kill_and_resume(ranks: int, base: Path, preset: str = "wgan_gp_b64",
     left = sorted(int(q.stem) for q in (b / "ckpt").glob("*.pt"))
     if left != [RESUME_KILL_AT]:
         raise AssertionError(f"the killed run left {left}")
-    lines, r_s = _run(cmd(b))
+    lines, r_s = _run(cmd(b), base / "b_run")
     restored = [ln["resume"]["step"] for ln in lines if "resume" in ln]
     if restored != [RESUME_KILL_AT]:
         raise AssertionError(f"the second run restored {restored}")
@@ -895,7 +1206,7 @@ def kill_and_resume(ranks: int, base: Path, preset: str = "wgan_gp_b64",
         raise AssertionError(f"step {RESUME_STEPS} differs: {ra} != {rb}")
     last = f"ckpt/{RESUME_STEPS}.pt"
     n = same_checkpoint(a / last, b / last)
-    return {"preset": preset, "dp": ranks // cp, "cp": cp,
+    return {"preset": preset, "dp": ranks // (cp * tp), "cp": cp, "tp": tp,
             "restored_step": restored[0],
             "compared_keys": keys, "tensors_equal": n,
             "seconds": {"uninterrupted": a_s, "killed": k_s,
@@ -907,8 +1218,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--out", default="build/dp_check/results",
                     help="where dp_check.jsonl goes (relative to the repo)")
     ap.add_argument("--ranks", type=int, default=4)
-    ap.add_argument("--presets", nargs="+", default=list(PRESETS),
-                    choices=PRESETS, help="the presets to check")
+    ap.add_argument("--presets", nargs="+",
+                    choices=sorted({*PRESETS, *TP_PRESETS}),
+                    help="the presets to check (default: the mode's)")
     ap.add_argument("--checks_only", action="store_true",
                     help="only the in-process checks: no cli train rates, "
                          "no kill-and-resume")
@@ -916,6 +1228,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="context parallelism instead: music_44k_dp16 at "
                          "cp=4 and at dp=2 x cp=2 (the in-process checks, "
                          "cli train's rates, a cp=4 run killed and resumed)")
+    ap.add_argument("--tp", action="store_true",
+                    help="tensor parallelism instead: the flagship at "
+                         "dp=2 x tp=2 and tp=4, cond_gru_sc09 at dp=2 x "
+                         "tp=2, music_44k_dp16 at tp=4 (the in-process "
+                         "checks, cli train's rates, the flagship killed "
+                         "and resumed at both meshes)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="one full-width flagship step at dp=2 x cp=2 and "
+                         "dp=2 x tp=2, each with and without mesh.fsdp: "
+                         "every metric finite (alone: only this)")
     ap.add_argument("--worker", action="store_true",
                     help="one rank under torchrun (internal)")
     args = ap.parse_args(argv)
@@ -925,14 +1247,19 @@ def main(argv: list[str] | None = None) -> int:
     work = ROOT / "build" / "dp_check"
     if args.cp:
         args.presets = ["music_44k_dp16"]
+    elif args.presets is None:
+        args.presets = (list(TP_PRESETS) if args.tp else [] if args.dryrun
+                        else list(PRESETS))
     if args.worker:
-        return worker_main(work / "checks", tuple(args.presets), args.cp)
+        return worker_main(work / "checks", tuple(args.presets), args.cp,
+                           args.tp, args.dryrun)
     import concurrent.futures
 
     from audiogan_tpu_torch.kernels import _build
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < args.ranks:
-        print(f"dp_check: needs {args.ranks} CUDA devices", file=sys.stderr)
+        print(f"dp_check: needs {args.ranks} CUDA devices",
+              file=sys.stderr)
         return 1
     shutil.rmtree(work, ignore_errors=True)
     out.mkdir(parents=True, exist_ok=True)
@@ -953,19 +1280,35 @@ def main(argv: list[str] | None = None) -> int:
         list(pool.map(_build.build, ("convt1d", "conv1d", "ingest",
                                      "gru_scan", "sconv", "gru_cell")))
     show("build_seconds", time.time() - t0)
+    flags = [f"--{f}" for f in ("cp", "tp", "dryrun") if getattr(args, f)]
     lines, secs = _run(_torchrun(args.ranks, "-m",
                                  "audiogan_tpu_torch.tools.dp_check",
                                  "--worker", "--presets", *args.presets,
-                                 *(["--cp"] if args.cp else [])))
+                                 *flags), out / "worker")
     show("checks", [ln["check"] for ln in lines if "check" in ln])
+    if args.dryrun:
+        show("dryrun", [ln for ln in lines if "dryrun" in ln])
     show("checks_seconds", secs)
-    if args.cp and not args.checks_only:
+    dryrun_only = args.dryrun and not (args.tp or args.cp)
+    if args.checks_only or dryrun_only:
+        pass
+    elif args.tp:
+        tp_rates = [("wgan_gp_b64", 2), ("wgan_gp_b64", args.ranks),
+                    ("cond_gru_sc09", 2), ("music_44k_dp16", args.ranks)]
+        show("rates", [rate(preset, args.ranks,
+                            work / f"rate_{preset}_tp{tp}", tp=tp)
+                       for preset, tp in tp_rates if preset in args.presets])
+        if "wgan_gp_b64" in args.presets:
+            show("resume", [kill_and_resume(args.ranks,
+                                            work / f"resume_tp{tp}", tp=tp)
+                            for tp in (2, args.ranks)])
+    elif args.cp:
         show("rates", [rate(args.presets[0], args.ranks,
                             work / f"rate_cp{cp}", cp)
                        for cp in (args.ranks, args.ranks // 2)])
         show("resume", kill_and_resume(args.ranks, work / "resume",
                                        args.presets[0], args.ranks))
-    elif not args.checks_only:
+    else:
         rates = []
         for preset in args.presets:
             for ranks in (args.ranks, 1):
@@ -974,8 +1317,11 @@ def main(argv: list[str] | None = None) -> int:
         show("rates", rates)
         show("resume", kill_and_resume(args.ranks, work / "resume"))
     (out / "dp_check.jsonl").write_text("\n".join(emit) + "\n")
-    print(json.dumps({"ok": True, "cards": card}), flush=True)
-    return 0
+    failed = [c["preset"] for c in results["checks"]
+              if c.get("f32", {}).get("failed")]
+    print(json.dumps({"ok": not failed, "failed": failed, "cards": card}),
+          flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

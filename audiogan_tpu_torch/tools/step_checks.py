@@ -34,6 +34,15 @@ PARITY_PARAM_FINE = 1e-6
 # error bf16 itself makes on the same steps: the dp=1 bf16 run against
 # the dp=1 f32 run, times this factor (metrics and moments each).
 DP_BF16_FACTOR = 2.0
+# The parameter bound above is within rounding's reach once Adam has
+# stepped: over two f32 steps at B=8 the flagship's parameters moved up
+# to 3.75e-4 apart between two correct runs (tp=2 against tp=1, cp=2
+# against cp=1), an element whose gradient is rounding noise each time.
+# So the cp and tp steps are held on a frozen step (``frozen``), where
+# Adam divides nothing into the comparison, at these batch seeds; the two
+# steps at the preset's lr are reported beside the bounds.
+PARITY_SEEDS = (60, 70, 80, 90, 100, 110)
+PARITY_STEPS = 2
 
 
 # -- batches and geometries -------------------------------------------------
@@ -47,14 +56,24 @@ def random_raw(cfg, n_views: int, batch: int, seed: int):
 
 
 def generator_layers(cfg, batch: int) -> list[dict]:
-    """The generator's conv-transpose layers as its forward runs them."""
+    """The generator's conv-transpose layers as its forward runs them:
+    the WaveGAN G's, or the GRU G's upsampling stack (models/gru.py)."""
+    from audiogan_tpu_torch.models.gru import factorize_stride
     from audiogan_tpu_torch.models.wavegan import _gen_channels
     m = cfg.model
-    t = cfg.data.clip_len // m.total_stride
-    c_in = min(m.model_dim * 2 ** (len(m.strides) - 1), m.max_channels)
+    if m.generator == "gru":
+        strides = factorize_stride(m.gru_frame_size)
+        t = cfg.data.clip_len // m.gru_frame_size
+        c_in = min(4 * m.model_dim, 512)
+        chs = [max(c_in // 2 ** (i + 1), m.model_dim)
+               for i in range(len(strides) - 1)] + [1]
+    else:
+        strides = m.strides
+        t = cfg.data.clip_len // m.total_stride
+        c_in = min(m.model_dim * 2 ** (len(m.strides) - 1), m.max_channels)
+        chs = _gen_channels(m.model_dim, len(m.strides), m.max_channels)
     layers = []
-    chs = _gen_channels(m.model_dim, len(m.strides), m.max_channels)
-    for i, (s, c_out) in enumerate(zip(m.strides, chs)):
+    for i, (s, c_out) in enumerate(zip(strides, chs)):
         layers.append(dict(name=f"G{i} fwd", b=batch, t_in=t, cin=c_in,
                            cout=c_out, k=m.kernel_size, s=s,
                            pad_lo=(m.kernel_size - 1) // 2, out_len=t * s,
@@ -120,7 +139,7 @@ def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.train.dtype)
 
 
-def conv_step_launches(cfg) -> dict:
+def conv_step_launches(cfg, critic_f32: bool = False) -> dict:
     """K1' and K1 launches of one WaveGAN training step, in total and on
     the tensor-core path. Per critic micro-step, with V critic
     calls on the views: each unfused critic conv runs V + 2 times (the
@@ -129,23 +148,26 @@ def conv_step_launches(cfg) -> dict:
     D0's dx only the latter); the G update adds one critic forward and
     one dx per layer, and G runs forward n_critic + 1 times and its dx
     once. With fused sites K6 and K7 take D1-D4's forward and dx. The
-    tensor-core counts follow the config's compute dtype."""
+    tensor-core counts follow the config's compute dtype; with
+    ``critic_f32`` the critic's follow f32 and every site is unfused
+    (the tp step's critic)."""
     views = 1 if cfg.train.fused_d_views else 2
     dtype = compute_dtype(cfg)
+    d_dtype = torch.float32 if critic_f32 else dtype
     n = cfg.loss.n_critic
-    fused = cfg.model.fused_shuffle_sites != 0
+    fused = cfg.model.fused_shuffle_sites != 0 and not critic_f32
     counts = {"conv1d": 0, "convt1d": 0, "conv1d_tc": 0, "convt1d_tc": 0}
 
-    def add(family, L, times):
+    def add(family, L, times, dt=dtype):
         counts[family] += times
-        if tensor_core(family, L, dtype):
+        if tensor_core(family, L, dt):
             counts[family + "_tc"] += times
     for i, (L, dx) in enumerate(zip(critic_layers(cfg, 2), critic_dx_layers(
             cfg, 2))):
         if fused and i > 0:
             continue
-        add("conv1d", L, n * (views + 2) + 1)
-        add("convt1d", dx, n * (views + 1) + 1 if i > 0 else n + 1)
+        add("conv1d", L, n * (views + 2) + 1, d_dtype)
+        add("convt1d", dx, n * (views + 1) + 1 if i > 0 else n + 1, d_dtype)
     for L, dx in zip(generator_layers(cfg, 2), generator_dx_layers(cfg, 2)):
         add("convt1d", L, n + 1)
         add("conv1d", dx, 1)
@@ -215,6 +237,58 @@ def cp_step_launches(cfg) -> dict:
     return conv_step_launches(cfg.replace(
         model=dataclasses.replace(cfg.model, fused_shuffle_sites=0),
         train=dataclasses.replace(cfg.train, dtype="float32")))
+
+
+def tp_rank_layers(cfg, batch: int, tp: int
+                   ) -> tuple[list[dict], list[dict]]:
+    """(K1, K1') geometries of the critic one rank of a tp group runs
+    (parallel/tp_models.py) at 2 batch (the fused views): the column
+    layers (0, 2, ...) at C_out / tp with their bias and activation, the
+    row layers (1, 3, ...) at C_in / tp with the zero bias and no
+    activation, and each layer's dx at the transposed geometry. G runs
+    whole (``generator_layers``). Named with "(tp=N)"."""
+    tag = f" (tp={tp})"
+    convt, conv = [], []
+    for i, (L, dx) in enumerate(zip(critic_layers(cfg, 2 * batch),
+                                    critic_dx_layers(cfg, 2 * batch))):
+        col = i % 2 == 0
+        if col:
+            L = dict(L, cout=L["cout"] // tp)
+            dx = dict(dx, cin=dx["cin"] // tp)
+        else:
+            L = dict(L, cin=L["cin"] // tp, act="none")
+            dx = dict(dx, cout=dx["cout"] // tp)
+        form = "col" if col else "row"
+        conv.append(dict(L, name=f"{L['name']} {form}{tag}"))
+        convt.append(dict(dx, name=f"{dx['name']} {form}{tag}"))
+    return convt, conv
+
+
+def tp_step_launches(cfg) -> dict:
+    """K1' and K1 launches of one tensor-parallel step on each rank: the
+    WaveGAN step's structure (``conv_step_launches``), every critic conv
+    on a channel slice in f32 (so none on the tensor cores) with every
+    shuffle site unfused (the tp critic ignores fused_shuffle_sites), G
+    the ordinary module in the config's dtype; with the GRU G, K4 once
+    per G forward (n_critic + 1) and K5 once."""
+    counts = conv_step_launches(cfg, critic_f32=True)
+    if cfg.model.generator == "gru":
+        counts.update(gru_scan=cfg.loss.n_critic + 1, gru_scan_bwd=1)
+    return counts
+
+
+def hold_launches(by_rank: list[dict], want: dict, steps: int,
+                  tag: str) -> list[dict]:
+    """Raises unless each rank's launches (counted over ``steps`` steps)
+    are want[kernel] per step for every kernel of ``want``; returns each
+    rank's launches per step."""
+    for rank, got in enumerate(by_rank):
+        for name, n in want.items():
+            if got[name] != n * steps:
+                raise AssertionError(f"{tag} rank {rank}: {name} launched "
+                                     f"{got[name]} times in {steps} steps, "
+                                     f"want {n} per step")
+    return [{k: v // steps for k, v in got.items()} for got in by_rank]
 
 
 # -- states to the bit ------------------------------------------------------
@@ -299,6 +373,37 @@ def compare_blobs(got: dict, want: dict, rel_tol: float,
     if not (metric_err <= rel_tol and moment_err <= rel_tol
             and (param_tol is None or param_err <= param_tol)):
         raise AssertionError(f"dp state differs: {out}")
+    return out
+
+
+def parity_errors(got: dict, want: dict) -> dict:
+    """compare_blobs' errors of ``got`` against ``want`` beside the parity
+    bounds, and ``over``: the names of the errors beyond their bound."""
+    out = compare_blobs(got, want, float("inf"), None)
+    out.update(tol_rel=PARITY_REL_TOL, tol_param_abs=PARITY_PARAM_TOL)
+    out["over"] = [k for k, tol in (("metric_max_rel_err", PARITY_REL_TOL),
+                                    ("moment_max_rel_l2", PARITY_REL_TOL),
+                                    ("param_max_abs_err", PARITY_PARAM_TOL))
+                   if not out[k] <= tol]
+    return out
+
+
+def frozen(blob: dict) -> dict:
+    """A state_blob with both optimizers' lr 0 and Adam's moments zeroed.
+    One step from it leaves the parameters as they are, so every update
+    of the step takes its gradient at the same parameters, and the
+    moments record those gradients before Adam divides one by the
+    other's root: m the (1 - b1)-weighted sum of the updates' gradients,
+    v the same of their squares. Held to PARITY_REL_TOL they compare the
+    gradients themselves."""
+    out = dict(blob)
+    for key in ("opt_g", "opt_d"):
+        opt = blob[key]
+        out[key] = {
+            "param_groups": [dict(g, lr=0.0) for g in opt["param_groups"]],
+            "state": {i: {k: v if k == "step" else torch.zeros_like(v)
+                          for k, v in st.items()}
+                      for i, st in opt["state"].items()}}
     return out
 
 

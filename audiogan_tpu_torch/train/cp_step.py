@@ -51,10 +51,9 @@ same order on every rank (parallel/halo.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.device import resolve_device
@@ -64,8 +63,9 @@ from audiogan_tpu_torch.ops.ingest import ingest_batch
 from audiogan_tpu_torch.parallel.cp_models import (
     POST_SUM, cp_batch_spectral_matching_loss, cp_discriminator_forward,
     cp_generator_forward, cp_gru_generator_forward)
-from audiogan_tpu_torch.parallel.halo import cp_sum
-from audiogan_tpu_torch.parallel.mesh import CpMesh, DataMesh, make_meshes
+from audiogan_tpu_torch.parallel.halo import axis_sum
+from audiogan_tpu_torch.parallel.mesh import (CpMesh, DataMesh,
+                                              make_meshes, sum_grads)
 from audiogan_tpu_torch.train.state import TrainState
 from audiogan_tpu_torch.train.step import d_scores_real_fake, draw_step
 
@@ -85,26 +85,9 @@ def _cp_gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
         True)
     (grads,) = torch.autograd.grad(d_apply(xhat).sum(), xhat,
                                    create_graph=True)
-    sq = cp_sum(grads.square().reshape(b, -1).sum(-1), cp)
+    sq = axis_sum(grads.square().reshape(b, -1).sum(-1), cp)
     norms = torch.sqrt(sq + 1e-12)
     return (norms - 1.0).square().mean(), norms.mean()
-
-
-def _sum_grads(grads: Sequence[torch.Tensor], group, reduce: bool,
-               dp: int) -> None:
-    """grads <- their sum over ``group`` (when ``reduce``) over dp, in
-    one flat buffer."""
-    if not grads or (not reduce and dp == 1):
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    if reduce:
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    if dp > 1:
-        flat.div_(dp)
-    off = 0
-    for g in grads:
-        g.copy_(flat[off:off + g.numel()].view_as(g))
-        off += g.numel()
 
 
 def build_cp_train_step(cfg: Config, device=None,
@@ -119,7 +102,7 @@ def build_cp_train_step(cfg: Config, device=None,
     whole clips (no exchange), as the reference compares its cp step
     with itself at cp=1."""
     if cp is None:
-        data, cp = make_meshes(cfg)
+        data, cp, _ = make_meshes(cfg)
         mesh = data if mesh is None else mesh
     mesh = DataMesh() if mesh is None else mesh
     dev = resolve_device(device)
@@ -128,13 +111,13 @@ def build_cp_train_step(cfg: Config, device=None,
     stft_w = cfg.loss.stft_loss_weight
     conditional = cfg.data.num_classes > 0
     fused = cfg.train.fused_d_views
-    t_loc = cfg.data.clip_len // cp.cp
+    t_loc = cfg.data.clip_len // cp.size
     window = slice(cp.index * t_loc, (cp.index + 1) * t_loc)
     # the penalty is one shot: its shifts are drawn at the replica's batch
     one_shot = dataclasses.replace(
         cfg, loss=dataclasses.replace(cfg.loss, gp_batch_chunks=1))
     # the sum over every rank of the mesh: the default group
-    world_reduce = mesh.dp * cp.cp > 1
+    world_reduce = mesh.dp * cp.size > 1
     g_forward = (cp_gru_generator_forward if cfg.model.generator == "gru"
                  else cp_generator_forward)
 
@@ -154,8 +137,8 @@ def build_cp_train_step(cfg: Config, device=None,
         for name, p in module.named_parameters():
             if p.grad is not None:
                 (post if name.endswith(POST_SUM) else pre).append(p.grad)
-        _sum_grads(pre, None, world_reduce, mesh.dp)
-        _sum_grads(post, mesh.group, mesh.parallel, mesh.dp)
+        sum_grads(pre, None, world_reduce, mesh.dp)
+        sum_grads(post, mesh.group, mesh.parallel, mesh.dp)
 
     def d_micro_step(state: TrainState, raw, labels_real, dr):
         d = critic(state.d)

@@ -13,19 +13,22 @@ host (a prefetch thread) and ``HostFeed`` ships them from pinned memory,
 the next step's copy on a side stream while the current step runs. Every
 path gives the step the same clips, so they train to the same bits.
 
-Data and context parallelism: under torchrun (one process per card) the
-loop joins the process group (parallel/multihost.py); each rank builds
-the same state from the seed and feeds its data replica's rows of the
-global batch; at cp = 1 it runs the global step's rows (train/step.py),
-with mesh.cp above 1 the context-parallel step on its time slice of
-those clips (train/cp_step.py), on each of the three corpus paths (the
-corpus is sharded over the data axis only). Global rank 0 alone builds
-the corpus and writes config.json, the checkpoints (the whole state,
-replicated over cp, which restores on any topology), metrics.jsonl,
-TensorBoard and the sample dumps, and logs; the others wait at a barrier
-where they need its files. Every rank restores the same checkpoint. tp
-above 1, and a mesh whose size is not the number of processes, raise
-before the device is touched (``check_ported``).
+Data, context and tensor parallelism: under torchrun (one process per
+card) the loop joins the process group (parallel/multihost.py); each
+rank builds the same state from the seed and feeds its data replica's
+rows of the global batch; at cp = tp = 1 it runs the global step's rows
+(train/step.py), with mesh.cp above 1 the context-parallel step on its
+time slice of those clips (train/cp_step.py), with mesh.tp above 1 the
+tensor-parallel step on its channel slice of the critic
+(train/tp_step.py), on each of the three corpus paths (the corpus is
+sharded over the data axis only, so every cp or tp rank of a replica
+gets the replica's rows). Global rank 0 alone builds the corpus and
+writes config.json, the checkpoints (the whole state, replicated over
+cp and tp, which restores on any topology), metrics.jsonl, TensorBoard
+and the sample dumps, and logs; the others wait at a barrier where they
+need its files. Every rank restores the same checkpoint. A mesh whose
+size is not the number of processes raises before the device is touched
+(``check_ported``).
 
 Crash-only, as the reference: a checkpoint every ckpt_every steps and at
 the last one; ``resume`` picks up the latest complete checkpoint; the data
@@ -114,9 +117,9 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
 
 def check_ported(cfg: Config) -> None:
     """Raises NotImplementedError for the reference loop's options the
-    port has not ported (tp above 1, three tracing options), and
-    ValueError when the mesh asks for another number of processes than
-    run (parallel/mesh.py::check_world)."""
+    port has not ported (three tracing options), and ValueError when the
+    mesh asks for another number of processes than run
+    (parallel/mesh.py::check_world)."""
     check_world(cfg)
     t = cfg.train
     for name, on in (("train.profile_dir", bool(t.profile_dir)),
@@ -257,7 +260,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                              "d_params": param_count(state.d),
                              "corpus_clips": len(corpus),
                              "device": str(dev), "dp": mesh.dp,
-                             "cp": cfg.mesh.cp,
+                             "cp": cfg.mesh.cp, "tp": cfg.mesh.tp,
                              "corpus": placement}}))
     mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts,
                                  config=cfg)

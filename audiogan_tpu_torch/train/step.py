@@ -178,6 +178,16 @@ def rank_draws(cfg: Config, draws: dict, mesh: DataMesh,
             "generator": part(draws["generator"])}
 
 
+def check_penalty_chunks(cfg: Config) -> None:
+    """Raises ValueError for gp_batch_chunks > 1 with a conditional
+    critic: the reference hands each chunk the whole batch's real labels
+    and fails at the projection (audiogan_tpu/train/step.py:226-229;
+    its tp step likewise)."""
+    if cfg.loss.gp_batch_chunks > 1 and cfg.data.num_classes:
+        raise ValueError("gp_batch_chunks > 1 with a conditional critic: "
+                         "the reference's penalty fails there too")
+
+
 def build_train_step(cfg: Config, device=None,
                      mesh: DataMesh | None = None) -> Callable:
     """step_fn(state, raw [num_views, b, store_len] int16, labels
@@ -185,19 +195,20 @@ def build_train_step(cfg: Config, device=None,
     updates ``state`` in place. b = B / dp rows of the global batch (all
     B at dp = 1); ``draws`` are the global step's. Runs on the card
     unless ``device`` says otherwise. ``mesh`` defaults to
-    parallel/mesh.py::make_mesh(cfg), which raises NotImplementedError
-    for tp above 1 and ValueError when the mesh's size differs from the
-    number of processes. With mesh.cp above 1 this is the context-
-    parallel step (train/cp_step.py), whose ``draws`` are per replica."""
+    parallel/mesh.py::make_mesh(cfg), which raises ValueError when the
+    mesh's size differs from the number of processes. With mesh.cp above
+    1 this is the context-parallel step (train/cp_step.py), with mesh.tp
+    above 1 the tensor-parallel step (train/tp_step.py), as the
+    reference's loop picks them (audiogan_tpu/train/loop.py:191-201);
+    their ``draws`` are per replica."""
     mesh = make_mesh(cfg) if mesh is None else mesh
     if cfg.mesh.cp > 1:
         from audiogan_tpu_torch.train.cp_step import build_cp_train_step
         return build_cp_train_step(cfg, device, mesh)
-    if cfg.loss.gp_batch_chunks > 1 and cfg.data.num_classes:
-        # the reference hands each chunk the whole batch's real labels
-        # and fails at the projection (audiogan_tpu/train/step.py:226-229)
-        raise ValueError("gp_batch_chunks > 1 with a conditional critic: "
-                         "the reference's penalty fails there too")
+    if cfg.mesh.tp > 1:
+        from audiogan_tpu_torch.train.tp_step import build_tp_train_step
+        return build_tp_train_step(cfg, device, mesh)
+    check_penalty_chunks(cfg)
     dev = resolve_device(device)
     n_critic = cfg.loss.n_critic
     gp_lambda = cfg.loss.gp_lambda

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven paths, each driven through the user's entry points: the flagship
+Eight paths, each driven through the user's entry points: the flagship
 WaveGAN (wgan_gp_b64), the same preset trained with every phase-shuffle
 site fused into its consuming conv (`cli train --set
 model.fused_shuffle_sites=-1`), the class-conditional GRU generator
@@ -11,9 +11,11 @@ model.fused_shuffle_sites=-1`), the class-conditional GRU generator
 with G's spectral term (dual_stft), 4 s music clips at 44.1 kHz with
 strides 7/7/5/5/3 (music_44k_dp16 as `--set mesh.dp=1`, its published
 widths) and a 22050 Hz corpus resampled to the 16 kHz model in the
-ingest (resample_22k), and the flagship and dual_stft with each clip's
+ingest (resample_22k), the flagship and dual_stft with each clip's
 time axis split over two ranks (context parallelism, `--set
-mesh.cp=2`); beside them the fused GRU cell
+mesh.cp=2`), and the flagship and cond_gru_sc09 with the critic's
+channels split over two ranks (tensor parallelism, `--set mesh.tp=2`);
+beside them the fused GRU cell
 (`ops/gru.py::gru_cell`, impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
 line with its own ``seconds``; any failure raises and the script exits
 non-zero:
@@ -56,7 +58,11 @@ non-zero:
             music's at dp=4, and K6/K7 at the fused sites at B/2 and B/4;
             and music's per-rank geometries at cp=4, each conv on its
             halo-extended slice with explicit pads (K1' VALID, K1 with
-            pad_lo and out_len), which the cp step runs in f32.
+            pad_lo and out_len), which the cp step runs in f32; and the
+            flagship critic's per-rank geometries at tp=2 (2B=128: the
+            column layers D0, D2, D4 at C_out / 2, the row layers D1,
+            D3 at C_in / 2 with no bias) and their dx, which the tp
+            step runs in f32.
 4. serve    each generator at full width (random weights from init seed 0,
             bf16; dual_stft's G is the flagship's) exported, loaded and
             served over HTTP on 127.0.0.1; a few requests (with labels for
@@ -132,13 +138,28 @@ non-zero:
 6d. cp      context parallelism on this card: two gloo ranks, each one
             half of every clip's time axis (train/cp_step.py: halo
             exchanges per conv, one sum over cp per head), f32 at B=8,
-            shuffle off: the flagship and dual_stft (its STFT critic and
-            G's spectral term), two steps each from one warm state with
-            the same draws, against the cp step at cp=1 (the parity
-            bounds) and against the plain step on this card (held for
-            the flagship, reported for dual_stft), ranks equal to
-            the bit, K1', K1 and K2 launches per rank held to the step's
-            structure (cp_step_launches, num_views), each conv's route.
+            shuffle off, through dp_check.parity_job: for each batch
+            seed one warm plain step, then from there, with the same
+            draws, cp=2 against the cp step at cp=1 and against the
+            plain step on this card: a frozen step (lr 0, Adam's moments
+            zeroed, so the moments hold the step's gradients before Adam
+            divides them) held to the parity bounds, and two steps at
+            the preset's lr, reported beside the bounds. The flagship at
+            six seeds (PARITY_SEEDS), its two steps held at seed 60;
+            dual_stft (its STFT critic and G's spectral term) at seed 60,
+            held against cp=1 and reported against the plain step. Ranks
+            equal to the bit after every run, K1', K1 and K2 launches
+            per rank held to the step's structure (cp_step_launches,
+            num_views), each conv's route.
+6e. tp      tensor parallelism on this card: two gloo ranks, each half
+            of the critic's channels (train/tp_step.py: column/row conv
+            pairs, one sum over tp per row layer and per head), f32 at
+            B=8, shuffle off, the cp phase's protocol: the flagship at
+            the six seeds and cond_gru_sc09 (its GRU G replicated on both
+            ranks) at seed 80, the frozen step held against tp=1 and the
+            plain step, the two steps at the preset's lr reported; ranks
+            equal to the bit, K1', K1, K2 (and K4, K5) launches per rank
+            held to the step's structure (tp_step_launches, num_views).
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -159,7 +180,8 @@ non-zero:
             tile of the tensor-core path) and K2's at its ingest go into
             the kernels line's "music" entries; their rows at music's
             cp=4 geometries, f32 (the CUDA-core tiles, the bound at the
-            f32 rate), into its "cp" entries.
+            f32 rate), into its "cp" entries; at the flagship's tp=2
+            geometries, f32, into its "tp" entries.
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -194,11 +216,12 @@ import torch.nn.functional as F
 # random batches, conv geometries and launch counts, states to the bit);
 # without the package beside it the script stops here
 from audiogan_tpu_torch.tools.step_checks import (
-    PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, compare_blobs,
-    compute_dtype, conv_step_launches, cp_rank_layers, cp_step_launches,
-    critic_dx_layers, critic_layers, generator_dx_layers, generator_layers,
-    hold_bf16_to_dp1, random_raw, same_bits, same_checkpoint, state_parts,
-    tensor_core)
+    PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS,
+    compare_blobs, compute_dtype, conv_step_launches, cp_rank_layers,
+    cp_step_launches, critic_dx_layers, critic_layers, generator_dx_layers,
+    generator_layers, hold_bf16_to_dp1, hold_launches, random_raw, same_bits,
+    same_checkpoint, state_parts, tensor_core, tp_rank_layers,
+    tp_step_launches)
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 64
@@ -243,9 +266,10 @@ CLI_TIMEOUT_S = 600
 # the dp phase: two ranks on this card; its f32 steps at this batch
 DP_RANKS, DP_F32_BATCH, DP_STEPS = 2, 8, 2
 DP_TIMEOUT_S = 600
-# the cp phase: two ranks on this card, f32 at this batch; and the
-# per-rank conv geometries of music_44k_dp16 at cp=4 (compare, timing)
-CP_RANKS, CP_BATCH, CP_STEPS, CP_MUSIC = 2, 8, 2, 4
+# the cp and tp phases: two ranks on this card, f32 at this batch; the
+# per-rank conv geometries of music_44k_dp16 at cp=4 and of the
+# flagship's critic at tp=2 (compare, timing)
+AXIS_RANKS, AXIS_BATCH, CP_MUSIC, TP_RANKS = 2, 8, 4, 2
 
 
 def phase(name: str, t0: float, **fields) -> None:
@@ -2226,16 +2250,9 @@ def dp_phase(cfg, dcfg, dev) -> dict:
               for ln in res[m][0]["lines"] if "init" in ln]
     if corpus != ["replicate", "shard"]:
         raise AssertionError(f"corpus placements {corpus}")
-    want_launches = {**conv_step_launches(bf), "ingest": num_views(bf)}
-    per_rank = []
-    for rank, r in enumerate(res["bf16_a"]):
-        got = r["launches"]
-        for name, n in want_launches.items():
-            if got[name] != n * DP_STEPS:
-                raise AssertionError(f"rank {rank}: {name} launched "
-                                     f"{got[name]} times in {DP_STEPS} "
-                                     f"steps, want {n} per step")
-        per_rank.append({k: v // DP_STEPS for k, v in got.items()})
+    per_rank = hold_launches(
+        [r["launches"] for r in res["bf16_a"]],
+        {**conv_step_launches(bf), "ingest": num_views(bf)}, DP_STEPS, "dp")
     return dict(ranks=DP_RANKS, backend="gloo", f32_batch=DP_F32_BATCH,
                 bf16_batch=bf.train.batch_size, steps=DP_STEPS,
                 parity=report, tensors_equal=tensors,
@@ -2245,88 +2262,51 @@ def dp_phase(cfg, dcfg, dev) -> dict:
                 spawn_seconds=t_run)
 
 
-def cp_phase(cfg, dcfg, dev) -> dict:
-    """Phase 6d (the module docstring): two ranks over gloo on this card,
-    each one half of every clip's time axis."""
+def axis_phase(axis: str, cases: list, dev) -> dict:
+    """Phases 6d and 6e (the module docstring): two ranks over gloo on
+    this card at cp=2 (each one half of every clip's time axis) or tp=2
+    (each half of the critic's channels). ``cases``: (config, batch
+    seeds, seeds whose two steps are held, plain comparisons held) per
+    preset, through dp_check.parity_job."""
     from audiogan_tpu_torch.config import MeshCfg
     from audiogan_tpu_torch.tools import dp_check
-    from audiogan_tpu_torch.train.step import draw_step, num_views
+    from audiogan_tpu_torch.train.step import num_views
+    structure = {"cp": cp_step_launches, "tp": tp_step_launches}[axis]
 
-    def on(c, cp):
+    def on(c, n):
         return c.replace(
-            mesh=MeshCfg(cp=cp),
+            mesh=MeshCfg(**{axis: n}),
             model=dataclasses.replace(c.model, phase_shuffle=0),
             train=dataclasses.replace(c.train, dtype="float32",
-                                      batch_size=CP_BATCH))
-    cases = {c.name: on(c, 1) for c in (cfg, dcfg)}
-    want, want_plain, jobs = {}, {}, []
-    t_ref = time.time()
-    for name, c in cases.items():
-        raws = [random_raw(c, num_views(c), CP_BATCH, 60 + s)
-                for s in range(CP_STEPS + 1)]
-        # one warm plain step, then the same draws for every side
-        warm = dp_check.steps_job(dev, c.to_json(), raws[:1])
-        draws = [draw_step(c, c.train.seed, warm["step"] + s, CP_BATCH,
-                           "cpu") for s in range(CP_STEPS)]
-        per_replica = [[d] for d in draws]
-        want_plain[name] = dp_check.steps_job(dev, c.to_json(), raws[1:],
-                                              draws=draws, state=warm)
-        want[name] = dp_check.steps_job(dev, c.to_json(), raws[1:],
-                                        draws=per_replica, state=warm,
-                                        cp1=True)
-        jobs.append({"name": name, "fn": "steps", "kw": {
-            "cfg_json": on(c, CP_RANKS).to_json(), "batches": raws[1:],
-            "draws": per_replica, "state": warm}})
-    t_ref = time.time() - t_ref
-    base = ROOT / "build" / "chip_smoke_cp"
+                                      batch_size=AXIS_BATCH))
+    base = ROOT / "build" / f"chip_smoke_{axis}"
     shutil.rmtree(base, ignore_errors=True)
-    t_run = time.time()
-    res = dp_check.spawn(CP_RANKS, jobs, base / "out", device=str(dev),
+    jobs = [{"name": c.name, "fn": "parity", "kw": {
+        "cfg_json": on(c, AXIS_RANKS).to_json(), "axis": axis,
+        "work": str(base / c.name), "seeds": seeds, "held_seeds": held,
+        "plain_held": plain_held}} for c, seeds, held, plain_held in cases]
+    res = dp_check.spawn(AXIS_RANKS, jobs, base / "out", device=str(dev),
                          backend="gloo", timeout_s=DP_TIMEOUT_S)
-    t_run = time.time() - t_run
-    report, tensors, per_rank = {}, {}, {}
-    for name, c in cases.items():
-        got = res[name][0]
-        plain = dict(want_plain[name], metrics=[
-            {k: v for k, v in m.items() if k != "d_loss_mean"}
-            for m in want_plain[name]["metrics"]])
-        # dual_stft's G against the plain step is reported, not held: its
-        # spectral term and STFT critic differentiate log-magnitudes at
-        # near-zero bins, where another conv and DFT order (VALID convs on
-        # extended slices, a zero-padded and masked tail) is amplified
-        # (ROADMAP Queue 3's thin margin); cp=2 against cp=1 is held
-        held = name == cfg.name
-        report[name] = {
-            "vs_cp1": compare_blobs(got, want[name], PARITY_REL_TOL,
-                                    PARITY_PARAM_TOL),
-            "vs_plain": compare_blobs(
-                got, plain, PARITY_REL_TOL if held else float("inf"),
-                PARITY_PARAM_TOL if held else None),
-            "vs_plain_held": held,
-            "seconds": {"cp2": got["seconds"],
-                        "cp1": want[name]["seconds"],
-                        "plain": want_plain[name]["seconds"]}}
-        tensors[name + " ranks"] = same_bits(state_parts(res[name][0]),
-                                             state_parts(res[name][1]))
-        want_launches = {**cp_step_launches(c), "ingest": num_views(c)}
-        per_rank[name] = []
-        for rank, r in enumerate(res[name]):
-            for kname, n in want_launches.items():
-                if r["launches"][kname] != n * CP_STEPS:
-                    raise AssertionError(
-                        f"cp {name} rank {rank}: {kname} launched "
-                        f"{r['launches'][kname]} times in {CP_STEPS} "
-                        f"steps, want {n} per step")
-            per_rank[name].append({k: v // CP_STEPS
-                                   for k, v in r["launches"].items()})
-        report[name]["routes_per_rank_step"] = {
-            k: v // CP_STEPS for k, v in res[name][0]["routes"].items()}
-    if "stft_loss" not in res[dcfg.name][0]["metrics"][-1]:
-        raise AssertionError("dual_stft at cp=2: no stft_loss")
-    return dict(ranks=CP_RANKS, backend="gloo", batch=CP_BATCH,
-                steps=CP_STEPS, dtype="float32", parity=report,
-                tensors_equal=tensors, launches_per_rank_step=per_rank,
-                in_process_seconds=t_ref, spawn_seconds=t_run)
+    report, per_rank, failed = {}, {}, []
+    for c, *_ in cases:
+        ranks = res[c.name]
+        n = ranks[0]["steps"]
+        report[c.name] = ranks[0]["report"]
+        failed += [f"{c.name} {f}" for f in report[c.name]["failed"]]
+        per_rank[c.name] = hold_launches(
+            [r["launches"] for r in ranks],
+            {**structure(on(c, 1)), "ingest": num_views(c)}, n,
+            f"{axis} {c.name}")
+        if axis == "cp":
+            report[c.name]["routes_per_rank_step"] = {
+                k: v // n for k, v in ranks[0]["routes"].items()}
+    if failed:
+        raise AssertionError(f"{axis}={AXIS_RANKS} parity: {failed}: "
+                             f"{json.dumps(report)}")
+    return dict(ranks=AXIS_RANKS, backend="gloo", batch=AXIS_BATCH,
+                dtype="float32", parity=report,
+                launches_per_rank_step=per_rank, last_metrics={
+                    name: r[0]["last"] for name, r in res.items()})
 
 
 def tc_tile_times(family: str, L: dict, x, w, b) -> dict:
@@ -2604,12 +2584,16 @@ def main() -> int:
     c_convt, c_conv = (music(layers) for layers in cp_rank_layers(
         apply_overrides(mcfg, [f"mesh.cp={CP_MUSIC}"]).validate(), BATCH,
         CP_MUSIC))
+    # tensor parallelism runs the critic's convs on channel slices, in
+    # f32: the flagship's at tp=2 (column layers C_out / 2, row layers
+    # C_in / 2 with no bias) and their dx, at 2B = 128
+    t_convt, t_conv = tp_rank_layers(cfg, BATCH, TP_RANKS)
     errs = {"convt1d": compare_conv("convt1d", g_fwd + d_dx + m_g_fwd
-                                    + m_d_dx + r_convt + rm_convt + c_convt,
-                                    dev),
+                                    + m_d_dx + r_convt + rm_convt + c_convt
+                                    + t_convt, dev),
             "conv1d": compare_conv("conv1d", d_fwd + g_dx + m_d_fwd
-                                   + m_g_dx + r_conv + rm_conv + c_conv,
-                                   dev),
+                                   + m_g_dx + r_conv + rm_conv + c_conv
+                                   + t_conv, dev),
             "sconv1d": compare_sconv(False, s_fwd + s_fwd_b + r_s_fwd, dev),
             "sconvt1d": compare_sconv(True, s_dx + s_dx_b + r_s_dx, dev)}
     cases = ingest_cases(dev)
@@ -2752,8 +2736,17 @@ def main() -> int:
 
     # 6d. context parallelism: two ranks on this card ------------------------
     t0 = time.time()
-    cp_run = cp_phase(cfg, dcfg, dev)
+    cp_run = axis_phase("cp", [(cfg, PARITY_SEEDS, (60,), True),
+                               (dcfg, (60,), (60,), False)], dev)
+    if "stft_loss" not in cp_run["last_metrics"][dcfg.name]:
+        raise AssertionError("dual_stft at cp=2: no stft_loss")
     phase("cp", t0, card=card, **cp_run)
+
+    # 6e. tensor parallelism: two ranks on this card -------------------------
+    t0 = time.time()
+    tp_run = axis_phase("tp", [(cfg, PARITY_SEEDS, (), True),
+                               (gcfg, (80,), (), True)], dev)
+    phase("tp", t0, card=card, **tp_run)
 
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()
@@ -2767,6 +2760,10 @@ def main() -> int:
             "convt1d_cp": time_conv("convt1d", c_convt, dev,
                                     errs["convt1d"], torch.float32),
             "conv1d_cp": time_conv("conv1d", c_conv, dev, errs["conv1d"],
+                                   torch.float32),
+            "convt1d_tp": time_conv("convt1d", t_convt, dev,
+                                    errs["convt1d"], torch.float32),
+            "conv1d_tp": time_conv("conv1d", t_conv, dev, errs["conv1d"],
                                    torch.float32),
             "ingest": time_ingest(cases, errs["ingest"]),
             **time_gru(gcfg, dev, errs["gru"], gru_launches),
@@ -2819,6 +2816,18 @@ def main() -> int:
                 "launches_per_rank_step_cp2": cp_run[
                     "launches_per_rank_step"][cfg.name][0][family],
                 "geometries": rows_c}
+    def tp_rows(family):
+        rows_t = rows[family + "_tp"]
+        return {"ms": sum(r["ms"] for r in rows_t),
+                "plain_ms": sum(r["plain_ms"] for r in rows_t),
+                "bound_ms": sum(r["bound_ms"] for r in rows_t),
+                "library_ms": sum(r["library_ms"] for r in rows_t),
+                "per": f"one rank of the flagship's critic at tp={TP_RANKS}:"
+                       " the channel-sliced geometries (2B=128) and their "
+                       "dx, f32, the CUDA-core tiles",
+                "launches_per_rank_step_tp2": tp_run[
+                    "launches_per_rank_step"][cfg.name][0][family],
+                "geometries": rows_t}
     gru_per = ("one scan of cond_gru_sc09's G (B=64, H=512, F=256, 256 "
                "frames), bf16")
     kernels = [
@@ -2840,7 +2849,8 @@ def main() -> int:
             launches_tensor_core_per_train_step_music=mper_step["convt1d_tc"],
             launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
                 "convt1d"],
-            music=music_rows("convt1d"), cp=cp_rows("convt1d")),
+            music=music_rows("convt1d"), cp=cp_rows("convt1d"),
+            tp=tp_rows("convt1d")),
         kernel_entry(
             "conv1d", "audiogan_tpu_torch/csrc/conv1d.cu",
             "audiogan_tpu/kernels/conv.py:285",
@@ -2857,7 +2867,8 @@ def main() -> int:
             launches_tensor_core_per_train_step_music=mper_step["conv1d_tc"],
             launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
                 "conv1d"],
-            music=music_rows("conv1d"), cp=cp_rows("conv1d")),
+            music=music_rows("conv1d"), cp=cp_rows("conv1d"),
+            tp=tp_rows("conv1d")),
         kernel_entry(
             "ingest", "audiogan_tpu_torch/csrc/ingest.cu",
             "audiogan_tpu/kernels/ingest.py:124", "ingest_fused (body _kernel)",
@@ -2873,6 +2884,8 @@ def main() -> int:
             launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
                 "ingest"],
             launches_per_rank_step_cp2=cp_run["launches_per_rank_step"][
+                cfg.name][0]["ingest"],
+            launches_per_rank_step_tp2=tp_run["launches_per_rank_step"][
                 cfg.name][0]["ingest"]),
         kernel_entry(
             "gru_scan", "audiogan_tpu_torch/csrc/gru_scan.cu",
@@ -2884,7 +2897,9 @@ def main() -> int:
             launches_serve=gserved["launches"]["gru_scan"],
             launches_persistent=gtrained["launches"]["gru_scan_persistent"],
             launches_persistent_serve=gserved["launches"][
-                "gru_scan_persistent"]),
+                "gru_scan_persistent"],
+            launches_per_rank_step_tp2=tp_run["launches_per_rank_step"][
+                gcfg.name][0]["gru_scan"]),
         kernel_entry(
             "gru_scan_bwd", "audiogan_tpu_torch/csrc/gru_scan.cu",
             "audiogan_tpu/kernels/gru.py:397",
@@ -2893,7 +2908,9 @@ def main() -> int:
             gru_per + ": the nine gradients", card,
             launches_per_train_step=gper_step["gru_scan_bwd"],
             launches_persistent=gtrained["launches"][
-                "gru_scan_bwd_persistent"]),
+                "gru_scan_bwd_persistent"],
+            launches_per_rank_step_tp2=tp_run["launches_per_rank_step"][
+                gcfg.name][0]["gru_scan_bwd"]),
         kernel_entry(
             "sconv1d", "audiogan_tpu_torch/csrc/sconv.cu",
             "audiogan_tpu/kernels/sconv.py:440",

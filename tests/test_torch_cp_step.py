@@ -113,8 +113,10 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _replica_draws(cfg, base_key, step, replica):
-    """The reference's cp draws of one data replica at one step."""
+def _replica_draws(cfg, base_key, step, replica, gp_chunks=1):
+    """The reference's cp draws of one data replica at one step (and its
+    tp step's: with ``gp_chunks`` penalty chunks, one shift draw at a
+    chunk's rows)."""
     b = cfg.train.batch_size // cfg.mesh.dp
     m, latent = cfg.model, cfg.model.latent_dim
     rad, sites = m.phase_shuffle, len(m.strides) - 1 if m.phase_shuffle else 0
@@ -141,7 +143,7 @@ def _replica_draws(cfg, base_key, step, replica):
             jax.random.fold_in(step_key, i), 7)
         sh = ({"both": shifts(k1, 2 * b)} if cfg.train.fused_d_views
               else {"real": shifts(k1, b), "fake": shifts(k2, b)})
-        sh["gp"] = shifts(k3, b)
+        sh["gp"] = shifts(k3, b // gp_chunks)
         critic.append({
             "offsets": _t(jax.random.randint(k_crop, (b,), 0, max_off + 1)),
             "z": _t(jax.random.normal(k_z, (b, latent))),
@@ -296,13 +298,13 @@ def test_fsdp_keeps_each_replicas_rows(runs):
             assert kept == (n // 2 if n and n % 2 == 0 else n)
 
 
-def _torchrun(workdir, steps, port):
+def _torchrun(workdir, steps, port, axis="cp"):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     return [sys.executable, "-m", "torch.distributed.run",
             "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
             "--master_port", str(port), "-m", "audiogan_tpu_torch.cli",
             "train", "--preset", "tiny_sc09", "--device", "cpu",
-            "--set", "mesh.cp=2", "--set", "train.ckpt_every=2",
+            "--set", f"mesh.{axis}=2", "--set", "train.ckpt_every=2",
             "--batch_size", "2", "--log_every", "1", "--total_steps",
             str(steps), "--no_tensorboard", "--workdir", str(workdir)], env
 
@@ -315,13 +317,16 @@ def _record(workdir, step):
             and "per_sec" not in k}
 
 
-def test_cli_train_at_cp2_killed_and_resumed_to_the_bit(tmp_path):
+def killed_and_resumed(tmp_path, axis):
+    """`cli train` at mesh.<axis>=2 under torchrun's two gloo ranks,
+    killed after its step-2 checkpoint and run again, against an
+    uninterrupted run: the same step-4 record and checkpoint."""
     straight, killed = tmp_path / "straight", tmp_path / "killed"
-    cmd, env = _torchrun(straight, 4, dp_check.free_port())
+    cmd, env = _torchrun(straight, 4, dp_check.free_port(), axis)
     # the uninterrupted run goes beside the one to be killed
     done = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    cmd, env = _torchrun(killed, 4, dp_check.free_port())
+    cmd, env = _torchrun(killed, 4, dp_check.free_port(), axis)
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.DEVNULL, text=True)
     try:
@@ -336,14 +341,14 @@ def test_cli_train_at_cp2_killed_and_resumed_to_the_bit(tmp_path):
     assert done.returncode == 0, err[-3000:]
     assert sorted(p.name for p in (killed / "ckpt").glob("*.pt")) == \
         ["2.pt"]
-    cmd, env = _torchrun(killed, 4, dp_check.free_port())
+    cmd, env = _torchrun(killed, 4, dp_check.free_port(), axis)
     again = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                            text=True, timeout=300)
     assert again.returncode == 0, again.stderr[-3000:]
     lines = [json.loads(ln) for ln in again.stdout.splitlines()
              if ln.startswith("{")]
     assert [ln["resume"]["step"] for ln in lines if "resume" in ln] == [2]
-    assert [ln["init"]["cp"] for ln in lines if "init" in ln] == [2]
+    assert [ln["init"][axis] for ln in lines if "init" in ln] == [2]
     assert _record(killed, 4) == _record(straight, 4)
     a = torch.load(straight / "ckpt/4.pt", weights_only=True)
     b = torch.load(killed / "ckpt/4.pt", weights_only=True)
@@ -351,22 +356,26 @@ def test_cli_train_at_cp2_killed_and_resumed_to_the_bit(tmp_path):
     assert same_bits({k: a[k] for k in parts}, {k: b[k] for k in parts}) > 0
 
 
-def test_the_loop_trains_cp_on_every_corpus_path(tmp_path):
-    """train/loop.py at cp=2 (two gloo ranks) on the resident corpus,
-    replicated and sharded, and through the host batcher: the same
-    records and states, to the bit."""
+def test_cli_train_at_cp2_killed_and_resumed_to_the_bit(tmp_path):
+    killed_and_resumed(tmp_path, "cp")
+
+
+def corpus_paths_agree(tmp_path, make_cfg, world=2):
+    """train/loop.py on ``world`` gloo ranks, the config make_cfg(data
+    fields)
+    on the resident corpus, replicated and sharded, and through the host
+    batcher: the same records and states, to the bit."""
     jobs = []
     for name, data in (("replicate", {"device_corpus": True,
                                       "device_corpus_shard": "replicate"}),
                        ("shard", {"device_corpus": True,
                                   "device_corpus_shard": "shard"}),
                        ("host", {"device_corpus": False})):
-        cfg = _cfg(shuffle=1, data=data, train={"log_every": 1})
-        pcfg = Config.from_json(cfg.to_json()).validate()
+        pcfg = Config.from_json(make_cfg(data).to_json()).validate()
         jobs.append({"name": name, "fn": "train", "kw": {
             "cfg_json": pcfg.to_json(), "workdir": str(tmp_path / name),
             "steps": 2}})
-    res = dp_check.spawn(2, jobs, tmp_path / "out")
+    res = dp_check.spawn(world, jobs, tmp_path / "out")
     lines = {n: [{k: v for k, v in ln.items() if k != "seconds"}
                  for ln in r[0]["lines"] if "step" in ln]
              for n, r in res.items()}
@@ -376,6 +385,14 @@ def test_the_loop_trains_cp_on_every_corpus_path(tmp_path):
             for ln in res[n][0]["lines"] if "init" in ln] == \
         ["replicate", "shard", "host"]
     for n in ("shard", "host"):
-        for rank in (0, 1):
+        for rank in range(world):
             assert same_bits(state_parts(res[n][rank]),
                              state_parts(res["replicate"][0])) > 0
+
+
+def test_the_loop_trains_cp_on_every_corpus_path(tmp_path):
+    """train/loop.py at cp=2 (two gloo ranks) on the resident corpus,
+    replicated and sharded, and through the host batcher: the same
+    records and states, to the bit."""
+    corpus_paths_agree(tmp_path, lambda data: _cfg(
+        shuffle=1, data=data, train={"log_every": 1}))

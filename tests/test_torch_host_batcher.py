@@ -140,25 +140,22 @@ def test_oversized_corpus_falls_back_to_the_host_batcher(tmp_path,
 
 MESHES = [MeshCfg(dp=2), MeshCfg(cp=2), MeshCfg(tp=2),
           MeshCfg(fsdp=True)]
-# in one process: dp=2 or cp=2 asks for two processes (the reference's
-# "mesh needs N devices"); tp is not ported; fsdp at dp=1 runs
-RAISES = {False: (ValueError, "mesh needs 2 devices"),
-          True: (NotImplementedError, "tensor parallelism")}
+# in one process: dp=2, cp=2 or tp=2 asks for two processes (the
+# reference's "mesh needs N devices"); fsdp at dp=1 runs
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=str)
 def test_a_mesh_the_port_does_not_run_raises(tmp_path, mesh):
-    """build_train_step and loop.train raise ValueError for dp=2 or cp=2
-    in one process and NotImplementedError for tp above 1, the loop
-    before it writes anything; fsdp at dp=1 builds a step."""
+    """build_train_step and loop.train raise ValueError for dp=2, cp=2 or
+    tp=2 in one process, the loop before it writes anything; fsdp at
+    dp=1 builds a step."""
     cfg = _tiny().replace(mesh=mesh).validate()
     if mesh.fsdp:
         build_train_step(cfg, device="cpu")
         return
-    exc, match = RAISES[mesh.tp > 1]
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match="mesh needs 2 devices"):
         build_train_step(cfg, device="cpu")
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match="mesh needs 2 devices"):
         tloop.train(cfg, tmp_path / "w", device="cpu", tensorboard=False)
     assert not (tmp_path / "w").exists()
 
@@ -170,9 +167,8 @@ def test_a_mesh_the_port_does_not_run_raises(tmp_path, mesh):
 def test_cli_train_rejects_the_mesh_before_the_card(tmp_path, monkeypatch,
                                                     sets):
     """`cli train --preset music_44k_dp16` (dp=16) in one process raises
-    ValueError (the mesh needs 16 processes), at mesh.dp=1 cp=2 too (it
-    needs 2), and tp NotImplementedError, before the device is resolved;
-    nothing is
+    ValueError (the mesh needs 16 processes), at mesh.dp=1 cp=2 or tp=2
+    too (it needs 2), before the device is resolved; nothing is
     written. With mesh.dp=1, fsdp and the sharded corpus pass the checks
     and reach the device and the loop with what was set (both stand-ins
     here, so the case does not depend on the machine)."""
@@ -188,8 +184,7 @@ def test_cli_train_rejects_the_mesh_before_the_card(tmp_path, monkeypatch,
     argv = ["train", "--preset", "music_44k_dp16", "--total_steps", "1",
             "--workdir", str(tmp_path / "m"), *extra]
     if not sets or any(k in sets[0] for k in ("cp", "tp")):
-        with pytest.raises(NotImplementedError if sets and "tp" in sets[0]
-                           else ValueError):
+        with pytest.raises(ValueError, match="mesh needs"):
             cli.main(argv)
         assert calls == []
         assert not (tmp_path / "m").exists()

@@ -316,16 +316,14 @@ def test_device_corpus_gathers_by_index():
 
 
 def test_step_rejects_what_is_not_ported():
-    """tp above 1 raises NotImplementedError; dp=2 or cp=2 in one process
-    ValueError (the mesh needs two processes); fsdp at dp=1 builds a step.
-    A conditional critic with gp_batch_chunks > 1 raises ValueError, where
-    the reference's penalty fails (each chunk gets the whole batch's
+    """tp=2, dp=2 or cp=2 in one process raises ValueError (the mesh
+    needs two processes); fsdp at dp=1 builds a step. A conditional
+    critic with gp_batch_chunks > 1 raises ValueError, where the
+    reference's penalty fails (each chunk gets the whole batch's
     labels)."""
     from audiogan_tpu_torch.config import MeshCfg
     pcfg = _tiny_port_cfg()
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        build_train_step(pcfg.replace(mesh=MeshCfg(tp=2)), device="cpu")
-    for mesh in (MeshCfg(cp=2), MeshCfg(dp=2)):
+    for mesh in (MeshCfg(tp=2), MeshCfg(cp=2), MeshCfg(dp=2)):
         with pytest.raises(ValueError, match="mesh needs 2 devices"):
             build_train_step(pcfg.replace(mesh=mesh), device="cpu")
     build_train_step(pcfg.replace(mesh=MeshCfg(fsdp=True)), device="cpu")
