@@ -1535,7 +1535,10 @@ cudaError_t make_ctx(void* stream, Ctx* cx) {
 }
 
 // One cooperative launch of a persistent kernel: every block resident, or
-// the launch is refused (cudaErrorCooperativeLaunchTooLarge).
+// the launch is refused (cudaErrorCooperativeLaunchTooLarge). A stream
+// capture takes it as a cooperative kernel node, and the grid barrier's
+// cudaMemsetAsync before it as a memset node (train/step_graph.py: the
+// replay equals the eager step to the bit on the H100).
 cudaError_t launch_coop(const void* kern, void* arg, int grid, size_t smem,
                         cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(

@@ -457,7 +457,11 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A bf16 tensor map over dims (innermost first) with byte strides of the
-// outer dims, zero fill out of bounds, 128-byte swizzle.
+// outer dims, zero fill out of bounds, 128-byte swizzle. Encoded on the
+// host at every call with the operand's address and passed by value: a
+// CUDA graph capture (train/step_graph.py) freezes it into the kernel
+// node's parameters, which is right only because a graph's addresses are
+// fixed.
 inline bool encode(CUtensorMap* map, const void* ptr, int rank,
                    const cuuint64_t* dims, const cuuint64_t* strides,
                    const cuuint32_t* box) {

@@ -83,6 +83,14 @@ def batch_indices(n_clips: int, batch_size: int, n_views: int, seed: int,
     return rng.integers(0, n_clips, size=(n_views, batch_size))
 
 
+def index_row(step: int, idx, labels, chunk: int):
+    """Step ``step``'s row of the resident blocks idx and labels [chunk,
+    num_views, B] of the steps [m chunk, (m+1) chunk) (data.index_chunk
+    > 0): the row at step % chunk, a view, no copy."""
+    k = step % chunk
+    return idx[k], labels[k]
+
+
 class HostBatcher:
     """Deterministic (seed, step) -> batch sampler with optional prefetch.
 

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audiogan_tpu_torch.kernels import _build
+from audiogan_tpu_torch.kernels import _build, hooks
 
 ACTS = {"none": 0, "relu": 1, "leaky_relu": 2, "tanh": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -396,6 +396,7 @@ def _conv1d_tc(x, w, b, y, stride, plan, act, slope) -> None:
     _raise_on(lib, err, "conv1d")
 
 
+@hooks.kernel
 def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               stride: int = 1, pad_lo: int = 0, pad_hi: int = 0,
               act: str = "none", slope: float = 0.2) -> torch.Tensor:
@@ -480,6 +481,7 @@ def _launch(x, w, b, y, stride, pad_lo, out_len, act, slope) -> None:
     _raise_on(lib, err, "convt1d")
 
 
+@hooks.kernel
 def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         stride: int, pad_lo: int | None = None,
                         out_len: int | None = None, act: str = "none",

@@ -49,7 +49,7 @@ import functools
 import numpy as np
 import torch
 
-from audiogan_tpu_torch.kernels import _build
+from audiogan_tpu_torch.kernels import _build, hooks
 from audiogan_tpu_torch.ops.gru import gru_cell, gru_gates
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -175,6 +175,7 @@ def _gru_cell_tc(args, out, split: int | None = None) -> None:
                            + lib.gru_cell_error_string(err).decode())
 
 
+@hooks.kernel
 def gru_cell_fwd(x, h, w_i, w_h, b_i, b_h) -> torch.Tensor:
     """K3: one GRU step -> h' [B, H] in x.dtype. A CPU tensor takes the
     plain form. A CUDA tensor launches the kernel (every input f32 or
@@ -523,6 +524,7 @@ def _scan_fwd(args, n_frames: int, with_h: bool, plan):
     return (out, h_seq) if with_h else out
 
 
+@hooks.kernel
 def gru_scan_fwd(h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
                  n_frames: int, with_h: bool = False):
     """The scan -> feats [B, n_frames, F] (and h_seq [n_frames, B, H] if
@@ -554,6 +556,7 @@ gru_scan_fwd.launches = 0
 gru_scan_fwd.launches_persistent = gru_scan_fwd.launches_loop = 0
 
 
+@hooks.kernel
 def gru_scan_bwd(g, h0, cond, w_i, w_h, b_i, b_h, w_ar, w_out, b_out,
                  feats, h_seq):
     """K5: the nine gradients of the scan from the cotangent g

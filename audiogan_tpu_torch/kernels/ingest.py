@@ -26,7 +26,7 @@ import functools
 
 import torch
 
-from audiogan_tpu_torch.kernels import _build
+from audiogan_tpu_torch.kernels import _build, hooks
 from audiogan_tpu_torch.ops.framing import crop_rows
 from audiogan_tpu_torch.ops.mulaw import mu_law_compand
 from audiogan_tpu_torch.ops.normalize import normalize_amplitude
@@ -147,6 +147,7 @@ def _ingest_launch(raw: torch.Tensor, offsets: torch.Tensor, clip_len: int,
     return out
 
 
+@hooks.kernel
 def ingest_fused(raw: torch.Tensor, offsets: torch.Tensor, clip_len: int,
                  mode: str = "peak", target: float = 0.999,
                  mu: float = 255.0, eps: float = 1e-8) -> torch.Tensor:

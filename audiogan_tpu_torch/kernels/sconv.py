@@ -42,7 +42,7 @@ import functools
 import numpy as np
 import torch
 
-from audiogan_tpu_torch.kernels import _build
+from audiogan_tpu_torch.kernels import _build, hooks
 from audiogan_tpu_torch.kernels.conv import (ACTS, _DTYPES, _c_plan,
                                              _check_conv1d,
                                              _check_kernel_args,
@@ -189,6 +189,7 @@ def _sconvt1d_tc(ct, wf, offs, y, rad, plan) -> None:
     _raise_if(lib, err, "sconvt1d")
 
 
+@hooks.kernel
 def sconv1d_ba(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                offs: torch.Tensor, stride: int, pad_lo: int, pad_hi: int,
                rad: int, act: str = "none", slope: float = 0.2
@@ -240,6 +241,7 @@ def sconv1d_ba(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 sconv1d_ba.launches = sconv1d_ba.launches_tc = sconv1d_ba.launches_cc = 0
 
 
+@hooks.kernel
 def sconvt1d(ct: torch.Tensor, wf: torch.Tensor, offs: torch.Tensor,
              stride: int, pad_lo_t: int, t: int, rad: int) -> torch.Tensor:
     """K7: window_place(convT(ct, wf, pad_lo_t, out_len=t), offs) ->

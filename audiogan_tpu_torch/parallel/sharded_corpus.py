@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from audiogan_tpu_torch.data.corpus import index_row
 from audiogan_tpu_torch.parallel.mesh import DataMesh
 
 
@@ -96,17 +97,20 @@ def gather_plan(idx: np.ndarray, n_local: int, mesh: DataMesh
             np.bincount(owner[wanted], minlength=mesh.dp), place)
 
 
-def sharded_corpus_gather(local_clips: torch.Tensor, idx: np.ndarray,
+def sharded_corpus_gather(local_clips: torch.Tensor, idx,
                           mesh: DataMesh) -> torch.Tensor:
     """This rank's share [n_local, L] int16 of the padded corpus and the
-    global step's indices [V, B] -> this rank's clips [V, b, L]."""
+    global step's indices [V, B] -> this rank's clips [V, b, L]. With
+    more than one rank ``idx`` lies on the host (the plan is host
+    arithmetic); with one it may lie on the device."""
     n_local, length = local_clips.shape
     v, batch = idx.shape
     dev = local_clips.device
     if not mesh.parallel:
-        flat = torch.from_numpy(np.asarray(idx, np.int64).reshape(-1))
-        return local_clips[flat.to(dev)].reshape(v, batch, length)
-    send, n_send, n_recv, place = gather_plan(idx, n_local, mesh)
+        flat = torch.as_tensor(idx).reshape(-1).to(dev, torch.long)
+        return local_clips[flat].reshape(v, batch, length)
+    send, n_send, n_recv, place = gather_plan(np.asarray(idx), n_local,
+                                              mesh)
     out = local_clips[torch.from_numpy(send).to(dev)].view(torch.uint8)
     staged = dev.type != "cpu" and dist.get_backend(mesh.group) == "gloo"
     if staged:
@@ -119,13 +123,19 @@ def sharded_corpus_gather(local_clips: torch.Tensor, idx: np.ndarray,
         v, batch // mesh.dp, length)
 
 
-def wrap_sharded_corpus(inner: Callable, mesh: DataMesh) -> Callable:
+def wrap_sharded_corpus(inner: Callable, mesh: DataMesh,
+                        chunk: int = 0) -> Callable:
     """(state, local_clips [n_local, L] int16 on the device, idx [V, B]
     the global step's indices, labels [V, B], draws=None) -> metrics:
     the step's clips gathered from their owners, this rank's rows of the
-    labels."""
+    labels. With chunk > 0 idx and labels are blocks [chunk, V, B] and
+    the step takes its row at state.step % chunk
+    (data/corpus.py::index_row), as the reference's
+    ``wrap_device_corpus(inner, mesh, sharded=True, chunk)``."""
     def step_fn(state, local_clips, idx, labels, draws=None):
-        raw = sharded_corpus_gather(local_clips, np.asarray(idx), mesh)
+        if chunk:
+            idx, labels = index_row(state.step, idx, labels, chunk)
+        raw = sharded_corpus_gather(local_clips, idx, mesh)
         return inner(state, raw, labels[:, mesh.rows(labels.shape[1])],
                      draws)
 

@@ -11,7 +11,21 @@ data.device_corpus_shard=shard), sharded over the data axis
 DEVICE_CORPUS_MAX_GB, the host batcher gathers each step's clips on the
 host (a prefetch thread) and ``HostFeed`` ships them from pinned memory,
 the next step's copy on a side stream while the current step runs. Every
-path gives the step the same clips, so they train to the same bits.
+path gives the step the same clips, so they train to the same bits. On
+the resident paths data.index_chunk > 0 ships the indices and labels of
+steps [m chunk, (m+1) chunk) as one block once per chunk steps, and the
+step takes its row at state.step % chunk (data/corpus.py::index_row, the
+reference's resident index blocks); 0 ships each step's own.
+
+The reference's tracing options: train.dump_hlo captures the step the
+loop will run, on its data path, as one CUDA graph before the first step
+(train/step_graph.py; on a copy of the state); train.profile_dir traces
+the steps [start + profile_steps[0], start + profile_steps[1]) counted
+from the step the run starts at, closing at the last step if the window
+runs past it (utils/profiling.py::StepTrace); train.debug_nans checks
+each step for NaN and, on one, runs the step again from a snapshot to
+name the first op that made it (train/debug_nans.py). None of them
+changes a bit of the run.
 
 Data, context and tensor parallelism: under torchrun (one process per
 card) the loop joins the process group (parallel/multihost.py); each
@@ -27,8 +41,8 @@ writes config.json, the checkpoints (the whole state, replicated over
 cp and tp, which restores on any topology), metrics.jsonl, TensorBoard
 and the sample dumps, and logs; the others wait at a barrier where they
 need its files. Every rank restores the same checkpoint. A mesh whose
-size is not the number of processes raises before the device is touched
-(``check_ported``).
+size is not the number of processes, or train.dump_hlo on more than one,
+raises before the device is touched (``check_ported``).
 
 Crash-only, as the reference: a checkpoint every ckpt_every steps and at
 the last one; ``resume`` picks up the latest complete checkpoint; the data
@@ -46,6 +60,7 @@ go to ``log``, and the step rate of the window after it leaves it out.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import time
@@ -61,18 +76,21 @@ from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
 from audiogan_tpu_torch.data.wavio import write_wav
 from audiogan_tpu_torch.device import resolve_device
 from audiogan_tpu_torch.parallel.mesh import (DataMesh, check_world,
-                                              world_rank)
+                                              world_rank, world_size)
 from audiogan_tpu_torch.parallel.multihost import make_train_mesh
 from audiogan_tpu_torch.parallel.sharded_corpus import (corpus_num_shards,
                                                         local_shard,
                                                         wrap_sharded_corpus)
+from audiogan_tpu_torch.train.debug_nans import NanGuard
 from audiogan_tpu_torch.train.state import (TrainState, create_train_state,
                                             param_count)
+from audiogan_tpu_torch.train.step_graph import dump_step
 from audiogan_tpu_torch.train.sample import generate
 from audiogan_tpu_torch.train.step import (build_train_step, num_views,
                                            wrap_device_corpus)
 from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
 from audiogan_tpu_torch.utils.metrics import MetricsWriter
+from audiogan_tpu_torch.utils.profiling import StepTrace
 
 # Largest packed corpus held on the device (data.device_corpus); larger
 # corpora fall back to the host batcher with a notice (the reference's).
@@ -116,18 +134,17 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raises NotImplementedError for the reference loop's options the
-    port has not ported (three tracing options), and ValueError when the
-    mesh asks for another number of processes than run
-    (parallel/mesh.py::check_world)."""
+    """Raises ValueError when the mesh asks for another number of
+    processes than run (parallel/mesh.py::check_world), and
+    NotImplementedError for train.dump_hlo on more than one process: every
+    rank would have to capture its collectives together, and gloo on CUDA
+    tensors stages through the host, which no capture takes
+    (train/step_graph.py)."""
     check_world(cfg)
-    t = cfg.train
-    for name, on in (("train.profile_dir", bool(t.profile_dir)),
-                     ("train.dump_hlo", t.dump_hlo),
-                     ("train.debug_nans", t.debug_nans)):
-        if on:
-            raise NotImplementedError(f"{name} is not ported to "
-                                      f"audiogan_tpu_torch")
+    if cfg.train.dump_hlo and world_size() > 1:
+        raise NotImplementedError(
+            "train.dump_hlo on more than one process is not ported to "
+            "audiogan_tpu_torch: it captures one process's step")
 
 
 def corpus_placement(cfg: Config, corpus: Corpus, mesh: DataMesh,
@@ -277,34 +294,74 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                           indices_only=placement != "host",
                           rows=None if placement == "shard" else mesh.rows(b))
     every = max(t.log_every, 1)
+    # data.index_chunk: resident index blocks (the host batcher's path
+    # ignores it, as the reference's)
+    chunk = cfg.data.index_chunk if placement != "host" else 0
     metrics: dict = {}
+    feed = trace = None
     try:
         if placement == "host":
             feed = HostFeed(batcher, state.step, total, dev)
-
-            def run_step(step):
-                raw, labels = feed.take(step)
-                out = inner(state, raw, labels)
-                feed.done(step)
-                return out
+            step_fn = inner
+            inputs = feed.take
         else:
             if placement == "shard":
                 clips = torch.from_numpy(local_shard(corpus.clips, mesh))
-                resident_step = wrap_sharded_corpus(inner, mesh)
+                step_fn = wrap_sharded_corpus(inner, mesh, chunk)
             else:
                 clips = torch.from_numpy(np.array(corpus.clips))
-                resident_step = wrap_device_corpus(inner)
+                step_fn = wrap_device_corpus(inner, chunk)
             clips = clips.to(dev)
+            # the sharded exchange plans from host indices on a mesh
+            idx_dev = dev if placement == "replicate" or not mesh.parallel \
+                else torch.device("cpu")
+            block: dict = {}
 
-            def run_step(step):
-                idx, labels = batcher.get(step)
-                return resident_step(state, clips, torch.from_numpy(idx),
-                                     torch.from_numpy(labels))
+            def inputs(step):
+                if not chunk:
+                    idx, labels = batcher.get(step)
+                    return (clips, torch.from_numpy(idx),
+                            torch.from_numpy(labels))
+                m = step // chunk
+                if block.get("m") != m:
+                    # steps [m chunk, (m+1) chunk), shipped once; a resume
+                    # mid-chunk rebuilds the whole block (the reference's
+                    # chunk_rows)
+                    rows = [batcher.get(s)
+                            for s in range(m * chunk, (m + 1) * chunk)]
+                    block.update(m=m, idx=torch.from_numpy(
+                        np.stack([r[0] for r in rows])).to(idx_dev,
+                                                           torch.long),
+                        labels=torch.from_numpy(
+                            np.stack([r[1] for r in rows])).to(dev))
+                return clips, block["idx"], block["labels"]
+        if t.dump_hlo:
+            # the step the loop runs next, on its data path
+            dump_step(cfg, state, step_fn, inputs(state.step), workdir, dev,
+                      say)
+        guard = NanGuard(dev) if t.debug_nans else None
+        start = state.step
+        prof_on, prof_off = (start + t.profile_steps[0],
+                             start + t.profile_steps[1])
         t0 = t_log = time.perf_counter()
         last_logged = state.step
         for step in range(state.step, total):
-            out = run_step(step)
+            if t.profile_dir and step == prof_on and prof_off > prof_on:
+                trace = StepTrace(t.profile_dir, world_rank(), dev)
+            args = inputs(step)
+            if guard is not None:
+                guard.before(state)
+            with trace.step(step) if trace else contextlib.nullcontext():
+                out = step_fn(state, *args)
+            if guard is not None:
+                guard.after(state, out, lambda: step_fn(state, *args))
+            if feed is not None:
+                feed.done(step)
             done = step + 1
+            if trace is not None and done in (prof_off, total):
+                trace.close()
+                say(f"[profile] trace in {t.profile_dir}")
+                trace = None
             if done % every == 0 or done == total:
                 metrics = {k: float(v) for k, v in out.items()}  # sync
                 now = time.perf_counter()
@@ -339,6 +396,8 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                 dump_samples(cfg, state, workdir, done, dev)
                 t_log += time.perf_counter() - t_dump
     finally:
+        if trace is not None:
+            trace.close()
         if writer is not None:
             writer.close()
         batcher.close()

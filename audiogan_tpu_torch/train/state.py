@@ -54,6 +54,11 @@ class Adam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
         self.zero1 = zero1
 
+    def __getstate__(self):
+        # the base class keeps only its own fields: a copy (copy.deepcopy,
+        # train/step_graph.py) keeps the mesh too
+        return {**super().__getstate__(), "zero1": self.zero1}
+
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
@@ -164,3 +169,55 @@ def create_train_state(cfg: Config, seed: int | None = None,
 
 def param_count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def state_tensors(state: TrainState) -> dict:
+    """What a step changes, by name: both nets' parameters and both
+    Adams' moments (this rank's blocks under ZeRO-1), live tensors."""
+    out = {}
+    for net, opt in (("g", state.opt_g), ("d", state.opt_d)):
+        module = state.g if net == "g" else state.d
+        for name, p in module.named_parameters():
+            out[f"{net}/{name}"] = p
+            for key, v in opt.state.get(p, {}).items():
+                if key != "step":
+                    out[f"opt_{net}/{name}/{key}"] = v
+    return out
+
+
+def snapshot(state: TrainState) -> dict:
+    """A copy of what a step changes: ``step``, both nets' parameters and
+    each Adam's per-parameter state (moments and its CPU count), for
+    ``restore``."""
+    return {"step": state.step,
+            "params": [p.detach().clone() for p in _all_params(state)],
+            "opt": [{p: {k: v.clone() for k, v in opt.state[p].items()}
+                     for p in opt._params() if opt.state.get(p)}
+                    for opt in (state.opt_g, state.opt_d)]}
+
+
+@torch.no_grad()
+def restore(state: TrainState, snap: dict, drop_new: bool = True) -> None:
+    """Puts ``snapshot``'s values back into the same tensors (a captured
+    graph keeps its addresses). An Adam that had no state for a parameter
+    loses the one the step made, or with ``drop_new`` False keeps it as
+    it is (a graph that made it makes it again when replayed)."""
+    state.step = snap["step"]
+    for p, v in zip(_all_params(state), snap["params"]):
+        p.copy_(v)
+    for opt, saved in zip((state.opt_g, state.opt_d), snap["opt"]):
+        for p in opt._params():
+            if p not in saved:
+                if drop_new:
+                    opt.state.pop(p, None)
+                continue
+            st = opt.state[p]
+            for k, v in saved[p].items():
+                if k in st:
+                    st[k].copy_(v)
+                else:
+                    st[k] = v.clone()
+
+
+def _all_params(state: TrainState) -> list:
+    return [*state.g.parameters(), *state.d.parameters()]

@@ -1,0 +1,368 @@
+"""train.dump_hlo: the whole training step as one CUDA graph, the port's
+counterpart of the reference's one optimized HLO module
+(audiogan_tpu/train/loop.py:247-261: "the WHOLE training step (ingest +
+n_critic scan + GP double-backprop + both optimizers) is one optimized
+HLO module").
+
+``dump_step`` runs before the loop's first step, on the data path the
+loop uses, and never moves the loop's state: it works on
+``copy.deepcopy`` of the state (modules and optimizers together).
+
+On the card:
+  draws     the step's draws are made first and passed in (``draws=``):
+            utils/prng.py makes a fresh generator per (seed, step, role),
+            which a capture can neither create nor replay. A host tensor
+            among the step's inputs (the labels of the host batcher's
+            path, the indices at data.index_chunk=0) is copied to the
+            device first; the header says which.
+  warm-up   one eager step on a side stream, from a snapshot of the copy
+            (train/state.py::snapshot): it builds every cache a step
+            makes at first use (the kernels' libraries, K4/K5's device
+            plans, the STFT bases, cuDNN's plans), so the capture makes
+            none. Its result is the eager step the replay is held to.
+  capture   the copy restored to the snapshot, then one step under
+            ``torch.cuda.graph`` in debug mode, on the calling thread as
+            every step (train/step.py). Python still runs: the copy's
+            ``state.step`` and Adam's CPU counts advance and their values
+            (the row of an index block, the bias corrections) are baked
+            into the graph, so the graph is the step at this step only.
+            The tensor-core convs' TMA tensor maps (csrc/igemm_tc.cuh) are
+            encoded on the host with the operands' addresses and frozen
+            into their nodes' parameters, which is right only because a
+            graph's addresses are fixed. While the capture runs, each
+            kernel call of the port (kernels/hooks.py) notes the nodes its
+            launch added to the graph, and the last op and kernel call are
+            kept: a capture that fails raises naming them.
+  replay    the copy restored to the snapshot again, the graph replayed
+            once; its parameters, both Adams' moments and the metrics are
+            held to the warm-up's to the bit (the header reports each
+            tensor that differs).
+  files     ``step_cuda_graph.dot`` (``CUDAGraph.debug_dump``) and
+            ``step_graph.txt``: a header (counts by kind, by kernel name
+            and by kernel of the port, the capture's seconds, the replay
+            check) and one line per node in capture order (kind, kernel
+            name, grid and block, the port kernel that launched it).
+
+On the CPU there is no CUDA graph: ``step_graph.txt`` has the same header
+and one line per aten op that one step dispatched (a TorchDispatchMode
+over the step on the copy); the kernels' plain forms are torch ops, so it
+sees everything, and each op inside a kernel call of the port names it.
+
+The reference's ``dump_hlo`` on a multi-process mesh has no counterpart:
+every rank would have to capture its collectives together, and gloo on
+CUDA tensors stages through the host, which no capture takes
+(train/loop.py::check_ported raises before the card is touched).
+"""
+
+from __future__ import annotations
+
+import copy
+import ctypes
+import json
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from audiogan_tpu_torch.config import Config
+from audiogan_tpu_torch.kernels import hooks
+from audiogan_tpu_torch.train.state import (TrainState, restore, snapshot,
+                                            state_tensors)
+from audiogan_tpu_torch.train.step import draw_step
+
+GRAPH_FILE = "step_graph.txt"
+DOT_FILE = "step_cuda_graph.dot"
+
+# CUgraphNodeType
+NODE_KINDS = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+class _Driver:
+    """The few CUDA driver calls that read a graph under capture."""
+
+    def __init__(self):
+        self.lib = ctypes.CDLL("libcuda.so.1")
+        ptr, out = ctypes.c_void_p, ctypes.c_void_p   # handles; out-pointers
+        for name, args in (
+                ("cuStreamGetCaptureInfo_v2", [ptr] + [out] * 5),
+                ("cuGraphGetNodes", [ptr, out, out]),
+                ("cuGraphNodeGetType", [ptr, out]),
+                ("cuGraphKernelNodeGetParams_v2", [ptr, out]),
+                ("cuFuncGetName", [out, ptr]),
+                ("cuKernelGetName", [out, ptr])):
+            fn = getattr(self.lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+
+    def _call(self, name: str, *args) -> None:
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed: CUresult {err}")
+
+    def capturing_graph(self, stream: int) -> int:
+        """The graph a stream is capturing into."""
+        status, graph = ctypes.c_int(), ctypes.c_void_p()
+        self._call("cuStreamGetCaptureInfo_v2", stream,
+                   ctypes.byref(status), None, ctypes.byref(graph), None,
+                   None)
+        if status.value != 1:                 # CU_STREAM_CAPTURE_STATUS_ACTIVE
+            raise RuntimeError(f"stream is not capturing (status "
+                               f"{status.value})")
+        return graph.value
+
+    def nodes(self, graph: int) -> list[int]:
+        n = ctypes.c_size_t()
+        self._call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+        out = (ctypes.c_void_p * n.value)()
+        self._call("cuGraphGetNodes", graph, out, ctypes.byref(n))
+        return [int(v or 0) for v in out[:n.value]]
+
+    def describe(self, node: int) -> dict:
+        kind = ctypes.c_int()
+        self._call("cuGraphNodeGetType", node, ctypes.byref(kind))
+        rec = {"kind": (NODE_KINDS[kind.value] if kind.value
+                        < len(NODE_KINDS) else f"type {kind.value}")}
+        if kind.value != 0:
+            return rec
+        p = _KernelNodeParams()
+        self._call("cuGraphKernelNodeGetParams_v2", node, ctypes.byref(p))
+        name = ctypes.c_char_p()
+        if p.func:
+            self._call("cuFuncGetName", ctypes.byref(name), p.func)
+        else:
+            self._call("cuKernelGetName", ctypes.byref(name), p.kern)
+        rec.update(name=name.value.decode(), grid=tuple(p.grid),
+                   block=tuple(p.block))
+        return rec
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    """Mangled -> readable, through c++filt where the toolchain has it."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+class _Watch(hooks.KernelMode):
+    """Over one step: the aten ops in order (``ops``: name and the port
+    kernel whose plain form ran it, or None) and every kernel call of the
+    port (``calls``: name, and with ``on_call``, which lists the graph's
+    nodes, the nodes the call added). Keeps the last op and call for a
+    failure."""
+
+    def __init__(self, record_ops: bool,
+                 on_call: Callable[[], list] | None = None):
+        super().__init__()
+        self.record_ops, self.on_call = record_ops, on_call
+        self.ops: list = []
+        self.calls: list = []
+        self.kernel: str | None = None
+        self.last = "nothing yet"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.last = f"aten op {func}" + (f" inside {self.kernel}"
+                                         if self.kernel else "")
+        if self.record_ops:
+            self.ops.append((str(func), self.kernel))
+        return func(*args, **(kwargs or {}))
+
+    def kernel_call(self, name, fn, args, kwargs):
+        outer, self.kernel = self.kernel, self.kernel or name
+        self.last = f"the launch of {name}"
+        before = self.on_call() if self.on_call and outer is None else ()
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            self.kernel = outer
+        if outer is None:
+            added = (set(self.on_call()) - set(before) if self.on_call
+                     else set())
+            self.calls.append((name, added))
+        return out
+
+
+def _to_device(args: tuple, dev: torch.device) -> tuple[tuple, list]:
+    """The step's inputs with every host tensor copied to ``dev``, and a
+    note of each one copied."""
+    out, moved = [], []
+    for i, a in enumerate(args):
+        if isinstance(a, torch.Tensor) and a.device.type != dev.type:
+            moved.append(f"input {i} {a.dtype} {list(a.shape)}")
+            a = a.to(dev)
+        out.append(a)
+    return tuple(out), moved
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.detach().contiguous()
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()])
+
+
+def differing(got: dict, want: dict) -> list[str]:
+    """Names of the tensors of two dicts that differ in any bit."""
+    return [k for k in want
+            if k not in got or got[k].shape != want[k].shape
+            or not torch.equal(_bits(got[k]), _bits(want[k]))]
+
+
+def _outcome(state: TrainState, metrics: dict) -> dict:
+    return {**{k: v.detach().clone() for k, v in state_tensors(state).items()},
+            **{f"metrics/{k}": v.detach().clone()
+               for k, v in metrics.items()}}
+
+
+def _header(title: str, summary: dict, by_name: Counter,
+            what: str) -> list[str]:
+    lines = [f"# {title}", f"# summary {json.dumps(summary)}",
+             f"# counts by {what} name:"]
+    lines += [f"#   {n:6d}  {name}" for name, n in by_name.most_common()]
+    return lines
+
+
+def _capture(step_fn, work: TrainState, args: tuple, draws: dict,
+             dev: torch.device):
+    """(graph, its node records, the kernel calls with their nodes, the
+    metrics' static tensors, capture seconds) of one step on ``work``."""
+    drv = _Driver()
+    # keep_graph: the cudaGraph_t outlives the capture, for debug_dump
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    nodes: list = []
+
+    def listed() -> list:
+        return drv.nodes(drv.capturing_graph(
+            torch.cuda.current_stream(dev).cuda_stream))
+
+    watch = _Watch(record_ops=False, on_call=listed)
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph), watch:
+            metrics = step_fn(work, *args, draws=draws)
+            g = drv.capturing_graph(torch.cuda.current_stream(dev).cuda_stream)
+            nodes = [dict(drv.describe(n), handle=n) for n in drv.nodes(g)]
+    except Exception as err:
+        raise RuntimeError(f"capture of the training step failed at "
+                           f"{watch.last}: {err}") from err
+    torch.cuda.synchronize(dev)
+    return graph, nodes, watch.calls, metrics, time.perf_counter() - t0
+
+
+def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
+              args: tuple, workdir: Path, device: torch.device,
+              say: Callable[[str], None] = print) -> dict:
+    """Dumps the step ``step_fn(state, *args, draws=...)`` would run now
+    into ``workdir`` (the module docstring); returns the summary that
+    heads step_graph.txt. ``state`` does not move."""
+    workdir = Path(workdir)
+    work = copy.deepcopy(state)
+    draws = draw_step(cfg, state.seed, state.step, cfg.train.batch_size,
+                      device)
+    title = (f"one training step of {cfg.name} at step {state.step}, "
+             f"batch {cfg.train.batch_size}, {cfg.train.dtype}, on "
+             f"{device}")
+    if device.type != "cuda":
+        watch = _Watch(record_ops=True)
+        with watch:
+            step_fn(work, *args, draws=draws)
+        by_name = Counter(op for op, _ in watch.ops)
+        summary = {"kind": "aten ops (the CPU has no CUDA graph)",
+                   "ops": len(watch.ops), "by_kernel": dict(Counter(
+                       name for name, _ in watch.calls))}
+        body = [f"{i} op {op}" + (f"  [{k}]" if k else "")
+                for i, (op, k) in enumerate(watch.ops)]
+        (workdir / GRAPH_FILE).write_text("\n".join(
+            _header(title + ": the aten ops it dispatched, in order",
+                    summary, by_name, "op") + body) + "\n")
+        say(f"[graph] the CPU has no CUDA graph: listed {len(watch.ops)} "
+            f"aten ops in {workdir / GRAPH_FILE}")
+        return summary
+
+    args, moved = _to_device(args, device)
+    pre = snapshot(work)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        eager = _outcome(work, step_fn(work, *args, draws=draws))
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    restore(work, pre)
+    graph, nodes, calls, metrics, seconds = _capture(step_fn, work, args,
+                                                     draws, device)
+    graph.debug_dump(str(workdir / DOT_FILE))
+    if not (workdir / DOT_FILE).exists():
+        raise RuntimeError(f"CUDAGraph.debug_dump wrote no "
+                           f"{workdir / DOT_FILE}")
+    restore(work, pre, drop_new=False)
+    graph.replay()
+    torch.cuda.synchronize(device)
+    differ = differing(_outcome(work, metrics), eager)
+
+    readable = _demangle(sorted({n["name"] for n in nodes if "name" in n}))
+    by_handle = {n["handle"]: n for n in nodes}
+    owner: dict[int, str] = {}
+    port: dict[str, dict] = {}
+    for name, added in calls:
+        rec = port.setdefault(name, {"calls": 0, "kernel_nodes": 0,
+                                     "other_nodes": 0})
+        rec["calls"] += 1
+        own = hooks.kernel_of(name).functions
+        for h in added:
+            owner[h] = name
+            n = by_handle[h]
+            mine = n["kind"] == "kernel" and any(
+                f in n.get("name", "") for f in own)
+            rec["kernel_nodes" if mine else "other_nodes"] += 1
+    kinds = Counter(n["kind"] for n in nodes)
+    by_name = Counter(readable[n["name"]] for n in nodes if "name" in n)
+    summary = {"kind": "CUDA graph", "nodes": len(nodes),
+               "by_kind": dict(kinds), "port_kernels": port,
+               "capture_seconds": seconds,
+               "replay_equals_eager": not differ,
+               "replay_differs_in": differ,
+               "tensors_compared": len(eager),
+               "inputs_copied_to_device": moved}
+    body = []
+    for i, n in enumerate(nodes):
+        line = f"{i} {n['kind']}"
+        if "name" in n:
+            line += (f" {readable[n['name']]} grid={n['grid']} "
+                     f"block={n['block']}")
+        if n["handle"] in owner:
+            line += f"  [{owner[n['handle']]}]"
+        body.append(line)
+    (workdir / GRAPH_FILE).write_text("\n".join(
+        _header(title + ": cudaGraph nodes in capture order", summary,
+                by_name, "kernel") + body) + "\n")
+    note = "" if not differ else (f"; the replay differs from the eager "
+                                  f"step in {len(differ)} tensors")
+    say(f"[graph] dumped {len(nodes)} nodes into {workdir / GRAPH_FILE} "
+        f"and {workdir / DOT_FILE}{note}")
+    del graph
+    return summary
+
+
+def read_summary(workdir: Path) -> dict:
+    """The summary line of a step_graph.txt."""
+    for line in (Path(workdir) / GRAPH_FILE).read_text().splitlines():
+        if line.startswith("# summary "):
+            return json.loads(line[len("# summary "):])
+    raise ValueError(f"no summary in {Path(workdir) / GRAPH_FILE}")

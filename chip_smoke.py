@@ -160,6 +160,32 @@ non-zero:
             plain step, the two steps at the preset's lr reported; ranks
             equal to the bit, K1', K1, K2 (and K4, K5) launches per rank
             held to the step's structure (tp_step_launches, num_views).
+6f. graph   train.dump_hlo (train/step_graph.py) through train.loop.train
+            with no step to run, for each preset at full width, the fused
+            flagship and music_44k_dp16 at dp=1, on the resident corpus
+            with data.index_chunk at its default: the loop's first step
+            captured as one CUDA graph (the draws made before, one
+            warm-up step on a side stream), replayed once from the
+            pre-step state and held to the eager step from the same state
+            and draws, to the bit (parameters, both Adams' moments,
+            metrics). Each port kernel's kernel nodes, attributed to its
+            calls during the capture, equal its calls and the launches
+            the step's structure gives (K1' and K1 by conv_step_launches,
+            K6 and K7 by fused_step_launches, K4 6 and K5 1, K2 one per
+            real view, none for resample_22k); the node counts by kind
+            and the capture's seconds.
+6g. trace   the flagship's `cli train --total_steps 6` three ways at once:
+            plain, with train.profile_dir and train.profile_steps=[2,4],
+            and with train.debug_nans; the trace holds the ranges of
+            steps 2 and 3 only, the wave critic's and the generator's
+            spans of those two steps and their K1'/K1 kernel events, and
+            the three runs end in the same step-6 checkpoint to the bit.
+            Beside them a fresh state's checkpoint with one NaN in the
+            critic's conv_0 kernel, resumed for one step with debug_nans:
+            it must raise FloatingPointError naming K1' in the wave
+            critic, forward, reading D.conv_0_kernel. Then one healthy
+            flagship step under the check mode (every aten op and kernel
+            call tested): no NaN.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -192,9 +218,7 @@ from __future__ import annotations
 
 import base64
 import concurrent.futures
-import contextlib
 import dataclasses
-import functools
 import io
 import json
 import shutil
@@ -206,6 +230,7 @@ import time
 import urllib.error
 import urllib.request
 import wave
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -215,6 +240,7 @@ import torch.nn.functional as F
 # the step checks this script shares with tools/dp_check.py (parity bounds,
 # random batches, conv geometries and launch counts, states to the bit);
 # without the package beside it the script stops here
+from audiogan_tpu_torch.kernels import hooks
 from audiogan_tpu_torch.tools.step_checks import (
     PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS,
     compare_blobs, compute_dtype, conv_step_launches, cp_rank_layers,
@@ -222,6 +248,8 @@ from audiogan_tpu_torch.tools.step_checks import (
     generator_layers, hold_bf16_to_dp1, hold_launches, random_raw, same_bits,
     same_checkpoint, state_parts, tensor_core, tp_rank_layers,
     tp_step_launches)
+from audiogan_tpu_torch.utils.profiling import (SPAN_NAMES, profiler_spans,
+                                                span_device_ms)
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 64
@@ -1825,91 +1853,6 @@ def host_batcher_phase(cfg, dev, trained: dict) -> dict:
             "record": rec_b}
 
 
-# profiler ranges around the models' parts (innermost wins): the method
-# or module function each wraps while a step is profiled
-SPANS = (("generator", "audiogan_tpu_torch.models.wavegan",
-          "WaveGANGenerator.forward"),
-         ("generator", "audiogan_tpu_torch.models.gru",
-          "GRUGenerator.forward"),
-         ("wave_critic", "audiogan_tpu_torch.models.wavegan",
-          "WaveGANDiscriminator.forward"),
-         ("stft_critic", "audiogan_tpu_torch.models.stft_critic",
-          "STFTCritic.forward"),
-         ("stft_critic.spectrogram", "audiogan_tpu_torch.models.stft_critic",
-          "stft_magnitude"),
-         ("stft_critic.conv2d", "audiogan_tpu_torch.models.stft_critic",
-          "conv2d_same"),
-         ("stft_loss.spectrogram", "audiogan_tpu_torch.losses.stft_loss",
-          "stft_magnitude"))
-GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm")
-BACKWARD_NODE = "autograd::engine::evaluate_function: "
-
-
-@contextlib.contextmanager
-def profiler_spans():
-    """Each of SPANS wrapped in torch.profiler.record_function; the
-    originals are put back after."""
-    import importlib
-    from torch.profiler import record_function
-
-    def wrap(name, fn):
-        @functools.wraps(fn)
-        def spanned(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return spanned
-    saved = []
-    for name, module, attr in SPANS:
-        owner = importlib.import_module(module)
-        *path, leaf = attr.split(".")
-        for part in path:
-            owner = getattr(owner, part)
-        saved.append((owner, leaf, getattr(owner, leaf)))
-        setattr(owner, leaf, wrap(name, getattr(owner, leaf)))
-    try:
-        yield
-    finally:
-        for owner, leaf, fn in reversed(saved):
-            setattr(owner, leaf, fn)
-
-
-def span_device_ms(prof) -> dict:
-    """Device ms of the profiled kernels by span. A kernel counts to the
-    innermost span around the op that launched it; an op the autograd
-    engine runs in backward counts to the span of the forward op that
-    made its node (the same sequence number), and what that backward
-    records for a double backward inherits the span. Also the part of
-    each span that cuBLAS GEMMs (aten::mm, bmm, addmm) took: in the STFT
-    spans, the DFT matmuls."""
-    from torch.autograd import DeviceType
-    names = {name for name, _, _ in SPANS}
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CPU),
-                    key=lambda e: (e.time_range.start, -e.time_range.end))
-    span_of, seq_span = {}, {}
-    total, gemm = {}, {}
-    for e in events:
-        parent = span_of.get(id(e.cpu_parent))
-        backward = e.name.startswith(BACKWARD_NODE)
-        if e.name in names:
-            span = e.name
-        elif backward:
-            span = seq_span.get(e.sequence_nr, parent)
-        else:
-            span = parent
-        span_of[id(e)] = span
-        if span is not None and not backward and e.sequence_nr >= 0:
-            seq_span.setdefault(e.sequence_nr, span)
-        ms = sum(k.duration for k in e.kernels) / 1e3
-        if ms:
-            key = span or "rest"
-            total[key] = total.get(key, 0.0) + ms
-            if e.name in GEMM_OPS:
-                gemm[key] = gemm.get(key, 0.0) + ms
-    return {k: {"ms": v, "gemm_ms": gemm.get(k, 0.0)}
-            for k, v in sorted(total.items(), key=lambda kv: -kv[1])}
-
-
 def profile_step(cfg, dev, state) -> dict:
     """One more training step under torch.profiler: the device time of the
     step by kernel (device events only: an op's own entry repeats the time
@@ -1929,10 +1872,9 @@ def profile_step(cfg, dev, state) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    spans = {name for name, _, _ in SPANS}
     for e in prof.key_averages():
         # a span also shows as a device-side range around its kernels
-        if e.device_type != DeviceType.CUDA or e.key in spans:
+        if e.device_type != DeviceType.CUDA or e.key in SPAN_NAMES:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2155,6 +2097,188 @@ def resume_phase() -> dict:
         c["workdir"] = str(c["workdir"].relative_to(ROOT))
     return {"steps": RESUME_STEPS, "killed_after": RESUME_KILL_AT,
             "cases": cases}
+
+
+# -- graph and trace: the loop's tracing options -------------------------------
+
+# the kernel counters' names -> the kernel hook's (kernels/hooks.py)
+HOOK_NAMES = {k.counter: hooks.label(w) for w, k in hooks.KERNELS.items()}
+
+
+def graph_phase(cfg, dev, want: dict, tag: str) -> dict:
+    """train.loop.train with train.dump_hlo on and no step to run: the
+    step the loop runs first (the resident corpus, data.index_chunk at its
+    default) captured as one CUDA graph, replayed once from the pre-step
+    state and held to the eager step from the same state and draws to the
+    bit (train/step_graph.py). Each port kernel's kernel nodes must equal
+    its calls during the capture, and ``want`` (the launches the step's
+    structure gives)."""
+    from audiogan_tpu_torch.train.loop import train
+    from audiogan_tpu_torch.train.step_graph import DOT_FILE, read_summary
+    workdir = ROOT / "build" / f"chip_smoke_graph_{tag}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    c = cfg.replace(train=dataclasses.replace(cfg.train, dump_hlo=True))
+    t0 = time.time()
+    train(c, workdir, 0, device=dev, log=lambda _: None, tensorboard=False)
+    seconds = time.time() - t0
+    s = read_summary(workdir)
+    if not s["replay_equals_eager"]:
+        raise AssertionError(f"{tag}: the replay differs from the eager "
+                             f"step in {s['replay_differs_in']}")
+    port = s["port_kernels"]
+    for name, rec in port.items():
+        if rec["kernel_nodes"] != rec["calls"]:
+            raise AssertionError(f"{tag}: {name} made {rec['kernel_nodes']}"
+                                 f" kernel nodes in {rec['calls']} calls")
+    for key, n in want.items():
+        got = port.get(HOOK_NAMES[key], {}).get("kernel_nodes", 0)
+        if got != n:
+            raise AssertionError(f"{tag}: {HOOK_NAMES[key]} has {got} "
+                                 f"kernel nodes in the graph, want {n}")
+    torch.cuda.empty_cache()
+    return {"preset": cfg.name, "tag": tag, "nodes": s["nodes"],
+            "by_kind": s["by_kind"], "port_kernels": port,
+            "capture_seconds": s["capture_seconds"],
+            "dump_seconds": seconds,
+            "tensors_compared": s["tensors_compared"],
+            "replay_equals_eager": True,
+            "inputs_copied_to_device": s["inputs_copied_to_device"],
+            "dot_bytes": (workdir / DOT_FILE).stat().st_size}
+
+
+def graph_phases(cfg, fcfg, gcfg, dcfg, mcfg, rcfg, dev) -> dict:
+    """graph_phase for each preset, the fused flagship and music at dp=1:
+    K1' and K1 held to the step's structure (conv_step_launches; the GRU
+    G's to its calls), K6 and K7 to fused_step_launches, K4 6 and K5 1,
+    K2 one per real view (none for resample_22k)."""
+    from audiogan_tpu_torch.train.step import num_views
+
+    def convs(c):
+        n = conv_step_launches(c)
+        return {"conv1d": n["conv1d"], "convt1d": n["convt1d"]}
+    k6, k7 = fused_step_launches(fcfg)
+    runs = [(cfg, {**convs(cfg), "ingest": num_views(cfg)}, cfg.name),
+            (fcfg, {**convs(fcfg), "sconv1d": k6, "sconvt1d": k7,
+                    "ingest": num_views(fcfg)}, cfg.name + "_fused"),
+            (gcfg, {"gru_scan": 1 + gcfg.loss.n_critic, "gru_scan_bwd": 1,
+                    "ingest": num_views(gcfg)}, gcfg.name),
+            (dcfg, {**convs(dcfg), "ingest": num_views(dcfg)}, dcfg.name),
+            (mcfg, {**convs(mcfg), "ingest": num_views(mcfg)}, mcfg.name),
+            (rcfg, {**convs(rcfg), "ingest": 0}, rcfg.name)]
+    return {"presets": [graph_phase(c, dev, want, tag)
+                        for c, want, tag in runs]}
+
+
+TRACE_WINDOW = (2, 4)        # train.profile_steps of the trace phase
+
+
+def trace_cmd(workdir: Path, steps: int, *sets) -> list[str]:
+    cmd = cli_cmd("train", "--preset", "wgan_gp_b64", "--total_steps",
+                  steps, "--set", f"train.ckpt_every={RESUME_KILL_AT}",
+                  "--set", "train.log_every=1", "--no_tensorboard",
+                  "--workdir", workdir)
+    for item in sets:
+        cmd += ["--set", item]
+    return cmd
+
+
+def read_trace(path: Path, cfg) -> dict:
+    """The profiled run's trace: its steps' ranges, the model parts' spans
+    (host ranges) and the K1/K1' kernel events; each held to the window's
+    two steps."""
+    events = json.loads(path.read_text())["traceEvents"]
+    host = Counter(e["name"] for e in events
+                   if e.get("cat") == "user_annotation")
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    conv = sum(any(f in k for f in ("igemm_kernel", "conv1d_tile_kernel",
+                                    "convt1d_tile_kernel"))
+               for k in kernels)
+    steps = sorted(k for k in host if k.startswith("train_step "))
+    window = [f"train_step {s}" for s in range(*TRACE_WINDOW)]
+    views = 1 if cfg.train.fused_d_views else 2
+    n = cfg.loss.n_critic
+    per_step = {"wave_critic": n * (views + cfg.loss.gp_batch_chunks) + 1,
+                "generator": n + 1}
+    launches = conv_step_launches(cfg)
+    want_conv = (launches["conv1d"] + launches["convt1d"]) * len(window)
+    if steps != window or any(host[k] != v * len(window)
+                              for k, v in per_step.items()) \
+            or conv != want_conv:
+        raise AssertionError(f"trace: steps {steps} (want {window}), spans "
+                             f"{dict(host)} (want {per_step} per step), "
+                             f"{conv} K1/K1' kernel events (want "
+                             f"{want_conv})")
+    return {"steps": steps, "spans": {k: host[k] for k in per_step},
+            "kernel_events": len(kernels), "k1_k1prime_events": conv,
+            "bytes": path.stat().st_size}
+
+
+def poisoned_run(cfg, base: Path) -> dict:
+    """A fresh flagship state with one NaN in the critic's conv_0 kernel,
+    saved as the step-0 checkpoint of a workdir, then `cli train
+    --total_steps 1` with debug_nans resumed from it: it must raise
+    FloatingPointError naming K1' in the wave critic, forward."""
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.utils import checkpoint as ckpt_lib
+    workdir = base / "poisoned"
+    state = create_train_state(cfg, device="cpu")
+    with torch.no_grad():
+        state.d.conv_0_kernel[0, 0, 0] = float("nan")
+    ckpt_lib.save(ckpt_lib.make_manager(workdir, config=cfg), state)
+    t0 = time.time()
+    proc = subprocess.run(trace_cmd(workdir, 1, "train.debug_nans=true"),
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    err = [ln for ln in proc.stderr.splitlines()
+           if ln.startswith("FloatingPointError")]
+    if proc.returncode == 0 or not err or "K1' conv1d_ba" not in err[-1] \
+            or "wave_critic, forward" not in err[-1] \
+            or "D.conv_0_kernel" not in err[-1]:
+        raise AssertionError(f"the poisoned run: exit {proc.returncode}, "
+                             f"{proc.stderr[-3000:]}")
+    return {"error": err[-1], "seconds": time.time() - t0}
+
+
+def trace_phase(cfg, dev) -> dict:
+    """The flagship's `cli train` for RESUME_STEPS steps three ways at
+    once: plain, with train.profile_dir (profile_steps TRACE_WINDOW) and
+    with train.debug_nans; the trace holds the window's steps, spans and
+    K1/K1' kernels, and all three end in the same checkpoint to the bit.
+    Beside them ``poisoned_run``. Last, one healthy flagship step under
+    the check mode (train/debug_nans.py): no op may make a NaN."""
+    from audiogan_tpu_torch.train.debug_nans import nan_check
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step, num_views
+    base = ROOT / "build" / "chip_smoke_trace"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    runs = {"plain": (), "profiled": (
+        f"train.profile_dir={base / 'trace'}",
+        f"train.profile_steps=[{TRACE_WINDOW[0]},{TRACE_WINDOW[1]}]"),
+        "debug_nans": ("train.debug_nans=true",)}
+    with concurrent.futures.ThreadPoolExecutor(len(runs) + 1) as pool:
+        poisoned = pool.submit(poisoned_run, cfg, base)
+        done = dict(zip(runs, pool.map(
+            lambda kv: run_cli(trace_cmd(base / kv[0], RESUME_STEPS,
+                                         *kv[1])), runs.items())))
+        poisoned = poisoned.result()
+    last = f"ckpt/{RESUME_STEPS}.pt"
+    equal = {k: same_checkpoint(base / "plain" / last, base / k / last)
+             for k in ("profiled", "debug_nans")}
+    trace = read_trace(base / "trace" / "trace_rank0.json", cfg)
+    state = create_train_state(cfg, device=dev)
+    step = build_train_step(cfg, dev)
+    raw, labels = random_raw(cfg, num_views(cfg), cfg.train.batch_size, 12)
+    check = nan_check(state)
+    t0 = time.time()
+    with torch.autograd.set_detect_anomaly(True, check_nan=False), check:
+        step(state, raw.to(dev), labels.to(dev))
+    if check.first is not None:
+        raise AssertionError(f"a healthy step made a NaN: {check.first}")
+    return {"run_seconds": {k: v[1] for k, v in done.items()},
+            "checkpoints_equal_plain": equal, "trace": trace,
+            "poisoned": poisoned,
+            "healthy_step_under_check_s": time.time() - t0}
 
 
 # -- timing ---------------------------------------------------------------------
@@ -2747,6 +2871,15 @@ def main() -> int:
     tp_run = axis_phase("tp", [(cfg, PARITY_SEEDS, (), True),
                                (gcfg, (80,), (), True)], dev)
     phase("tp", t0, card=card, **tp_run)
+
+    # 6f. one step of each preset captured as one CUDA graph ---------------
+    t0 = time.time()
+    phase("graph", t0, card=card, **graph_phases(cfg, fcfg, gcfg, dcfg, mcfg,
+                                                 rcfg, dev))
+
+    # 6g. the loop's trace and NaN check -------------------------------------
+    t0 = time.time()
+    phase("trace", t0, card=card, **trace_phase(cfg, dev))
 
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()

@@ -1126,3 +1126,65 @@ def test_music_geometry_count():
         if not ok:
             tc.append(name)
     assert sorted(tc) == ["D0", "D0 dx", "G4", "G4 dx"]
+
+
+def _graph_case(preset: str, sets: list, device, batch: int = 4):
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.tools.step_checks import random_raw
+    from audiogan_tpu_torch.train.state import create_train_state
+    from audiogan_tpu_torch.train.step import build_train_step, num_views
+    cfg = apply_overrides(get_preset(preset),
+                          [f"train.batch_size={batch}", *sets]).validate()
+    state = create_train_state(cfg, device=device)
+    raw, labels = random_raw(cfg, num_views(cfg), batch, 3)
+    return (cfg, state, build_train_step(cfg, device),
+            (raw.to(device), labels.to(device)))
+
+
+@pytest.mark.parametrize("preset,sets", [
+    ("wgan_gp_b64", ["train.dtype=float32"]), ("wgan_gp_b64", []),
+    ("wgan_gp_b64", ["model.fused_shuffle_sites=-1"]),
+    ("cond_gru_sc09", [])], ids=["f32", "bf16", "fused_sites", "gru"])
+def test_captured_step_replays_the_eager_step_to_the_bit(
+        cuda_device, tmp_path, preset, sets):
+    """train/step_graph.py at batch 4: one step captured as one CUDA graph
+    and replayed from the pre-step state equals the eager step from the
+    same state and draws to the bit (parameters, both Adams' moments,
+    metrics), and each kernel call of the port is one kernel node."""
+    from audiogan_tpu_torch.train.step_graph import DOT_FILE, dump_step
+    cfg, state, step, args = _graph_case(preset, sets, cuda_device)
+    summary = dump_step(cfg, state, step, args, tmp_path, cuda_device,
+                        say=lambda _: None)
+    assert summary["replay_equals_eager"], summary["replay_differs_in"]
+    assert summary["tensors_compared"] > 0
+    for name, rec in summary["port_kernels"].items():
+        assert rec["kernel_nodes"] == rec["calls"] > 0, name
+    if preset == "cond_gru_sc09":
+        assert summary["port_kernels"]["K4 gru_scan_fwd"]["calls"] == 6
+        assert summary["port_kernels"]["K5 gru_scan_bwd"]["calls"] == 1
+    assert (tmp_path / DOT_FILE).stat().st_size > 0
+
+
+def test_dump_leaves_the_loop_state_as_it_was(cuda_device, tmp_path):
+    """dump_step works on a copy: the state it is given keeps every
+    parameter, moment, Adam count and its step, to the bit, after a dump
+    at step 1 (Adam's state made)."""
+    from audiogan_tpu_torch.train.state import state_tensors
+    from audiogan_tpu_torch.train.step_graph import dump_step
+    cfg, state, step, args = _graph_case("wgan_gp_b64", [], cuda_device)
+    step(state, *args)
+
+    def seen():
+        counts = [float(st["step"]) for opt in (state.opt_g, state.opt_d)
+                  for st in opt.state.values()]
+        return ({k: v.detach().clone() for k, v in
+                 state_tensors(state).items()}, counts, state.step)
+    before = seen()
+    dump_step(cfg, state, step, args, tmp_path, cuda_device,
+              say=lambda _: None)
+    after = seen()
+    assert after[1:] == before[1:] == (after[1], 1)
+    assert after[0].keys() == before[0].keys()
+    for k, v in before[0].items():
+        assert torch.equal(v, after[0][k]), k
