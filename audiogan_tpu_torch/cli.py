@@ -285,7 +285,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.cmd == "build-corpus":
         from audiogan_tpu_torch.data.corpus import build_corpus
-        print(build_corpus(args.wav_dir, args.out_dir, args.store_len))
+        print(build_corpus(args.wav_dir, args.out_dir, args.store_len,
+                           say=lambda s: print(s, file=sys.stderr)))
         return 0
 
     if args.cmd == "train":
@@ -300,7 +301,8 @@ def main(argv: list[str] | None = None) -> int:
         if args.data_dir is not None:
             cfg = cfg.replace(data=dataclasses.replace(
                 cfg.data, data_dir=args.data_dir))
-        check_ported(cfg.validate())       # before the card is touched
+        # before the card is touched
+        check_ported(cfg.validate(), args.device)
         try:
             train(cfg, args.workdir, resume=not args.no_resume,
                   device=resolve_device(args.device),

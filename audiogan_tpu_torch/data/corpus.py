@@ -1,15 +1,17 @@
 """Packed int16 corpus, the deterministic index stream and the host
-batcher, the port of audiogan_tpu/data/corpus.py (numpy path only).
+batcher, the port of audiogan_tpu/data/corpus.py.
 
 ``build_corpus`` decodes every wav once into ``clips.npy`` (int16
 [N, store_len]), ``labels.npy`` (int32 [N]) and ``meta.json``, in the
 same format as the JAX package, so either package reads the other's
-corpus. ``batch_indices`` is the reference's ``HostBatcher._indices``:
-the same numpy generator seeded with (seed, step), so the index stream
-is bit-identical to the reference's. ``HostBatcher`` gathers a step's
-clips on the host from that stream, with a prefetch thread; its gather
-is numpy's fancy index (the reference's native C++ gather gives the same
-bytes and is not ported).
+corpus. It decodes through the native decoder (data/native.py), and a
+file the decoder does not support through the numpy codec, which gives
+the same bytes where both read a file. ``batch_indices`` is the
+reference's ``HostBatcher._indices``: the same numpy generator seeded
+with (seed, step), so the index stream is bit-identical to the
+reference's. ``HostBatcher`` gathers a step's clips on the host from that
+stream with the native threaded row gather (data/native.py::gather_rows,
+numpy's ``clips[idx]`` byte for byte), with a prefetch thread.
 """
 
 from __future__ import annotations
@@ -17,20 +19,28 @@ from __future__ import annotations
 import json
 import queue
 import threading
+from collections import Counter
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
-from audiogan_tpu_torch.data.wavio import read_wav
+from audiogan_tpu_torch.data import native
 
 PREFETCH = 2             # batches the prefetch thread samples ahead
 
 
+def _quiet(_: str) -> None:
+    pass
+
+
 def build_corpus(wav_dir: str | Path, out_dir: str | Path, store_len: int,
-                 source_rate: int | None = None) -> Path:
+                 source_rate: int | None = None,
+                 say: Callable[[str], None] = _quiet) -> Path:
     """Pack a directory tree of wavs; labels from an integer parent
     directory name (SC09 layout), else -1. Clips are center-cropped or
-    zero-padded to store_len at their native rate; one rate per corpus."""
+    zero-padded to store_len at their native rate; one rate per corpus.
+    ``say`` gets one line: how many files each codec decoded."""
     wav_dir, out_dir = Path(wav_dir), Path(out_dir)
     paths = sorted(wav_dir.rglob("*.wav"))
     if not paths:
@@ -38,13 +48,14 @@ def build_corpus(wav_dir: str | Path, out_dir: str | Path, store_len: int,
     clips = np.zeros((len(paths), store_len), dtype=np.int16)
     labels = np.full((len(paths),), -1, dtype=np.int32)
     rate = source_rate
+    codecs: Counter = Counter()
     for i, p in enumerate(paths):
-        r, x = read_wav(p)
-        n = min(len(x), store_len)
-        off = max((len(x) - store_len) // 2, 0)
-        # scale by 32768 so int16 sources pass through bit-exactly
-        clips[i, :n] = np.clip(np.rint(x[off:off + n] * 32768.0),
-                               -32768, 32767).astype(np.int16)
+        data = p.read_bytes()
+        decoded = native.decode_to_store(data, store_len)
+        codecs["native" if decoded is not None else "numpy"] += 1
+        # a format the native decoder does not support: the numpy codec
+        r, clips[i] = (decoded if decoded is not None else
+                       native.decode_to_store_plain(data, store_len, p))
         if rate is None:
             rate = r
         elif r != rate:
@@ -59,6 +70,8 @@ def build_corpus(wav_dir: str | Path, out_dir: str | Path, store_len: int,
         "source_rate": rate,
         "num_classes": int(labels.max() + 1) if labels.max() >= 0 else 0,
     }))
+    say(f"[corpus] {len(paths)} files decoded: native {codecs['native']}, "
+        f"numpy {codecs['numpy']}")
     return out_dir
 
 
@@ -94,8 +107,9 @@ def index_row(step: int, idx, labels, chunk: int):
 class HostBatcher:
     """Deterministic (seed, step) -> batch sampler with optional prefetch.
 
-    ``get(step)`` returns (clips int16 [n_views, B, store_len], labels
-    int32 [n_views, B]), or with ``indices_only`` (idx int32 [n_views,
+    ``get(step)`` returns (clips int16 [n_views, B, store_len], gathered
+    by the native row gather, labels int32 [n_views, B]), or with
+    ``indices_only`` (idx int32 [n_views,
     B], labels): the resident-corpus step gathers on the device from the
     same index stream, so both modes train to the same bits. ``rows``
     (a data-parallel rank's slice of the batch axis) keeps only those
@@ -126,19 +140,24 @@ class HostBatcher:
         labels = np.ascontiguousarray(self.corpus.labels[idx])
         if self.indices_only:
             return idx.astype(np.int32), labels
-        return np.ascontiguousarray(self.corpus.clips[idx]), labels
+        return native.gather_rows(self.corpus.clips, idx), labels
 
     def start_prefetch(self, first_step: int, last_step: int) -> None:
         """A thread samples steps [first_step, last_step) ahead into a
-        queue of PREFETCH batches, then None."""
+        queue of PREFETCH batches, then None; an error of the thread's
+        (a gather's) is raised by ``next_prefetched``."""
         self._q = queue.Queue(maxsize=PREFETCH)
         self._stop.clear()
 
         def worker():
-            for s in range(first_step, last_step):
-                if self._stop.is_set():
-                    return
-                self._q.put((s, self.get(s)))
+            try:
+                for s in range(first_step, last_step):
+                    if self._stop.is_set():
+                        return
+                    self._q.put((s, self.get(s)))
+            except BaseException as err:
+                self._q.put(err)
+                return
             self._q.put(None)
 
         self._thread = threading.Thread(target=worker, daemon=True)
@@ -147,7 +166,10 @@ class HostBatcher:
     def next_prefetched(self) -> tuple[int, tuple[np.ndarray, np.ndarray]] | None:
         if self._q is None:
             raise RuntimeError("call start_prefetch first")
-        return self._q.get()
+        item = self._q.get()
+        if isinstance(item, BaseException):
+            raise item
+        return item
 
     def close(self) -> None:
         """Stops the prefetch thread (it may be blocked on a full queue)."""

@@ -17,7 +17,12 @@ _EXTENSIBLE = 0xFFFE
 def read_wav(path: str | Path, mono: bool = True) -> tuple[int, np.ndarray]:
     """Read a RIFF wav file -> (sample_rate, float32 samples in [-1, 1]),
     shape [T] if mono else [T, C]."""
-    data = Path(path).read_bytes()
+    return decode_wav(Path(path).read_bytes(), path, mono)
+
+
+def decode_wav(data: bytes, path: str | Path = "<bytes>",
+               mono: bool = True) -> tuple[int, np.ndarray]:
+    """``read_wav`` of the file's bytes (``path`` names it in errors)."""
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
         raise ValueError(f"{path}: not a RIFF/WAVE file")
     pos, fmt, fmt_body, raw = 12, None, b"", None

@@ -11,7 +11,10 @@ from their owners:
     plan (host)   every rank draws the same global index set [V, B] from
                   (seed, step), so each knows, with no exchange, which
                   rank owns each clip of the step and which rank's rows
-                  it falls in
+                  it falls in; the loop makes it before the step
+                  (``plan_step``), its index tensors copied to the
+                  device, so the step itself makes no host copy and can
+                  be captured in a CUDA graph
     pack          each owner copies the clips it owns, grouped by the
                   rank that needs them, in global order within a group
     all_to_all    one all_to_all_single of those rows as bytes (uint8),
@@ -34,13 +37,13 @@ replica receives the replica's clips.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from audiogan_tpu_torch.data.corpus import index_row
 from audiogan_tpu_torch.parallel.mesh import DataMesh
 
 
@@ -97,45 +100,84 @@ def gather_plan(idx: np.ndarray, n_local: int, mesh: DataMesh
             np.bincount(owner[wanted], minlength=mesh.dp), place)
 
 
-def sharded_corpus_gather(local_clips: torch.Tensor, idx,
-                          mesh: DataMesh) -> torch.Tensor:
-    """This rank's share [n_local, L] int16 of the padded corpus and the
-    global step's indices [V, B] -> this rank's clips [V, b, L]. With
-    more than one rank ``idx`` lies on the host (the plan is host
-    arithmetic); with one it may lie on the device."""
-    n_local, length = local_clips.shape
-    v, batch = idx.shape
-    dev = local_clips.device
+@dataclass(frozen=True)
+class ShardPlan:
+    """One step's exchange, made on the host before the step
+    (``plan_step``): this rank's local rows to send (on the device), the
+    rows it sends to and receives from each rank (host ints, fixed for
+    the step), and for each of its positions the received row that holds
+    it (on the device); ``shape`` is (V, b). With one rank, ``send`` holds
+    the global indices and nothing is exchanged."""
+
+    send: torch.Tensor
+    n_send: list[int]
+    n_recv: list[int]
+    place: torch.Tensor | None
+    shape: tuple[int, int]
+
+
+def plan_step(idx, n_local: int, mesh: DataMesh,
+              device: torch.device) -> ShardPlan:
+    """The plan of the global step's indices idx [V, B] (host arithmetic;
+    its index tensors copied to ``device``). With one rank the plan is
+    the indices themselves, taken where they lie (a row of a resident
+    block on the device stays there)."""
     if not mesh.parallel:
-        flat = torch.as_tensor(idx).reshape(-1).to(dev, torch.long)
-        return local_clips[flat].reshape(v, batch, length)
-    send, n_send, n_recv, place = gather_plan(np.asarray(idx), n_local,
-                                              mesh)
-    out = local_clips[torch.from_numpy(send).to(dev)].view(torch.uint8)
+        idx = torch.as_tensor(idx)
+        return ShardPlan(idx.reshape(-1).to(device, torch.long), [], [],
+                         None, tuple(idx.shape))
+    idx = np.asarray(idx.cpu() if isinstance(idx, torch.Tensor) else idx)
+    v, batch = idx.shape
+    send, n_send, n_recv, place = gather_plan(idx, n_local, mesh)
+    return ShardPlan(torch.from_numpy(send).to(device), n_send.tolist(),
+                     n_recv.tolist(), torch.from_numpy(place).to(device),
+                     (v, batch // mesh.dp))
+
+
+def gather_planned(local_clips: torch.Tensor, plan: ShardPlan,
+                   mesh: DataMesh) -> torch.Tensor:
+    """This rank's clips [V, b, L] of the step that ``plan`` describes,
+    from its share [n_local, L] of the padded corpus: with no host copy
+    and no host sync on NCCL, so a captured step takes it (the split
+    sizes are fixed in the plan)."""
+    length = local_clips.shape[1]
+    if not mesh.parallel:
+        return local_clips[plan.send].reshape(*plan.shape, length)
+    out = local_clips[plan.send].view(torch.uint8)
+    dev = local_clips.device
     staged = dev.type != "cpu" and dist.get_backend(mesh.group) == "gloo"
     if staged:
         out = out.cpu()
-    got = out.new_empty(int(n_recv.sum()), out.shape[1])
-    dist.all_to_all_single(got, out, n_recv.tolist(), n_send.tolist(),
+    got = out.new_empty(sum(plan.n_recv), out.shape[1])
+    dist.all_to_all_single(got, out, plan.n_recv, plan.n_send,
                            group=mesh.group)
     got = got.to(dev).view(local_clips.dtype)
-    return got[torch.from_numpy(place).to(dev)].reshape(
-        v, batch // mesh.dp, length)
+    return got[plan.place].reshape(*plan.shape, length)
+
+
+def sharded_corpus_gather(local_clips: torch.Tensor, idx,
+                          mesh: DataMesh) -> torch.Tensor:
+    """This rank's share [n_local, L] int16 of the padded corpus and the
+    global step's indices [V, B] -> this rank's clips [V, b, L]: the plan
+    and the exchange in one call."""
+    plan = plan_step(idx, local_clips.shape[0], mesh, local_clips.device)
+    return gather_planned(local_clips, plan, mesh)
 
 
 def wrap_sharded_corpus(inner: Callable, mesh: DataMesh,
                         chunk: int = 0) -> Callable:
-    """(state, local_clips [n_local, L] int16 on the device, idx [V, B]
-    the global step's indices, labels [V, B], draws=None) -> metrics:
+    """(state, local_clips [n_local, L] int16 on the device, plan the
+    step's ShardPlan (``plan_step`` of its global indices [V, B], made by
+    the caller before the step), labels [V, B], draws=None) -> metrics:
     the step's clips gathered from their owners, this rank's rows of the
-    labels. With chunk > 0 idx and labels are blocks [chunk, V, B] and
-    the step takes its row at state.step % chunk
-    (data/corpus.py::index_row), as the reference's
-    ``wrap_device_corpus(inner, mesh, sharded=True, chunk)``."""
-    def step_fn(state, local_clips, idx, labels, draws=None):
+    labels. With chunk > 0 labels is a block [chunk, V, B] and the step
+    takes its row at state.step % chunk, as
+    the reference's ``wrap_device_corpus(inner, mesh, sharded=True,
+    chunk)``."""
+    def step_fn(state, local_clips, plan, labels, draws=None):
         if chunk:
-            idx, labels = index_row(state.step, idx, labels, chunk)
-        raw = sharded_corpus_gather(local_clips, idx, mesh)
+            labels = labels[state.step % chunk]
+        raw = gather_planned(local_clips, plan, mesh)
         return inner(state, raw, labels[:, mesh.rows(labels.shape[1])],
                      draws)
 

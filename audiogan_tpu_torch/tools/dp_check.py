@@ -37,9 +37,22 @@ replicated gather of the same clips. Then
 ``cli train`` at dp=4 under torchrun for each preset (steps/s of the
 timed window), and a dp=4 flagship run killed after its step-3
 checkpoint and resumed, against an uninterrupted one, to the bit
-(``--checks_only`` stops before ``cli train``; ``--presets`` picks the
-presets). Prints one JSON line per check and a summary line; ``--out``
+(``--checks_only`` stops before ``cli train``; ``--presets`` picks the presets, among them cond_gru_sc09
+(K4 and K5 per rank on the persistent path at B/dp) and
+wgan_gp_b64_fused, the flagship with every shuffle site fused, K6 and K7
+per rank). Prints one JSON line per check and a summary line; ``--out``
 keeps them.
+
+With ``--graph``, train.dump_hlo on a multi-process mesh instead:
+``cli train --set train.dump_hlo=true`` under torchrun for each of
+GRAPH_CASES (the flagship at dp=4 replicated, with mesh.fsdp and on the
+sharded corpus, music at dp=2 x cp=2, the flagship at dp=2 x tp=2,
+cond_gru_sc09 at dp=4), each rank capturing its step with its NCCL
+kernels (train/step_graph.py): every rank's replay equal to its eager
+step, its NCCL kernel nodes equal to its collectives and to
+tools/step_checks.py::step_collectives, and the run's step-2 record and
+checkpoint equal to a run without the dump, to the bit; each rank's node
+counts and capture seconds reported.
 
 With ``--tp``, tensor parallelism instead, on the four cards: for the
 flagship the f32 parity protocol at tp=4 (B=8, shuffle off,
@@ -114,7 +127,13 @@ COUNTERS = (("conv1d", "conv", "conv1d_ba", "launches"),
             ("sconv1d", "sconv", "sconv1d_ba", "launches"),
             ("sconvt1d", "sconv", "sconvt1d", "launches"),
             ("gru_scan", "gru", "gru_scan_fwd", "launches"),
-            ("gru_scan_bwd", "gru", "gru_scan_bwd", "launches"))
+            ("gru_scan_bwd", "gru", "gru_scan_bwd", "launches"),
+            ("sconv1d_tc", "sconv", "sconv1d_ba", "launches_tc"),
+            ("sconvt1d_tc", "sconv", "sconvt1d", "launches_tc"),
+            ("gru_scan_persistent", "gru", "gru_scan_fwd",
+             "launches_persistent"),
+            ("gru_scan_bwd_persistent", "gru", "gru_scan_bwd",
+             "launches_persistent"))
 
 
 def free_port() -> int:
@@ -518,7 +537,9 @@ JOBS = {"steps": steps_job, "train": train_job, "gather": gather_job,
 def run_jobs(dev, jobs: list[dict], out_dir: Path) -> None:
     rank = dist.get_rank()
     for job in jobs:
-        res = JOBS[job["fn"]](dev, **job.get("kw", {}))
+        fn = job["fn"]
+        res = (JOBS[fn] if isinstance(fn, str) else fn)(dev,
+                                                        **job.get("kw", {}))
         torch.save(res, out_dir / f"{job['name']}.{rank}.pt")
 
 
@@ -549,7 +570,8 @@ def spawn(world: int, jobs: list[dict], out_dir: str | Path,
           device: str = "cpu", backend: str = "gloo",
           timeout_s: float = CPU_TIMEOUT_S) -> dict[str, list]:
     """Runs ``jobs`` on ``world`` spawned ranks; {job name: [result of
-    rank 0, rank 1, ...]}."""
+    rank 0, rank 1, ...]}. A job's "fn" names one of JOBS or is a
+    module-level function ``fn(dev, **kw)`` that each rank imports."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     torch.multiprocessing.spawn(
@@ -563,6 +585,54 @@ def spawn(world: int, jobs: list[dict], out_dir: str | Path,
 # -- the script: four cards --------------------------------------------------
 
 PRESETS = ("wgan_gp_b64", "music_44k_dp16")
+# names for a preset with --set overrides: the flagship with every shuffle
+# site fused into its conv (K6, K7)
+ALIASES = {"wgan_gp_b64_fused": ("wgan_gp_b64",
+                                 ("model.fused_shuffle_sites=-1",))}
+DP_PRESETS = (*PRESETS, "cond_gru_sc09", "wgan_gp_b64_fused")
+
+
+def preset_sets(name: str) -> tuple[str, tuple[str, ...]]:
+    """(the preset, its --set overrides) of a name of --presets."""
+    return ALIASES.get(name, (name, ()))
+
+
+def preset_config(name: str, *sets: str):
+    """The config of a name of --presets, named so, with ``sets``."""
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    preset, own = preset_sets(name)
+    cfg = apply_overrides(get_preset(preset), [*own, *sets]).validate()
+    return cfg.replace(name=name)
+
+
+def step_launches(cfg) -> dict:
+    """Every kernel's launches per step of the preset's plain step at its
+    batch on one rank, from the step's structure: K1'/K1
+    (``conv_step_launches``), K2 per real view, K6/K7 with fused sites
+    (``fused_step_launches``, all on the tensor cores in bf16), K4 per G
+    forward and K5 once with the GRU G, on the persistent path where
+    ``gru_scan_persistent`` holds at this batch."""
+    from audiogan_tpu_torch.kernels.gru import gru_scan_persistent
+    from audiogan_tpu_torch.tools.step_checks import (compute_dtype,
+                                                      fused_step_launches)
+    from audiogan_tpu_torch.train.step import num_views
+    out = {**conv_step_launches(cfg), "ingest": num_views(cfg)}
+    m = cfg.model
+    if m.fused_shuffle_sites:
+        k6, k7 = fused_step_launches(cfg)
+        tc = compute_dtype(cfg) == torch.bfloat16
+        out.update(sconv1d=k6, sconvt1d=k7, sconv1d_tc=k6 * tc,
+                   sconvt1d_tc=k7 * tc)
+    if m.generator == "gru":
+        n = cfg.loss.n_critic
+        b = cfg.train.batch_size // cfg.mesh.dp
+        on = gru_scan_persistent(compute_dtype(cfg), b, m.gru_hidden,
+                                 min(4 * m.model_dim, 512))
+        out.update(gru_scan=n + 1, gru_scan_bwd=1,
+                   gru_scan_persistent=(n + 1) * on,
+                   gru_scan_bwd_persistent=int(on))
+    return out
 F32_BATCH = 8            # 2 rows per rank at dp=4
 RATE_STEPS, RATE_LOG = 30, 10      # cli train: the rate of steps 11-30
 RESUME_STEPS, RESUME_KILL_AT = 6, 3
@@ -762,9 +832,7 @@ def preset_checks(cfg, dev, out: Path) -> dict | None:
     if len({d for ds in digests.values() for d in ds}) != 1:
         raise AssertionError(f"{cfg.name} bf16: states differ {digests}")
     launches = _gather(runs["a"]["launches"])
-    hold_launches(launches, {**conv_step_launches(cfg),
-                             "ingest": num_views(cfg)}, len(bf_batches),
-                  cfg.name)
+    hold_launches(launches, step_launches(cfg), len(bf_batches), cfg.name)
     rows = runs["fsdp"]["moment_rows"]
     if not any(kept * world == n for kept, n in rows.values()):
         raise AssertionError(f"ZeRO-1 kept whole moments: {rows}")
@@ -1008,8 +1076,6 @@ def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
     that fails exits at once, without the group's teardown: it would wait
     for ranks still in a collective, and torchrun ends the others when
     one exits."""
-    from audiogan_tpu_torch.cli import apply_overrides
-    from audiogan_tpu_torch.config import get_preset
     from audiogan_tpu_torch.device import resolve_device
     dev = resolve_device(None)
     maybe_initialize_distributed(dev, "nccl", WORKER_TIMEOUT_S)
@@ -1018,8 +1084,7 @@ def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
     world = dist.get_world_size()
     try:
         for name in presets:
-            cfg = apply_overrides(get_preset(name),
-                                  [f"mesh.dp={world}"]).validate()
+            cfg = preset_config(name, f"mesh.dp={world}")
             t0 = time.time()
             one = cfg.replace(mesh=dataclasses.replace(cfg.mesh, dp=1))
             if cp:
@@ -1097,10 +1162,12 @@ def rate(preset: str, ranks: int, workdir: Path, cp: int = 1,
     """cli train of the preset at dp = ranks / (cp tp), cp and tp
     (torchrun; one plain process on card 0 at 1): steps/s of steps
     RATE_LOG + 1 to RATE_STEPS."""
+    base, own = preset_sets(preset)
     sets = [*_mesh_sets(ranks, cp, tp),
             "--set", f"train.log_every={RATE_LOG}", "--set",
-            "train.ckpt_every=0", "--set", "train.sample_every=0"]
-    args = _cli("--preset", preset, "--total_steps", RATE_STEPS,
+            "train.ckpt_every=0", "--set", "train.sample_every=0",
+            *[a for item in own for a in ("--set", item)]]
+    args = _cli("--preset", base, "--total_steps", RATE_STEPS,
                 "--workdir", workdir, *sets)
     if ranks == 1:
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
@@ -1213,13 +1280,120 @@ def kill_and_resume(ranks: int, base: Path, preset: str = "wgan_gp_b64",
                         "resumed": r_s}, "w_dist": rb["w_dist"]}
 
 
+# --graph: (name, dp, cp, tp, --set overrides) of each mesh whose step
+# cli train captures with train.dump_hlo on four ranks
+GRAPH_CASES = (
+    ("wgan_gp_b64", 4, 1, 1, ()),
+    ("wgan_gp_b64", 4, 1, 1, ("mesh.fsdp=true",)),
+    ("wgan_gp_b64", 4, 1, 1, ("data.device_corpus_shard=shard",)),
+    ("music_44k_dp16", 2, 2, 1, ()),
+    ("wgan_gp_b64", 2, 1, 2, ()),
+    ("cond_gru_sc09", 4, 1, 1, ()))
+GRAPH_STEPS = 2
+
+
+def graph_case(name: str, dp: int, cp: int, tp: int, sets: tuple,
+               base: Path, plain: Path | None = None) -> dict:
+    """``cli train --set train.dump_hlo=true`` of the preset on the mesh
+    under torchrun for GRAPH_STEPS steps, and (unless ``plain`` holds
+    one already) the same run without the dump: every rank's replay
+    equal to its eager step, its NCCL kernel nodes equal to its
+    collectives and to ``step_collectives``, the ranks' collectives
+    equal (dump_step raises otherwise), and the runs' last records and
+    checkpoints equal to the bit. Rank 0's step_graph.txt summary per
+    rank (node counts by kind, NCCL nodes by collective, capture
+    seconds)."""
+    from audiogan_tpu_torch.tools.step_checks import step_collectives
+    from audiogan_tpu_torch.train.step_graph import read_summary
+    ranks = dp * cp * tp
+    tag = "_".join([name, f"dp{dp}", f"cp{cp}", f"tp{tp}",
+                    *[x.split("=")[0].split(".")[-1] for x in sets]])
+
+    def cmd(workdir, dump):
+        extra = [*sets, f"train.dump_hlo={str(dump).lower()}",
+                 f"train.ckpt_every={GRAPH_STEPS}", "train.log_every=1",
+                 "train.sample_every=0"]
+        return _torchrun(ranks, *_cli(
+            "--preset", name, "--total_steps", GRAPH_STEPS,
+            *_mesh_sets(ranks, cp, tp),
+            *[a for item in extra for a in ("--set", item)],
+            "--workdir", workdir))
+    dumped = base / f"{tag}_dump"
+    _, secs = _run(cmd(dumped, True), base / f"{tag}_dump_run")
+    if plain is None:
+        plain = base / f"{tag}_plain"
+        _run(cmd(plain, False), base / f"{tag}_plain_run")
+    summary = read_summary(dumped)
+    per_rank = summary["ranks"]
+    expected = step_collectives(
+        preset_config(name, *sets, f"mesh.dp={dp}", f"mesh.cp={cp}",
+                      f"mesh.tp={tp}"), summary["sharded_corpus"])
+    for r, rec in enumerate(per_rank):
+        if not rec["replay_equals_eager"]:
+            raise AssertionError(f"{tag} rank {r}: the replay differs in "
+                                 f"{rec['replay_differs_in']}")
+        if not (rec["nccl_kernel_nodes"] == rec["collectives"]
+                == expected):
+            raise AssertionError(
+                f"{tag} rank {r}: NCCL nodes {rec['nccl_kernel_nodes']}, "
+                f"collectives {rec['collectives']}, the structure's "
+                f"{expected}")
+    ra, rb = (_records(w)[GRAPH_STEPS] for w in (dumped, plain))
+    keys = sorted(k for k in ra if k != "time" and "per_sec" not in k)
+    if any(ra[k] != rb.get(k) for k in keys):
+        raise AssertionError(f"{tag}: step {GRAPH_STEPS} differs from the "
+                             f"run without the dump: {ra} != {rb}")
+    last = f"ckpt/{GRAPH_STEPS}.pt"
+    tensors = same_checkpoint(dumped / last, plain / last)
+    return {"case": tag, "preset": name, "dp": dp, "cp": cp, "tp": tp,
+            "sets": list(sets), "ranks": ranks,
+            "nodes": [r["nodes"] for r in per_rank],
+            "by_kind": [r["by_kind"] for r in per_rank],
+            "nccl_kernel_nodes": [r["nccl_kernel_nodes"] for r in per_rank],
+            "collectives_expected": expected,
+            "capture_seconds": [r["capture_seconds"] for r in per_rank],
+            "replay_equals_eager": [r["replay_equals_eager"]
+                                    for r in per_rank],
+            "tensors_compared": per_rank[0]["tensors_compared"],
+            "counts_agree_across_ranks": summary[
+                "counts_agree_across_ranks"],
+            "port_kernels_rank0": summary["port_kernels"],
+            "later_steps_equal": {"record_keys": keys,
+                                  "checkpoint_tensors": tensors},
+            "dump_run_seconds": secs}
+
+
+def graph_checks(base: Path, names: list[str]) -> list[dict]:
+    """``graph_case`` of each GRAPH_CASES entry whose preset is in
+    ``names``; the flagship's dp=4 cases share one run without the dump
+    (ZeRO-1 and the sharded corpus train the replicated bits). A case
+    that fails is reported and the next one runs."""
+    out, plain = [], {}
+    for name, dp, cp, tp, sets in GRAPH_CASES:
+        if name not in names:
+            continue
+        key = (name, dp, cp, tp)
+        t0 = time.time()
+        try:
+            rep = graph_case(name, dp, cp, tp, sets, base, plain.get(key))
+            plain.setdefault(key, base / f"{rep['case']}_plain")
+        except Exception as err:           # noqa: BLE001 - reported
+            rep = {"preset": name, "dp": dp, "cp": cp, "tp": tp,
+                   "sets": list(sets), "failed": f"{type(err).__name__}: "
+                                                 f"{err}"[-3000:]}
+        rep["seconds"] = time.time() - t0
+        print(json.dumps({"graph": rep}), flush=True)
+        out.append(rep)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/dp_check/results",
                     help="where dp_check.jsonl goes (relative to the repo)")
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--presets", nargs="+",
-                    choices=sorted({*PRESETS, *TP_PRESETS}),
+                    choices=sorted({*DP_PRESETS, *TP_PRESETS}),
                     help="the presets to check (default: the mode's)")
     ap.add_argument("--checks_only", action="store_true",
                     help="only the in-process checks: no cli train rates, "
@@ -1238,6 +1412,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="one full-width flagship step at dp=2 x cp=2 and "
                          "dp=2 x tp=2, each with and without mesh.fsdp: "
                          "every metric finite (alone: only this)")
+    ap.add_argument("--graph", action="store_true",
+                    help="only train.dump_hlo on four ranks: cli train "
+                         "captures each rank's step for the flagship at "
+                         "dp=4 (replicated, mesh.fsdp, sharded corpus), "
+                         "music at dp=2 x cp=2, the flagship at dp=2 x "
+                         "tp=2 and cond_gru_sc09 at dp=4, each held to a "
+                         "run without the dump")
     ap.add_argument("--worker", action="store_true",
                     help="one rank under torchrun (internal)")
     args = ap.parse_args(argv)
@@ -1245,6 +1426,7 @@ def main(argv: list[str] | None = None) -> int:
     # workdirs and checkpoints: build/, which neither git nor the chip
     # tool's output directory takes
     work = ROOT / "build" / "dp_check"
+    graph_names = args.presets or sorted({c[0] for c in GRAPH_CASES})
     if args.cp:
         args.presets = ["music_44k_dp16"]
     elif args.presets is None:
@@ -1280,6 +1462,13 @@ def main(argv: list[str] | None = None) -> int:
         list(pool.map(_build.build, ("convt1d", "conv1d", "ingest",
                                      "gru_scan", "sconv", "gru_cell")))
     show("build_seconds", time.time() - t0)
+    if args.graph:
+        show("graph", graph_checks(work / "graph", graph_names))
+        (out / "dp_check.jsonl").write_text("\n".join(emit) + "\n")
+        failed = [g["preset"] for g in results["graph"] if "failed" in g]
+        print(json.dumps({"ok": not failed, "failed": failed,
+                          "cards": card}), flush=True)
+        return 1 if failed else 0
     flags = [f"--{f}" for f in ("cp", "tp", "dryrun") if getattr(args, f)]
     lines, secs = _run(_torchrun(args.ranks, "-m",
                                  "audiogan_tpu_torch.tools.dp_check",

@@ -1,13 +1,15 @@
 """What chip_smoke.py and tools/dp_check.py both hold a training step
 to: the parity bounds of a step against a reference step, random global
 batches, the conv geometries a WaveGAN step runs and the K1/K1' launches
-its structure gives, and comparisons of states and checkpoints to the
+its structure gives, the collectives a step issues on each rank of a mesh
+(``step_collectives``), and comparisons of states and checkpoints to the
 bit. Imports nothing of chip_smoke.py, so both the script and the
 package's tools use one copy.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -174,6 +176,19 @@ def conv_step_launches(cfg, critic_f32: bool = False) -> dict:
     return counts
 
 
+def fused_step_launches(cfg) -> tuple[int, int]:
+    """(K6, K7) launches of one training step with every site fused: per
+    critic micro-step, with V critic calls on the views (1 for the fused
+    2B call, else 2), K6 (V + 2) x sites (the views' forwards, x-hat's
+    forward, the penalty's double backprop: d/dct of K7 is K6) and K7
+    (V + 1) x sites (the penalty's input gradient, the loss's backward
+    through the views); the G update one of each per site."""
+    sites = len(cfg.model.strides) - 1
+    views = 1 if cfg.train.fused_d_views else 2
+    n_critic = cfg.loss.n_critic
+    return ((n_critic * (views + 2) + 1) * sites,
+            (n_critic * (views + 1) + 1) * sites)
+
 
 def cp_rank_layers(cfg, batch: int, cp: int) -> tuple[list[dict], list[dict]]:
     """(K1, K1') geometries one rank of a cp group runs
@@ -275,6 +290,187 @@ def tp_step_launches(cfg) -> dict:
     if cfg.model.generator == "gru":
         counts.update(gru_scan=cfg.loss.n_critic + 1, gru_scan_bwd=1)
     return counts
+
+
+def _site(fwd=(), bwd=(), dbl=(), at_input=False, const=False,
+          again=False) -> dict:
+    """One exchange of a model's forward: the collectives of its forward,
+    of its backward and of its backward's backward (the penalty's double
+    backprop); ``at_input``: what it exchanges depends on the model's
+    input alone (its backward runs only where the input needs a
+    gradient); ``const``: the penalty's gradient reaching it does not
+    depend on the parameters (its backward is not differentiated again);
+    ``again``: the double backprop reaches it in the interpolates' forward
+    (a torch leaky_relu's double backward links to its input)."""
+    return {"fwd": Counter(fwd), "bwd": Counter(bwd), "dbl": Counter(dbl),
+            "at_input": at_input, "const": const, "again": again}
+
+
+def _halo(lo: int, hi: int, t: int, at_input: bool = False,
+          again: bool = False) -> dict:
+    """parallel/halo.py's exchange of a conv's halos (lo, hi rows each
+    side of a t-row slice): one all-gather per side (a shift, whose
+    backward is the other shift), or, where a halo is wider than the
+    slice, the all-gather route (GatherTime, whose backward all-reduces)."""
+    if lo > t or hi > t:
+        return _site(["all_gather"], ["all_reduce"], ["all_gather"],
+                     at_input, again=again)
+    ag = ["all_gather"] * ((lo > 0) + (hi > 0))
+    return _site(ag, ag, ag, at_input, again=again)
+
+
+def _cp_sites(cfg) -> tuple[list, list]:
+    """(the critic's, the generator's) exchanges on one cp rank
+    (parallel/cp_models.py)."""
+    m, cp = cfg.model, cfg.mesh.cp
+    shift = _site(["all_gather"], ["all_gather"], ["all_gather"])
+    head = _site(["all_reduce"], dbl=["all_reduce"], const=True)
+    proj = _site(["all_reduce"], dbl=["all_reduce"])
+    critic, t = [], cfg.data.clip_len // cp
+    for i, s in enumerate(m.strides):
+        total = max(m.kernel_size - s, 0)
+        critic.append(_halo(total // 2, total - total // 2, t, i == 0))
+        t //= s
+        if m.phase_shuffle and i < len(m.strides) - 1:
+            critic += [shift, shift]
+    critic.append(head)
+    if cfg.data.num_classes:
+        critic.append(proj)
+    if m.use_stft_critic:
+        from audiogan_tpu_torch.models.stft_critic import KERNEL, STRIDE
+        _, hop, win = m.stft_resolutions[0]
+        if win > hop:
+            critic.append(dict(shift, at_input=True))
+        f, total = cfg.data.clip_len // cp // hop, max(KERNEL - STRIDE, 0)
+        for i in range(4):                # STFTCritic's n_layers
+            # conv2d_0's input is the spectrogram of the input alone; the
+            # others' F.leaky_relu before them is reached again
+            critic.append(_halo(total // 2, total - total // 2, f,
+                                at_input=i == 0, again=i > 0))
+            f //= STRIDE
+        critic.append(head)
+        if cfg.data.num_classes:
+            critic.append(proj)
+    k, gen = m.kernel_size, []
+    pad_lo = (k - 1) // 2
+    if m.generator == "gru":
+        from audiogan_tpu_torch.models.gru import factorize_stride
+        gen += [shift] * (2 * (cp - 1))   # the scan's carry handoffs
+        strides = factorize_stride(m.gru_frame_size)
+        t = cfg.data.clip_len // m.gru_frame_size // cp
+    else:
+        strides, t = m.strides, cfg.data.clip_len // m.total_stride // cp
+    for s in strides:
+        gen.append(_halo(-(-pad_lo // s), -(-max(k - 1 - pad_lo, 0) // s),
+                         t))
+        t *= s
+    return critic, gen
+
+
+def _tp_sites(cfg) -> list:
+    """The tp critic's exchanges on one tp rank (parallel/tp_models.py):
+    f on a column layer's input (the sum in its backward), g on a row
+    layer's output, the sum of the head and of the projection when the
+    last layer is a column layer."""
+    n = len(cfg.model.strides)
+    sites = [_site(bwd=["all_reduce"], at_input=i == 0) if i % 2 == 0 else
+             _site(["all_reduce"], dbl=["all_reduce"]) for i in range(n)]
+    if n % 2:
+        sites.append(_site(["all_reduce"], dbl=["all_reduce"], const=True))
+        if cfg.data.num_classes:
+            sites.append(_site(["all_reduce"], dbl=["all_reduce"],
+                               const=True))
+    return sites
+
+
+def step_collectives(cfg, sharded: bool = False) -> dict[str, int]:
+    """The collectives one training step issues on each rank of cfg's
+    mesh, by kind, from the step's structure (no run), as the launch
+    counts above are the kernels'. ``sharded``: the step gathers its
+    clips from the corpus sharded over the data axis.
+
+    Each exchange of a model (``_cp_sites``, ``_tp_sites``) issues its
+    forward's collectives at each call, its backward's where autograd
+    runs it and its backward's backward in the penalty's double backprop.
+    A critic micro-step calls the critic on V views (V = 1 fused, else 2)
+    and on the penalty's interpolates; the penalty's input gradient runs
+    every exchange's backward; the loss's backward runs, for each view,
+    those past the input and, for the interpolates, the double backward
+    of those whose gradient is not constant (and the backward of those
+    the double backprop reaches in their forward). The generator update
+    runs every
+    exchange's backward of the critic and the generator. Then the
+    gradient sums (train/step.py, cp_step.py, tp_step.py), the metrics'
+    mean, ZeRO-1's all-gathers and the sharded corpus's all-to-all."""
+    m, n = cfg.mesh, cfg.loss.n_critic
+    views = 1 if cfg.train.fused_d_views else 2
+    out: Counter = Counter()
+
+    def total(sites, phase, keep=lambda s: True):
+        c: Counter = Counter()
+        for site in sites:
+            if keep(site):
+                c.update(site[phase])
+        return c
+
+    def critic_step(sites, calls: int, chunks: int = 1) -> Counter:
+        """One critic update's exchanges: the views, then the penalty in
+        ``chunks`` chunks (more than one: each chunk's forward and input
+        gradient run again in the backward, train/losses/wgan.py)."""
+        c = Counter()
+        again = 2 if chunks > 1 else 1
+        for _ in range(calls):
+            c.update(total(sites, "fwd"))
+            c.update(total(sites, "bwd", lambda s: not s["at_input"]))
+        for _ in range(chunks):
+            for _ in range(again):
+                c.update(total(sites, "fwd"))
+                c.update(total(sites, "bwd"))
+            c.update(total(sites, "dbl", lambda s: not s["const"]))
+            c.update(total(sites, "bwd", lambda s: s["again"]))
+        return c
+
+    def generator_step(critic, gen) -> Counter:
+        c = total(critic, "fwd") + total(critic, "bwd")
+        return c + total(gen, "fwd") + total(gen, "bwd")
+
+    if m.cp > 1:
+        critic, gen = _cp_sites(cfg)
+        for _ in range(n):
+            out.update(total(gen, "fwd"))         # the fakes, no grad
+            out.update(critic_step(critic, views))
+            # the penalty's norms over cp; the gradient sums over the
+            # world and, for the heads' biases, the data axis
+            out["all_reduce"] += 2 + (m.dp > 1)
+        out.update(generator_step(critic, gen))
+        out["all_reduce"] += 1
+        if cfg.loss.stft_loss_weight > 0:
+            # per resolution the fake's and the real's right halo (the
+            # fake's backward too) and three sums over cp
+            for _, hop, win in cfg.model.stft_resolutions:
+                out["all_gather"] += 3 * (win > hop)
+                out["all_reduce"] += 3
+    elif m.tp > 1:
+        critic = _tp_sites(cfg)
+        for _ in range(n):
+            out.update(critic_step(critic, views, cfg.loss.gp_batch_chunks))
+            # the sliced gradients over the world, the rest over data
+            out["all_reduce"] += 1 + (m.dp > 1)
+        out.update(generator_step(critic, []))
+        out["all_reduce"] += m.dp > 1
+    elif m.dp > 1:
+        # one flat all-reduce per net per update
+        out["all_reduce"] += n + 1
+        if cfg.loss.stft_loss_weight > 0:
+            # global_mean of the fake and real mean spectra
+            out["all_reduce"] += 2 * len(cfg.model.stft_resolutions)
+    if m.dp > 1:
+        out["all_reduce"] += 1                   # the metrics' mean
+        if m.fsdp:
+            out["all_gather"] += n + 1          # gather_rows per update
+        if sharded:
+            out["all_to_all"] += 1
+    return {k: v for k, v in out.items() if v}
 
 
 def hold_launches(by_rank: list[dict], want: dict, steps: int,

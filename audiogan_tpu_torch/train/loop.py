@@ -19,7 +19,8 @@ reference's resident index blocks); 0 ships each step's own.
 
 The reference's tracing options: train.dump_hlo captures the step the
 loop will run, on its data path, as one CUDA graph before the first step
-(train/step_graph.py; on a copy of the state); train.profile_dir traces
+(train/step_graph.py; on a copy of the state; on a mesh every rank its
+own, NCCL's collectives included); train.profile_dir traces
 the steps [start + profile_steps[0], start + profile_steps[1]) counted
 from the step the run starts at, closing at the last step if the window
 runs past it (utils/profiling.py::StepTrace); train.debug_nans checks
@@ -41,8 +42,9 @@ writes config.json, the checkpoints (the whole state, replicated over
 cp and tp, which restores on any topology), metrics.jsonl, TensorBoard
 and the sample dumps, and logs; the others wait at a barrier where they
 need its files. Every rank restores the same checkpoint. A mesh whose
-size is not the number of processes, or train.dump_hlo on more than one,
-raises before the device is touched (``check_ported``).
+size is not the number of processes raises before the device is
+touched, as does train.dump_hlo on a mesh whose group is gloo on the
+card (``check_ported``).
 
 Crash-only, as the reference: a checkpoint every ckpt_every steps and at
 the last one; ``resume`` picks up the latest complete checkpoint; the data
@@ -53,9 +55,15 @@ goes to ``log`` and one record, with ``steps_per_sec`` and
 ``train_audio_sec_per_sec``, to ``<workdir>/metrics.jsonl``; every
 sample_every steps four clips go to ``samples/step_%08d/``.
 
-The save is synchronous: the reference's asynchronous one (``_AsyncCkpt``)
-hides a slow host link that this card does not have. Its seconds and bytes
-go to ``log``, and the step rate of the window after it leaves it out.
+Checkpoints are saved asynchronously, as the reference's ``_AsyncCkpt``
+(utils/checkpoint.py::AsyncSaver): the loop's thread copies the state on
+the device (and joins ZeRO-1's gather), a worker thread fetches the copy
+and writes the file while the next steps run, one save in flight. The
+``{"ckpt": ...}`` line goes to ``log`` once the file is complete (at the
+first step after that, or at the loop's end, which waits for the last
+save before any rank goes on): its bytes, the seconds the save
+``blocked`` the loop and the worker's ``write`` seconds. The step rate of
+the window leaves out only the blocked seconds.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.data.corpus import Corpus, HostBatcher, build_corpus
@@ -80,6 +89,7 @@ from audiogan_tpu_torch.parallel.mesh import (DataMesh, check_world,
 from audiogan_tpu_torch.parallel.multihost import make_train_mesh
 from audiogan_tpu_torch.parallel.sharded_corpus import (corpus_num_shards,
                                                         local_shard,
+                                                        plan_step,
                                                         wrap_sharded_corpus)
 from audiogan_tpu_torch.train.debug_nans import NanGuard
 from audiogan_tpu_torch.train.state import (TrainState, create_train_state,
@@ -133,18 +143,23 @@ def check_corpus(cfg: Config, corpus: Corpus) -> None:
                              f"data.{field}={want}")
 
 
-def check_ported(cfg: Config) -> None:
+def check_ported(cfg: Config, device=None) -> None:
     """Raises ValueError when the mesh asks for another number of
     processes than run (parallel/mesh.py::check_world), and
-    NotImplementedError for train.dump_hlo on more than one process: every
-    rank would have to capture its collectives together, and gloo on CUDA
-    tensors stages through the host, which no capture takes
-    (train/step_graph.py)."""
+    NotImplementedError for train.dump_hlo on a multi-process mesh whose
+    group is gloo on the card (``device`` None or CUDA): gloo on CUDA
+    tensors stages each collective through the host, which no CUDA graph
+    capture takes; the capture needs NCCL (train/step_graph.py). Either
+    before the card is touched."""
     check_world(cfg)
-    if cfg.train.dump_hlo and world_size() > 1:
+    on_card = device is None or torch.device(device).type == "cuda"
+    if cfg.train.dump_hlo and world_size() > 1 and on_card and \
+            dist.is_initialized() and dist.get_backend() == "gloo":
         raise NotImplementedError(
-            "train.dump_hlo on more than one process is not ported to "
-            "audiogan_tpu_torch: it captures one process's step")
+            "train.dump_hlo on a multi-process mesh captures every rank's "
+            "step, collectives included, and needs NCCL: this process "
+            "group is gloo on CUDA tensors, which stages each collective "
+            "through the host")
 
 
 def corpus_placement(cfg: Config, corpus: Corpus, mesh: DataMesh,
@@ -256,7 +271,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     ``tensorboard=False`` skips the TensorBoard scalars. Under torchrun
     every rank calls it; only rank 0 logs and writes."""
     cfg.validate()
-    check_ported(cfg)
+    check_ported(cfg, device)
     dev = resolve_device(device)
     mesh = make_train_mesh(cfg, dev)
     lead = world_rank() == 0
@@ -299,9 +314,14 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     chunk = cfg.data.index_chunk if placement != "host" else 0
     metrics: dict = {}
     feed = trace = None
+    saver = ckpt_lib.AsyncSaver(
+        mngr, dev, write=lead,
+        on_complete=lambda rec: log(json.dumps({"ckpt": rec})))
     try:
         if placement == "host":
-            feed = HostFeed(batcher, state.step, total, dev)
+            # the dump needs the first step's batch even with no step to run
+            feed = HostFeed(batcher, state.step,
+                            max(total, state.step + t.dump_hlo), dev)
             step_fn = inner
             inputs = feed.take
         else:
@@ -312,12 +332,14 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                 clips = torch.from_numpy(np.array(corpus.clips))
                 step_fn = wrap_device_corpus(inner, chunk)
             clips = clips.to(dev)
-            # the sharded exchange plans from host indices on a mesh
-            idx_dev = dev if placement == "replicate" or not mesh.parallel \
-                else torch.device("cpu")
+            # over several ranks the sharded corpus takes each step's
+            # exchange plan, made here from its host indices
+            # (parallel/sharded_corpus.py); one rank's plan is its indices
+            idx_dev = torch.device("cpu") \
+                if placement == "shard" and mesh.parallel else dev
             block: dict = {}
 
-            def inputs(step):
+            def indices(step):
                 if not chunk:
                     idx, labels = batcher.get(step)
                     return (clips, torch.from_numpy(idx),
@@ -335,6 +357,14 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                         labels=torch.from_numpy(
                             np.stack([r[1] for r in rows])).to(dev))
                 return clips, block["idx"], block["labels"]
+
+            def inputs(step):
+                args = indices(step)
+                if placement != "shard":
+                    return args
+                idx = args[1][step % chunk] if chunk else args[1]
+                return (clips, plan_step(idx, clips.shape[0], mesh, dev),
+                        args[2])
         if t.dump_hlo:
             # the step the loop runs next, on its data path
             dump_step(cfg, state, step_fn, inputs(state.step), workdir, dev,
@@ -382,20 +412,19 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                                              f"{done}")
                 last_logged, t_log = done, time.perf_counter()
             if (t.ckpt_every and done % t.ckpt_every == 0) or done == total:
-                t_save = time.perf_counter()
-                nbytes = ckpt_lib.save(
-                    mngr, state, metrics if last_logged == done else None,
-                    write=lead)
-                mesh.barrier()
-                log(json.dumps({"ckpt": {
-                    "step": done, "bytes": nbytes,
-                    "seconds": time.perf_counter() - t_save}}))
-                t_log += time.perf_counter() - t_save
+                # the step rate leaves out what the save blocked
+                t_log += saver.save(state, metrics if last_logged == done
+                                    else None)
+            saver.poll()
             if lead and t.sample_every and done % t.sample_every == 0:
                 t_dump = time.perf_counter()
                 dump_samples(cfg, state, workdir, done, dev)
                 t_log += time.perf_counter() - t_dump
+        saver.join()
+        # the other ranks, or a resume, may read the files now
+        mesh.barrier()
     finally:
+        saver.close()
         if trace is not None:
             trace.close()
         if writer is not None:

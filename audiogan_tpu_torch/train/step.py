@@ -56,6 +56,7 @@ algorithms (``cudnn_deterministic``).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable
 
@@ -135,6 +136,24 @@ def draw_step(cfg: Config, seed: int, step: int, batch: int,
     if cfg.loss.stft_loss_weight > 0:
         g["offsets"] = crop_offsets(gen, batch, max_off, device)
     return {"critic": critic, "generator": g}
+
+
+def step_draws(cfg: Config, seed: int, step: int, device,
+               data_rank: int = 0):
+    """What the step of ``build_train_step`` draws for itself at (seed,
+    step), in the form its ``draws=`` takes: the global step's draws at
+    cp = tp = 1; with mesh.cp or mesh.tp above 1 one entry per data
+    replica, this rank's (``data_rank``) drawn and the others None (the
+    cp step's penalty one shot, train/cp_step.py)."""
+    if cfg.mesh.cp == 1 and cfg.mesh.tp == 1:
+        return draw_step(cfg, seed, step, cfg.train.batch_size, device)
+    c = cfg if cfg.mesh.tp > 1 else dataclasses.replace(
+        cfg, loss=dataclasses.replace(cfg.loss, gp_batch_chunks=1))
+    out = [None] * cfg.mesh.dp
+    out[data_rank] = draw_step(c, seed, step,
+                               cfg.train.batch_size // cfg.mesh.dp, device,
+                               tag=f"/data{data_rank}")
+    return out
 
 
 def penalty_rows(cfg: Config, mesh: DataMesh, batch: int) -> int:

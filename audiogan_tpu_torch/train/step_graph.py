@@ -47,11 +47,35 @@ On the CPU there is no CUDA graph: ``step_graph.txt`` has the same header
 and one line per aten op that one step dispatched (a TorchDispatchMode
 over the step on the copy); the kernels' plain forms are torch ops, so it
 sees everything, and each op inside a kernel call of the port names it.
+A c10d collective is an op of its own ("collective" lines).
 
-The reference's ``dump_hlo`` on a multi-process mesh has no counterpart:
-every rank would have to capture its collectives together, and gloo on
-CUDA tensors stages through the host, which no capture takes
-(train/loop.py::check_ported raises before the card is touched).
+On a multi-process mesh the counterpart of the reference's one SPMD
+module, whose collectives every process lowers together
+(audiogan_tpu/train/loop.py:247-261), is the set of every rank's graph:
+  warm-up   every rank's eager step, its collectives run for real; it
+            also builds the NCCL communicators. A rank that fails here
+            leaves its peers in a collective: the group's timeout ends
+            them (parallel/multihost.py).
+  capture   every rank captures its step; NCCL's kernels are recorded,
+            not run, with this thread's capture errors only (NCCL's
+            watchdog thread queries its events meanwhile). Each
+            collective notes its nodes as a kernel call does.
+  agree     before any rank replays (a replay waits on its peers' NCCL
+            kernels), an all-reduce of an ok flag over a gloo twin of
+            the group, outside any capture; if any rank failed, every
+            rank raises, naming each failed rank and its last op and
+            kernel call.
+  replay    every rank replays once, held to its own warm-up to the bit
+            (ZeRO-1's moments are the rank's blocks).
+  files     rank 0 writes its own graph; the header lists every rank's
+            node counts by kind, NCCL kernel nodes and calls by
+            collective and replay result, gathered over the gloo twin.
+            Ranks whose collectives differ raise, every one; their other counts may differ under
+            cp (an edge rank fills the zeros a neighbour would send).
+A gloo group on CUDA tensors stages its collectives through the host,
+which no capture takes: train/loop.py::check_ported raises for it before
+the card is touched, naming NCCL. On the CPU the ranks agree and gather
+in the same way around their op lists.
 """
 
 from __future__ import annotations
@@ -67,12 +91,15 @@ from pathlib import Path
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.kernels import hooks
+from audiogan_tpu_torch.parallel.mesh import world_rank, world_size
+from audiogan_tpu_torch.parallel.sharded_corpus import ShardPlan
 from audiogan_tpu_torch.train.state import (TrainState, restore, snapshot,
                                             state_tensors)
-from audiogan_tpu_torch.train.step import draw_step
+from audiogan_tpu_torch.train.step import step_draws
 
 GRAPH_FILE = "step_graph.txt"
 DOT_FILE = "step_cuda_graph.dot"
@@ -161,12 +188,27 @@ def _demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out.splitlines()))
 
 
+# c10d ops by the collective they issue
+_C10D = (("allreduce", "all_reduce"), ("allgather", "all_gather"),
+         ("alltoall", "all_to_all"), ("reduce_scatter", "reduce_scatter"),
+         ("broadcast", "broadcast"), ("barrier", "barrier"))
+
+
+def collective_kind(op: str) -> str | None:
+    """The collective a dispatched op issues ("all_reduce", ...), or None
+    for an op that is not a c10d collective."""
+    if not op.startswith("c10d."):
+        return None
+    return next((kind for key, kind in _C10D if key in op), op)
+
+
 class _Watch(hooks.KernelMode):
     """Over one step: the aten ops in order (``ops``: name and the port
-    kernel whose plain form ran it, or None) and every kernel call of the
+    kernel whose plain form ran it, or None), every kernel call of the
     port (``calls``: name, and with ``on_call``, which lists the graph's
-    nodes, the nodes the call added). Keeps the last op and call for a
-    failure."""
+    nodes, the nodes the call added) and every collective (``collectives``:
+    its kind and, with ``on_call``, its nodes). Keeps the last op and call
+    for a failure."""
 
     def __init__(self, record_ops: bool,
                  on_call: Callable[[], list] | None = None):
@@ -174,15 +216,24 @@ class _Watch(hooks.KernelMode):
         self.record_ops, self.on_call = record_ops, on_call
         self.ops: list = []
         self.calls: list = []
+        self.collectives: list = []
         self.kernel: str | None = None
         self.last = "nothing yet"
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.last = f"aten op {func}" + (f" inside {self.kernel}"
-                                         if self.kernel else "")
+        name = str(func)
+        kind = collective_kind(name)
+        self.last = (f"collective {name}" if kind else f"aten op {name}") \
+            + (f" inside {self.kernel}" if self.kernel else "")
         if self.record_ops:
-            self.ops.append((str(func), self.kernel))
-        return func(*args, **(kwargs or {}))
+            self.ops.append((name, self.kernel))
+        if kind is None:
+            return func(*args, **(kwargs or {}))
+        before = self.on_call() if self.on_call else ()
+        out = func(*args, **(kwargs or {}))
+        added = set(self.on_call()) - set(before) if self.on_call else set()
+        self.collectives.append((kind, added))
+        return out
 
     def kernel_call(self, name, fn, args, kwargs):
         outer, self.kernel = self.kernel, self.kernel or name
@@ -238,10 +289,13 @@ def _header(title: str, summary: dict, by_name: Counter,
     return lines
 
 
-def _capture(step_fn, work: TrainState, args: tuple, draws: dict,
-             dev: torch.device):
+def _capture(step_fn, work: TrainState, args: tuple, draws,
+             dev: torch.device, parallel: bool):
     """(graph, its node records, the kernel calls with their nodes, the
-    metrics' static tensors, capture seconds) of one step on ``work``."""
+    collectives with their nodes, the metrics' static tensors, capture
+    seconds) of one step on ``work``. On a mesh the capture's errors are
+    this thread's own (``thread_local``): NCCL's watchdog thread queries
+    its events meanwhile."""
     drv = _Driver()
     # keep_graph: the cudaGraph_t outlives the capture, for debug_dump
     graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -253,9 +307,10 @@ def _capture(step_fn, work: TrainState, args: tuple, draws: dict,
             torch.cuda.current_stream(dev).cuda_stream))
 
     watch = _Watch(record_ops=False, on_call=listed)
+    mode = "thread_local" if parallel else "global"
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph), watch:
+        with torch.cuda.graph(graph, capture_error_mode=mode), watch:
             metrics = step_fn(work, *args, draws=draws)
             g = drv.capturing_graph(torch.cuda.current_stream(dev).cuda_stream)
             nodes = [dict(drv.describe(n), handle=n) for n in drv.nodes(g)]
@@ -263,41 +318,144 @@ def _capture(step_fn, work: TrainState, args: tuple, draws: dict,
         raise RuntimeError(f"capture of the training step failed at "
                            f"{watch.last}: {err}") from err
     torch.cuda.synchronize(dev)
-    return graph, nodes, watch.calls, metrics, time.perf_counter() - t0
+    return (graph, nodes, watch.calls, watch.collectives, metrics,
+            time.perf_counter() - t0)
+
+
+# the default group's gloo twin, for the dump's own agreement (never NCCL:
+# a capture that failed half way leaves NCCL's stream of work uneven)
+_CONTROL: dict = {}
+
+
+def _control_group():
+    if dist.get_backend() == "gloo":
+        return None
+    key = dist.group.WORLD
+    if key not in _CONTROL:
+        _CONTROL[key] = dist.new_group(backend="gloo")
+    return _CONTROL[key]
+
+
+def _all_gather(obj) -> list:
+    """Every rank's ``obj`` (itself alone on one process), eagerly over the
+    control group."""
+    if world_size() == 1:
+        return [obj]
+    out = [None] * world_size()
+    dist.all_gather_object(out, obj, group=_control_group())
+    return out
+
+
+def _agree(failure: str | None) -> None:
+    """Raises on every rank when any rank failed (``failure`` its
+    message): an all-reduce of an ok flag, then the failures by rank."""
+    if world_size() == 1:
+        if failure:
+            raise RuntimeError(failure)
+        return
+    ok = torch.tensor([0 if failure else 1], dtype=torch.int32)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=_control_group())
+    if ok.item():
+        return
+    bad = [f"rank {r}: {m}" for r, m in enumerate(_all_gather(failure))
+           if m]
+    raise RuntimeError(f"train.dump_hlo failed on {len(bad)} of "
+                       f"{world_size()} ranks (rank {world_rank()} raises "
+                       "with them): " + "; ".join(bad))
+
+
+def _check_spmd(ranks: list[dict]) -> bool:
+    """Raises unless every rank issues the same collectives (and, on the
+    card, the same NCCL kernel nodes): the condition of one SPMD step.
+    Returns whether the ranks' op or node counts by kind agree too; under
+    cp they need not (an edge rank fills the zeros its missing neighbour
+    would send, where the others take a view)."""
+    for key in ("collectives", "nccl_kernel_nodes"):
+        vals = [r.get(key) for r in ranks]
+        if any(v != vals[0] for v in vals):
+            raise RuntimeError(f"train.dump_hlo: the ranks' {key} differ: "
+                               + "; ".join(f"rank {i} {v}"
+                                           for i, v in enumerate(vals)))
+    counts = [(r.get("ops"), r.get("by_kind")) for r in ranks]
+    return all(c == counts[0] for c in counts)
+
+
+def _rank_lines(ranks: list[dict]) -> list[str]:
+    keep = ("nodes", "by_kind", "ops", "collectives", "nccl_kernel_nodes",
+            "capture_seconds", "replay_equals_eager", "replay_differs_in")
+    return [f"# rank {i} " + json.dumps({k: r[k] for k in keep if k in r})
+            for i, r in enumerate(ranks)]
+
+
+def _collective_counts(collectives: list, nodes_by_handle: dict | None
+                       ) -> tuple[dict, dict]:
+    """(calls by kind, NCCL kernel nodes by kind) of a step's
+    collectives."""
+    calls = dict(Counter(kind for kind, _ in collectives))
+    nccl: Counter = Counter()
+    for kind, added in collectives:
+        for h in added:
+            n = (nodes_by_handle or {}).get(h, {})
+            if n.get("kind") == "kernel" and "nccl" in n.get("name", ""):
+                nccl[kind] += 1
+    return calls, dict(nccl)
 
 
 def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
               args: tuple, workdir: Path, device: torch.device,
               say: Callable[[str], None] = print) -> dict:
     """Dumps the step ``step_fn(state, *args, draws=...)`` would run now
-    into ``workdir`` (the module docstring); returns the summary that
-    heads step_graph.txt. ``state`` does not move."""
+    into ``workdir`` (the module docstring); returns this rank's summary
+    (rank 0's heads step_graph.txt, with every rank's under "ranks").
+    ``state`` does not move. On a mesh every rank calls it."""
     workdir = Path(workdir)
+    rank = world_rank()
     work = copy.deepcopy(state)
-    draws = draw_step(cfg, state.seed, state.step, cfg.train.batch_size,
-                      device)
+    draws = step_draws(cfg, state.seed, state.step, device,
+                       rank // (cfg.mesh.cp * cfg.mesh.tp))
+    sharded = any(isinstance(a, ShardPlan) for a in args)
     title = (f"one training step of {cfg.name} at step {state.step}, "
              f"batch {cfg.train.batch_size}, {cfg.train.dtype}, on "
-             f"{device}")
+             f"{device}, mesh dp={cfg.mesh.dp} cp={cfg.mesh.cp} "
+             f"tp={cfg.mesh.tp}" + (" fsdp" if cfg.mesh.fsdp else "")
+             + (" (sharded corpus)" if sharded else ""))
     if device.type != "cuda":
         watch = _Watch(record_ops=True)
-        with watch:
-            step_fn(work, *args, draws=draws)
-        by_name = Counter(op for op, _ in watch.ops)
+        failure = None
+        try:
+            with watch:
+                step_fn(work, *args, draws=draws)
+        except Exception as err:
+            failure = f"the step failed at {watch.last}: {err!r}"
+        _agree(failure)
+        calls, _ = _collective_counts(watch.collectives, None)
         summary = {"kind": "aten ops (the CPU has no CUDA graph)",
                    "ops": len(watch.ops), "by_kernel": dict(Counter(
-                       name for name, _ in watch.calls))}
-        body = [f"{i} op {op}" + (f"  [{k}]" if k else "")
-                for i, (op, k) in enumerate(watch.ops)]
-        (workdir / GRAPH_FILE).write_text("\n".join(
-            _header(title + ": the aten ops it dispatched, in order",
-                    summary, by_name, "op") + body) + "\n")
+                       name for name, _ in watch.calls)),
+                   "collectives": calls, "sharded_corpus": sharded}
+        ranks = _all_gather(summary)
+        summary["counts_agree_across_ranks"] = _check_spmd(ranks)
+        if rank == 0:
+            by_name = Counter(op for op, _ in watch.ops)
+            body = []
+            for i, (op, k) in enumerate(watch.ops):
+                kind = collective_kind(op)
+                body.append(f"{i} collective {kind} {op}" if kind else
+                            f"{i} op {op}" + (f"  [{k}]" if k else ""))
+            head = _header(title + ": the aten ops it dispatched, in order",
+                           {**summary, "ranks": ranks}, by_name, "op")
+            (workdir / GRAPH_FILE).write_text("\n".join(
+                head[:2] + _rank_lines(ranks) + head[2:] + body) + "\n")
         say(f"[graph] the CPU has no CUDA graph: listed {len(watch.ops)} "
-            f"aten ops in {workdir / GRAPH_FILE}")
-        return summary
+            f"aten ops ({sum(calls.values())} collectives) per rank in "
+            f"{workdir / GRAPH_FILE}")
+        return {**summary, "ranks": ranks}
 
+    parallel = world_size() > 1
     args, moved = _to_device(args, device)
     pre = snapshot(work)
+    # every rank's warm-up runs its collectives for real: it builds the
+    # communicators and every cache before any capture
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -305,12 +463,19 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     restore(work, pre)
-    graph, nodes, calls, metrics, seconds = _capture(step_fn, work, args,
-                                                     draws, device)
-    graph.debug_dump(str(workdir / DOT_FILE))
-    if not (workdir / DOT_FILE).exists():
-        raise RuntimeError(f"CUDAGraph.debug_dump wrote no "
-                           f"{workdir / DOT_FILE}")
+    failure = None
+    try:
+        graph, nodes, calls, colls, metrics, seconds = _capture(
+            step_fn, work, args, draws, device, parallel)
+    except Exception as err:
+        failure = str(err)
+    # no rank replays alone: a replay waits on its peers' NCCL kernels
+    _agree(failure)
+    if rank == 0:
+        graph.debug_dump(str(workdir / DOT_FILE))
+        if not (workdir / DOT_FILE).exists():
+            raise RuntimeError(f"CUDAGraph.debug_dump wrote no "
+                               f"{workdir / DOT_FILE}")
     restore(work, pre, drop_new=False)
     graph.replay()
     torch.cuda.synchronize(device)
@@ -331,33 +496,44 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
             mine = n["kind"] == "kernel" and any(
                 f in n.get("name", "") for f in own)
             rec["kernel_nodes" if mine else "other_nodes"] += 1
+    for kind, added in colls:
+        for h in added:
+            owner[h] = f"c10d {kind}"
+    n_calls, nccl = _collective_counts(colls, by_handle)
     kinds = Counter(n["kind"] for n in nodes)
-    by_name = Counter(readable[n["name"]] for n in nodes if "name" in n)
     summary = {"kind": "CUDA graph", "nodes": len(nodes),
                "by_kind": dict(kinds), "port_kernels": port,
+               "collectives": n_calls, "nccl_kernel_nodes": nccl,
+               "sharded_corpus": sharded,
                "capture_seconds": seconds,
                "replay_equals_eager": not differ,
                "replay_differs_in": differ,
                "tensors_compared": len(eager),
                "inputs_copied_to_device": moved}
-    body = []
-    for i, n in enumerate(nodes):
-        line = f"{i} {n['kind']}"
-        if "name" in n:
-            line += (f" {readable[n['name']]} grid={n['grid']} "
-                     f"block={n['block']}")
-        if n["handle"] in owner:
-            line += f"  [{owner[n['handle']]}]"
-        body.append(line)
-    (workdir / GRAPH_FILE).write_text("\n".join(
-        _header(title + ": cudaGraph nodes in capture order", summary,
-                by_name, "kernel") + body) + "\n")
-    note = "" if not differ else (f"; the replay differs from the eager "
-                                  f"step in {len(differ)} tensors")
-    say(f"[graph] dumped {len(nodes)} nodes into {workdir / GRAPH_FILE} "
-        f"and {workdir / DOT_FILE}{note}")
+    ranks = _all_gather(summary)
+    summary["counts_agree_across_ranks"] = _check_spmd(ranks)
+    if rank == 0:
+        by_name = Counter(readable[n["name"]] for n in nodes if "name" in n)
+        body = []
+        for i, n in enumerate(nodes):
+            line = f"{i} {n['kind']}"
+            if "name" in n:
+                line += (f" {readable[n['name']]} grid={n['grid']} "
+                         f"block={n['block']}")
+            if n["handle"] in owner:
+                line += f"  [{owner[n['handle']]}]"
+            body.append(line)
+        head = _header(title + ": cudaGraph nodes in capture order",
+                       {**summary, "ranks": ranks}, by_name, "kernel")
+        (workdir / GRAPH_FILE).write_text("\n".join(
+            head[:2] + _rank_lines(ranks) + head[2:] + body) + "\n")
+    bad = [i for i, r in enumerate(ranks) if not r["replay_equals_eager"]]
+    note = "" if not bad else (f"; the replay differs from the eager "
+                               f"step on ranks {bad}")
+    say(f"[graph] dumped {len(nodes)} nodes per rank into "
+        f"{workdir / GRAPH_FILE} and {workdir / DOT_FILE}{note}")
     del graph
-    return summary
+    return {**summary, "ranks": ranks}
 
 
 def read_summary(workdir: Path) -> dict:

@@ -15,6 +15,17 @@ every listed checkpoint complete, and a half-written file is never listed.
 Which checkpoints survive a save, as orbax's CheckpointManager decides it:
 the last ``keep``; or, with ``best_metric``, the best ``keep`` by that
 metric (``best_mode`` "min" or "max") and every one saved without metrics.
+
+``save`` writes on the calling thread. ``AsyncSaver`` is the training
+loop's, the reference's ``_AsyncCkpt`` (audiogan_tpu/train/loop.py:40-93):
+on the calling thread a copy of the state's tensors on their device,
+ordered after the step on the current stream, and ZeRO-1's gather of the
+moments (a collective: it never leaves the thread that runs the step's
+collectives); then a worker thread fetches the copy to pinned host memory
+one tensor at a time on a side stream (so a small fetch of the loop's, its
+metrics, never queues behind the whole state), writes the file and prunes.
+One save is in flight: the next save, and ``join``, wait for it first, and
+an error of the worker is raised there.
 """
 
 from __future__ import annotations
@@ -23,8 +34,11 @@ import json
 import os
 import re
 import tempfile
+import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -104,6 +118,35 @@ def _kept(mngr: CheckpointManager, steps: list[int]) -> set[int]:
                               else ranked)
 
 
+def checkpoint_blob(mngr: CheckpointManager, state,
+                    metrics: dict | None = None) -> dict:
+    """What ``save`` writes, its tensors the live ones (the optimizers'
+    moments whole: a ZeRO-1 state gathers them, a collective that every
+    rank of its data axis joins)."""
+    return {"step": int(state.step), "seed": int(state.seed),
+            "config": mngr.config,
+            "g": state.g.state_dict(), "d": state.d.state_dict(),
+            "opt_g": state.opt_g.full_state_dict(),
+            "opt_d": state.opt_d.full_state_dict(),
+            "metrics": None if metrics is None else {
+                k: float(v) for k, v in metrics.items()}}
+
+
+def write_blob(mngr: CheckpointManager, blob: dict) -> int:
+    """Writes ``blob`` as the checkpoint of its step, metrics first, then
+    drops the ones the policy no longer keeps; the file's bytes."""
+    step = blob["step"]
+    _write_atomic(mngr.metrics_path(step), lambda f: f.write(json.dumps(
+        {"step": step, "metrics": blob["metrics"]}).encode()))
+    _write_atomic(mngr.path(step), lambda f: torch.save(blob, f))
+    nbytes = mngr.path(step).stat().st_size
+    steps = mngr.all_steps()
+    for s in set(steps) - _kept(mngr, steps):
+        mngr.path(s).unlink(missing_ok=True)
+        mngr.metrics_path(s).unlink(missing_ok=True)
+    return nbytes
+
+
 def save(mngr: CheckpointManager, state, metrics: dict | None = None,
          write: bool = True) -> int:
     """Writes the checkpoint of ``state.step``, then drops the ones the
@@ -113,25 +156,149 @@ def save(mngr: CheckpointManager, state, metrics: dict | None = None,
     first, so every rank of its data axis calls ``save`` and only one,
     with ``write``, writes (the others return 0). The file is the same
     on any topology."""
-    step = int(state.step)
-    metrics = None if metrics is None else {k: float(v)
-                                            for k, v in metrics.items()}
-    opt_g = state.opt_g.full_state_dict()
-    opt_d = state.opt_d.full_state_dict()
-    if not write:
+    blob = checkpoint_blob(mngr, state, metrics)
+    return write_blob(mngr, blob) if write else 0
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+class AsyncSaver:
+    """The loop's checkpoints, written by a worker thread, one in flight
+    (the module docstring). ``save`` returns the seconds it blocked the
+    caller: waiting for the previous save, the copy, the gather. Once a
+    save's file is complete, ``on_complete`` gets its record on the
+    caller's thread, at the first ``poll``, ``save`` or ``join`` after
+    that (so before any later save starts writing): {"step", "bytes",
+    "blocked", "parts", "write"}: ``parts`` splits ``blocked`` into
+    "join" (the previous save), "state" (the state dicts and ZeRO-1's
+    gather), "alloc" (the device copy's memory, "new_segments" the
+    cudaMalloc calls it made), "copy" (its launches) and "event";
+    ``write`` is the worker's seconds from the fetch to the file in
+    place. Without ``write`` (the ranks that do not write) a
+    save only joins ZeRO-1's gather."""
+
+    def __init__(self, mngr: CheckpointManager, device: torch.device,
+                 write: bool = True,
+                 on_complete: Callable[[dict], None] = lambda rec: None):
+        self.mngr, self.write, self.on_complete = mngr, write, on_complete
+        self._thread: threading.Thread | None = None
+        self._err: BaseException | None = None
+        self._record: dict | None = None
+        # the fetches' side stream, made here and not at the first save: a
+        # process's first stream fills torch's stream pool, which blocked
+        # a first save 12-257 ms on an H100
+        self._stream = (torch.cuda.Stream(device)
+                        if write and device.type == "cuda" else None)
+
+    def save(self, state, metrics: dict | None = None) -> float:
+        t0 = time.perf_counter()
+        self.join()
+        t1 = time.perf_counter()
+        blob = checkpoint_blob(self.mngr, state, metrics)
+        t2 = time.perf_counter()
+        if not self.write:
+            return t2 - t0
+        dev = next((t.device for t in _leaves(blob) if t.is_cuda), None)
+        segments = _segments(dev)
+        # the device copy, on the current stream after the step: its
+        # memory, then its launches
+        snap = _map_tensors(blob, lambda t: torch.empty_like(t.detach()))
+        t3 = time.perf_counter()
+        new_segments = _segments(dev) - segments
+        for dst, src in zip(_leaves(snap), _leaves(blob)):
+            dst.copy_(src.detach())
+        t4 = time.perf_counter()
+        ready = None
+        if dev is not None:
+            if self._stream is None:
+                raise ValueError("a state on the card, a saver built for "
+                                 "the CPU")
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        t5 = time.perf_counter()
+        record = {"step": blob["step"], "blocked": t5 - t0, "parts": {
+            "join": t1 - t0, "state": t2 - t1, "alloc": t3 - t2,
+            "new_segments": new_segments, "copy": t4 - t3,
+            "event": t5 - t4}}
+        self._thread = threading.Thread(
+            target=self._work, args=(snap, ready, record), daemon=True,
+            name="audiogan-ckpt")
+        self._thread.start()
+        return record["blocked"]
+
+    def _fetch(self, snap: dict, ready) -> dict:
+        """Each CUDA tensor into pinned host memory, one at a time, on the
+        side stream, after ``ready``."""
+        if ready is None:
+            return snap
+        stream = self._stream
+        stream.wait_event(ready)
+
+        def fetch(t):
+            if not t.is_cuda:
+                return t
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            with torch.cuda.stream(stream):
+                host.copy_(t, non_blocking=True)
+            stream.synchronize()
+            return host
+        return _map_tensors(snap, fetch)
+
+    def _work(self, snap: dict, ready, record: dict) -> None:
+        t0 = time.perf_counter()
+        try:
+            host = self._fetch(snap, ready)
+            del snap
+            record["bytes"] = write_blob(self.mngr, host)
+            record["write"] = time.perf_counter() - t0
+            self._record = record
+        except BaseException as err:      # raised at the next join
+            self._err = err
+
+    def poll(self) -> None:
+        """``join`` if the save in flight is done; else nothing."""
+        if self._thread is None or not self._thread.is_alive():
+            self.join()
+
+    def join(self) -> None:
+        """Waits for the save in flight: raises its error, or hands its
+        record to ``on_complete``."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+        if self._record is not None:
+            rec, self._record = self._record, None
+            self.on_complete(rec)
+
+    def close(self) -> None:
+        """Lets a save in flight finish, raising nothing: the loop's error
+        path, where the loop's own error goes on."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+
+def _segments(dev) -> int:
+    """The device memory segments the caching allocator has taken so far
+    (its cudaMalloc calls); 0 off the card."""
+    if dev is None:
         return 0
-    blob = {"step": step, "seed": int(state.seed), "config": mngr.config,
-            "g": state.g.state_dict(), "d": state.d.state_dict(),
-            "opt_g": opt_g, "opt_d": opt_d, "metrics": metrics}
-    _write_atomic(mngr.metrics_path(step), lambda f: f.write(json.dumps(
-        {"step": step, "metrics": metrics}).encode()))
-    _write_atomic(mngr.path(step), lambda f: torch.save(blob, f))
-    nbytes = mngr.path(step).stat().st_size
-    steps = mngr.all_steps()
-    for s in set(steps) - _kept(mngr, steps):
-        mngr.path(s).unlink(missing_ok=True)
-        mngr.metrics_path(s).unlink(missing_ok=True)
-    return nbytes
+    return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+
+
+def _leaves(tree) -> list:
+    out: list = []
+    _map_tensors(tree, out.append)
+    return out
 
 
 def latest_step(mngr: CheckpointManager) -> int | None:

@@ -103,7 +103,10 @@ non-zero:
             that step's line, outside the timed window (checked). One more
             music step from that checkpoint through the loop, on the
             resident corpus and with data.device_corpus off (the host
-            batcher): the same record and checkpoint, to the bit.
+            batcher): the same record and checkpoint, to the bit; and
+            that step's [V, 64] clips gathered by the host batcher's
+            native row gather (data/native.py) and by numpy's fancy
+            index: the same bytes, each one's seconds.
 6b. resume  `cli train --total_steps 6 --set train.ckpt_every=3` in
             subprocesses for the flagship, the fused flagship,
             cond_gru_sc09, dual_stft, music_44k_dp16 (mesh.dp=1; B=64,
@@ -117,7 +120,14 @@ non-zero:
             preset's rate and length) and `cli serve --workdir` (one
             /generate); on dual_stft's and music_44k_dp16's, `cli eval
             --workdir` twice: the same JSON line, every value finite.
-            Each run's seconds, each save's bytes and seconds.
+            Each run's seconds, each save's bytes and seconds: the loop
+            saves asynchronously (utils/checkpoint.py::AsyncSaver) and
+            logs the checkpoint once its file is complete, so the kill
+            comes after a complete step-3 file; the seconds each save
+            blocked the loop, by part (utils/checkpoint.py's record:
+            the state dicts, the device copy's memory with the
+            cudaMalloc calls it made, its launches), and the worker's
+            write.
 6c. dp      data parallelism on this card: two processes over gloo
             (NCCL refuses two ranks on one device) through
             audiogan_tpu_torch/tools/dp_check.py, each on its half of
@@ -244,8 +254,8 @@ from audiogan_tpu_torch.kernels import hooks
 from audiogan_tpu_torch.tools.step_checks import (
     PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS,
     compare_blobs, compute_dtype, conv_step_launches, cp_rank_layers,
-    cp_step_launches, critic_dx_layers, critic_layers, generator_dx_layers,
-    generator_layers, hold_bf16_to_dp1, hold_launches, random_raw, same_bits,
+    cp_step_launches, critic_dx_layers, critic_layers, fused_step_launches,
+    generator_dx_layers, generator_layers, hold_bf16_to_dp1, hold_launches, random_raw, same_bits,
     same_checkpoint, state_parts, tensor_core, tp_rank_layers,
     tp_step_launches)
 from audiogan_tpu_torch.utils.profiling import (SPAN_NAMES, profiler_spans,
@@ -356,20 +366,6 @@ def per_rank_layers(cfg, batch: int, dps: tuple, tag: str = ""
         convt += named(generator_layers(cfg, b) + critic_dx_layers(cfg, 2 * b))
         conv += named(critic_layers(cfg, 2 * b) + generator_dx_layers(cfg, b))
     return convt, conv
-
-
-def fused_step_launches(cfg) -> tuple[int, int]:
-    """(K6, K7) launches of one training step with every site fused: per
-    critic micro-step, with V critic calls on the views (1 for the fused
-    2B call, else 2), K6 (V + 2) x sites (the views' forwards, x-hat's
-    forward, the penalty's double backprop: d/dct of K7 is K6) and K7
-    (V + 1) x sites (the penalty's input gradient, the loss's backward
-    through the views); the G update one of each per site."""
-    sites = len(cfg.model.strides) - 1
-    views = 1 if cfg.train.fused_d_views else 2
-    n_critic = cfg.loss.n_critic
-    return ((n_critic * (views + 2) + 1) * sites,
-            (n_critic * (views + 1) + 1) * sites)
 
 
 class PathCounter:
@@ -1850,7 +1846,33 @@ def host_batcher_phase(cfg, dev, trained: dict) -> dict:
     return {"step": last + 1, "compared_keys": keys,
             "tensors_equal": tensors, "run_seconds": {"resident": sa,
                                                       "host": sb},
-            "record": rec_b}
+            "record": rec_b, "native_gather": native_gather(c, rb)}
+
+
+def native_gather(cfg, workdir: Path, reps: int = 3) -> dict:
+    """The host batcher's row gather of one step ([V, B] rows of the
+    workdir's corpus) through the native library and through numpy's
+    fancy index: the same bytes; each one's best of ``reps`` seconds."""
+    from audiogan_tpu_torch.data import native
+    from audiogan_tpu_torch.data.corpus import batch_indices
+    from audiogan_tpu_torch.train.loop import resolve_corpus
+    from audiogan_tpu_torch.train.step import num_views
+    corpus = resolve_corpus(cfg, workdir)
+    idx = batch_indices(len(corpus), cfg.train.batch_size, num_views(cfg),
+                        cfg.train.seed, 0)
+    times, out = {}, {}
+    for name, fn in (("native", native.gather_rows),
+                     ("numpy", native.gather_rows_plain)):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out[name] = fn(corpus.clips, idx)
+            best = min(best, time.perf_counter() - t0)
+        times[name] = best
+    if out["native"].tobytes() != out["numpy"].tobytes():
+        raise AssertionError("the native gather differs from numpy's")
+    return {"shape": list(out["native"].shape),
+            "bytes": out["native"].nbytes, "seconds": times}
 
 
 def profile_step(cfg, dev, state) -> dict:
@@ -1993,7 +2015,12 @@ def resume_case(preset: str, sets: tuple, base: Path) -> dict:
                       "resumed": [ln["ckpt"] for ln in r_lines
                                   if "ckpt" in ln]},
             "compared_keys": keys, "tensors_equal": tensors,
-            "w_dist": rb["w_dist"]}
+            "w_dist": rb["w_dist"],
+            # the asynchronous save (utils/checkpoint.py::AsyncSaver): the
+            # seconds each save blocked the loop and the worker's write
+            "save_seconds": {k: [ln["ckpt"][k] for ln in a_lines
+                                 if "ckpt" in ln]
+                             for k in ("blocked", "write")}}
 
 
 def sample_twice(cfg, workdir: Path) -> dict:

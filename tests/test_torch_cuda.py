@@ -1188,3 +1188,58 @@ def test_dump_leaves_the_loop_state_as_it_was(cuda_device, tmp_path):
     assert after[0].keys() == before[0].keys()
     for k, v in before[0].items():
         assert torch.equal(v, after[0][k]), k
+
+
+def test_native_gather_feeds_the_host_batcher_step_to_the_same_bits(
+        cuda_device, tmp_path, monkeypatch):
+    """Two steps of the flagship at batch 4 through train.loop.train on
+    the host batcher's path (data.device_corpus off, HostFeed's pinned
+    copies): its clips gathered by the native row gather
+    (data/native.py::gather_rows) and by numpy's fancy index end in the
+    same checkpoint, to the bit."""
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.data import corpus
+    from audiogan_tpu_torch.data import native
+    from audiogan_tpu_torch.tools.step_checks import same_checkpoint
+    from audiogan_tpu_torch.train.loop import train
+    cfg = apply_overrides(get_preset("wgan_gp_b64"), [
+        "train.batch_size=4", "data.device_corpus=false",
+        "train.log_every=1"]).validate()
+    calls, gather = [], native.gather_rows
+
+    def counted(*a, **k):
+        calls.append(1)
+        return gather(*a, **k)
+    monkeypatch.setattr(corpus.native, "gather_rows", counted)
+    train(cfg, tmp_path / "native", 2, device=cuda_device,
+          log=lambda _: None, tensorboard=False)
+    assert len(calls) >= 2
+    monkeypatch.setattr(corpus.native, "gather_rows",
+                        native.gather_rows_plain)
+    train(cfg, tmp_path / "numpy", 2, device=cuda_device,
+          log=lambda _: None, tensorboard=False)
+    assert same_checkpoint(tmp_path / "native" / "ckpt" / "2.pt",
+                           tmp_path / "numpy" / "ckpt" / "2.pt") > 0
+
+
+def test_async_save_on_the_card_holds_the_state_it_was_given(cuda_device,
+                                                             tmp_path):
+    """utils/checkpoint.py::AsyncSaver on the card: a save handed off
+    while the next step runs (the fetch through pinned memory on a side
+    stream) writes the state as it was at the save, to the bit: the file
+    a synchronous save of that state writes."""
+    from audiogan_tpu_torch.tools.step_checks import same_checkpoint
+    from audiogan_tpu_torch.utils import checkpoint as ckpt
+    cfg, state, step, args = _graph_case("wgan_gp_b64", [], cuda_device)
+    step(state, *args)
+    ckpt.save(ckpt.make_manager(tmp_path / "sync"), state)
+    done = []
+    saver = ckpt.AsyncSaver(ckpt.make_manager(tmp_path / "async"),
+                            cuda_device, on_complete=done.append)
+    saver.save(state)
+    step(state, *args)
+    saver.join()
+    assert [r["step"] for r in done] == [1]
+    assert same_checkpoint(tmp_path / "sync" / "ckpt" / "1.pt",
+                           tmp_path / "async" / "ckpt" / "1.pt") > 0

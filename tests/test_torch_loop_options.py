@@ -13,8 +13,7 @@ counterpart of the reference's step_optimized_hlo.txt
 every conv of the step (K1' and K1 calls at the counts the step's
 structure gives, one aten convolution each in their plain forms) and
 Adam's foreach update; metrics.jsonl and the checkpoints equal a run
-without the dump. On more than one process dump_hlo raises
-NotImplementedError before any file is written.
+without the dump. On a multi-process mesh: tests/test_torch_step_graph_mesh.py.
 """
 
 import dataclasses
@@ -23,8 +22,7 @@ import json
 import pytest
 import torch
 
-from audiogan_tpu_torch.cli import main
-from audiogan_tpu_torch.config import Config, MeshCfg
+from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.tools.step_checks import (conv_step_launches,
                                                   same_bits, state_parts)
 from audiogan_tpu_torch.train import loop
@@ -112,19 +110,3 @@ def test_dump_hlo_lists_the_step_on_the_cpu(tmp_path):
     n_adam = _cfg().loss.n_critic + 1
     assert ops.count("aten._foreach_addcdiv_.ScalarList") == n_adam
     assert ops.count("aten._foreach_lerp_.Scalar") == n_adam
-
-
-@pytest.mark.parametrize("entry", ["loop", "cli"])
-def test_dump_hlo_on_two_processes_raises(tmp_path, monkeypatch, entry):
-    """dump_hlo at dp=2 (two processes announced, no group joined yet)
-    raises NotImplementedError before any file is written."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    cfg = dataclasses.replace(_cfg(dump_hlo=True), mesh=MeshCfg(dp=2))
-    with pytest.raises(NotImplementedError, match="train.dump_hlo"):
-        if entry == "loop":
-            loop.train(cfg, tmp_path, 1, device="cpu")
-        else:
-            main(["train", "--preset", "tiny_sc09", "--device", "cpu",
-                  "--set", "train.dump_hlo=true", "--set", "mesh.dp=2",
-                  "--workdir", str(tmp_path)])
-    assert not any(tmp_path.iterdir())

@@ -19,7 +19,8 @@ import torch
 
 from audiogan_tpu_torch.config import Config, MeshCfg
 from audiogan_tpu_torch.parallel.sharded_corpus import (local_shard,
-                                                        pad_clips_to_shards)
+                                                        pad_clips_to_shards,
+                                                        plan_step)
 from audiogan_tpu_torch.parallel.mesh import DataMesh
 from audiogan_tpu_torch.tools import dp_check
 from audiogan_tpu_torch.tools.step_checks import same_bits, state_parts
@@ -170,6 +171,21 @@ def test_loop_sharded_dp1_equals_replicated(tmp_path, corpus):
               for mode in ("replicate", "shard")]
     for a, b in zip(states[0].d.parameters(), states[1].d.parameters()):
         assert torch.equal(a, b)
+
+
+def test_one_rank_plan_is_the_row_of_the_resident_block():
+    """At dp=1 the plan of a step is its row of the index block, taken
+    where the block lies (on the card, no host copy); host indices are
+    copied to the device as before."""
+    block = torch.arange(3 * 2 * 4).reshape(3, 2, 4)
+    plan = plan_step(block[1], 24, DataMesh(1, 0), torch.device("cpu"))
+    assert plan.send.data_ptr() == block[1].data_ptr()
+    assert (plan.n_send, plan.n_recv, plan.place, plan.shape) == \
+        ([], [], None, (2, 4))
+    host = plan_step(block[1].numpy().astype(np.int32), 24, DataMesh(1, 0),
+                     torch.device("cpu"))
+    assert host.send.dtype == torch.long
+    assert torch.equal(host.send, block[1].reshape(-1))
 
 
 def test_auto_shards_when_replicated_does_not_fit(four):
