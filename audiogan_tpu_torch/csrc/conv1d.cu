@@ -13,56 +13,44 @@
 // Layouts are the JAX package's: x [B, T, Cin], w [K, Cin, Cout],
 // bias [Cout], y [B, t_out, Cout] (NWC).
 //
-// What bounds it on an H100 (989 TFLOP/s bf16 tensor, 3.35 TB/s HBM): the
-// WaveGAN critic's layers 1-4 and the generator's dx (Cin, Cout >= 64) do
-// hundreds of flops per byte and are bound by operations; the critic's
-// layer 0 and G4's dx (one channel in, 25 taps) do ~25 flops per byte and
-// are bound by bytes. Two paths, chosen by kernels/conv.py::
-// conv1d_tensor_core, a pure function of dtype and shape:
+// What bounds it on an H100 (989 TFLOP/s bf16 tensor, 67 TFLOP/s f32 on
+// the CUDA cores, 3.35 TB/s HBM): the WaveGAN critic's layers 1-4 and the
+// generator's dx (Cin, Cout >= 64) do hundreds of flops per byte and are
+// bound by operations, on the tensor cores in bf16 and on the CUDA cores
+// in f32 (the cp and tp steps, resample_22k); the critic's layer 0 and
+// G4's dx (one channel in, 25 taps) do ~25 flops per byte and sit near
+// the byte bound. Two paths, chosen by kernels/conv.py::conv1d_tensor_core,
+// a pure function of dtype and shape:
 //  * conv1d_tc_launch: bf16 with Cin, Cout >= 64 (multiples of 8) and
 //    T % s == 0, the implicit GEMM on the tensor cores of
 //    csrc/igemm_tc.cuh. x viewed as [B, T/s, s, Cin] holds tap j of
 //    output t at packed row t + qq, phase pp (j - pad_lo = qq*s + pp), so
 //    the depth is the k-step table kernels/conv.py::conv1d_ksteps builds,
 //    and rows outside [0, T/s) are the pads, zero-filled by TMA;
-//  * conv1d_launch: f32, and the rest, the CUDA-core tilings of
-//    csrc/rowconv_tiles.cuh (f32 staging and FMAs; the s-sample row
-//    packing of the TPU kernel; short rows stack batch elements; a
-//    one-channel tile for Cin < 8).
+//  * conv1d_launch: f32, and the rest, the CUDA-core kernels of
+//    csrc/conv_cc.cuh with the plan of kernels/conv.py::conv1d_cc_plan:
+//    an implicit GEMM with M over (element, output row) flattened across
+//    the batch, a cp.async ring and 8 x 8 outputs a thread, so a short cp
+//    or tp slice fills its tiles and the FMAs run while the next stage
+//    loads (tap j of output t reads x row t*s + j - pad_lo, any t_in % s,
+//    rows outside x zero); for Cin < 8 a tile that stages its whole x
+//    window and every tap once.
 
 #include "igemm_tc.cuh"
-#include "rowconv_tiles.cuh"
-
-using namespace rowconv;
+#include "conv_cc.cuh"
 
 extern "C" {
 
 // Returns a cudaError_t code (0 = launched). Pointers are device pointers
-// of contiguous tensors; dtype 0 = float32, 1 = bfloat16 for x, w, bias, y.
+// of contiguous tensors; dtype 0 = float32, 1 = bfloat16 for x, w, bias, y;
+// plan from kernels/conv.py::conv1d_cc_plan.
 int conv1d_launch(const void* x, const void* w, const void* bias, void* y,
-                  int batch, int t_in, int cin, int cout, int k, int stride,
-                  int pad_lo, int pad_hi, int act, float slope, int dtype,
+                  int batch, int t_in, int cin, int cout, int k,
+                  const int* plan, int act, float slope, int dtype,
                   void* stream) {
-  if (batch <= 0 || t_in <= 0 || cin <= 0 || cout <= 0 || k <= 0 ||
-      stride <= 0 || pad_lo < 0 || pad_hi < 0 || act < ACT_NONE ||
-      act > ACT_TANH)
-    return (int)cudaErrorInvalidValue;
-  Conv1dGeom g;
-  g.batch = batch; g.t = g.tp = t_in; g.offs = nullptr;
-  g.cin = cin; g.cout = cout; g.k = k;
-  g.s = stride; g.pad_lo = pad_lo; g.act = act; g.slope = slope;
-  const int span = t_in + pad_lo + pad_hi - k;
-  if (span < 0) return (int)cudaErrorInvalidValue;
-  g.t_out = span / stride + 1;
-  g.q_taps = (k + stride - 1) / stride;
-  g.nb = g.seg_len = g.rows_seg = 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return (int)dispatch_conv1d_tile<false, float>(x, w, bias, y, g, st);
-  if (dtype == DT_BF16)
-    return (int)dispatch_conv1d_tile<false, __nv_bfloat16>(x, w, bias, y, g,
-                                                           st);
-  return (int)cudaErrorInvalidValue;
+  return (int)convcc::launch<false, true>(x, w, bias, y, batch, t_in, cin,
+                                          cout, k, plan, act, slope, dtype,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core path, bf16 only: x [B, t_in, cin] with t_in % stride ==

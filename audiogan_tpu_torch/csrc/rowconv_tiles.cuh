@@ -1,25 +1,27 @@
-// The CUDA-core tilings of the row convs: f32 FMAs over tiles staged in
-// shared memory as f32. One source for four kernels:
+// The CUDA-core tiles of the fused shuffle sites' convs, K6 (sconv1d)
+// and K7 (sconvt1d, csrc/sconv.cu), in f32 and in the bf16 geometries
+// off their tensor-core path: f32 FMAs over tiles staged in shared memory
+// as f32, each batch element's rows read (K6) or written (K7) at a
+// per-element row offset offs[b]; K6 masks in z-space and K7 writes the
+// 2*rad rows outside each window as zeros.
 //
-//  * conv1d (K1', csrc/conv1d.cu) and convt1d (K1, csrc/convt1d.cu)
-//    instantiate the no-offset form (kOffset = false) for f32 and for the
-//    bf16 geometries outside the tensor-core path (csrc/igemm_tc.cuh);
-//  * sconv1d (K6) and sconvt1d (K7, csrc/sconv.cu) instantiate the offset
-//    form (kOffset = true): each batch element's rows are read (K6) or
-//    written (K7) at a per-element row offset offs[b], K6 masks in z-space
-//    and K7 writes the 2*rad rows outside each window as zeros.
-//
-// With kOffset = false the offset code is compiled out, so K1 and K1'
-// run the arithmetic of their first design unchanged.
+// They are the row-conv tiles of the port's first design (PR 4/5, PR 7),
+// which K1 and K1' ran too until their CUDA-core path was redesigned for
+// Hopper (csrc/conv_cc.cuh: M flattened across the batch, a cp.async
+// ring, 8 x 8 outputs a thread, one-channel kernels that stage x once).
+// What bounds these: each block stages its chunk synchronously between
+// two barriers, holds 4 x 4 or 4 x 8 outputs a thread, and (K7) runs one
+// batch element and one phase. A preset's bf16 step runs K6 and K7 on the
+// tensor cores; only f32 (the parity phase's fused flagship) and odd
+// shapes come here, so these stay as they were.
 //
 // conv1d: y[b, t, o] = act(bias[o] + sum_{j < K} sum_c z[b, t*s + j - pad_lo, c] * w[j, c, o])
-//   z = x (no offset), or z[b, i] = xp[b, i + offs[b]] for 0 <= i < t,
-//   0 elsewhere (offset). Packed row R holds z[R*s : R*s + s], so tap
-//   j = q*s + p of output t reads packed row t + q at phase p.
+//   z[b, i] = xp[b, i + offs[b]] for 0 <= i < t, 0 elsewhere. Packed row
+//   R holds z[R*s : R*s + s], so tap j = q*s + p of output t reads packed
+//   row t + q at phase p.
 // convT: u[b, m*s + rho, o] = sum_tau sum_c x_pad[b, m + tau, c] * w[j(tau, rho), c, o]
 //   j(tau, rho) = pad_lo - rho + (q_min + tau) * s (outside [0, K): no
-//   term); y = act(u + bias) (no offset), or y[b, t + offs[b]] = u[b, t]
-//   (offset, no bias, no act).
+//   term); y[b, t + offs[b]] = u[b, t] (no bias, no act).
 #pragma once
 
 #include "conv_common.cuh"
@@ -43,7 +45,7 @@ struct Conv1dGeom {
 
 // TM x TO outputs per block, RM x RO per thread. Thread (tm, to) owns local
 // rows tm + i*(TM/RM) and channels o0 + to + j*(TO/RO).
-template <bool kOffset, typename T, int TM, int TO, int RM, int RO, int CK>
+template <typename T, int TM, int TO, int RM, int RO, int CK>
 __global__ void __launch_bounds__((TM / RM) * (TO / RO))
 conv1d_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const T* __restrict__ bias, T* __restrict__ y,
@@ -93,13 +95,9 @@ conv1d_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int i = (t0 + rr) * g.s + p - g.pad_lo;
       float v = 0.f;
       if (b < g.batch && i >= 0 && i < g.t && c0 + c < g.cin) {
-        if constexpr (kOffset) {
-          const int row = i + __ldg(g.offs + b);
-          if (row >= 0 && row < g.tp)
-            v = to_f32(x[((size_t)b * g.tp + row) * g.cin + c0 + c]);
-        } else {
-          v = to_f32(x[((size_t)b * g.t + i) * g.cin + c0 + c]);
-        }
+        const int row = i + __ldg(g.offs + b);
+        if (row >= 0 && row < g.tp)
+          v = to_f32(x[((size_t)b * g.tp + row) * g.cin + c0 + c]);
       }
       xs[(p * CK + c) * xrows + r] = v;
     }
@@ -146,7 +144,7 @@ conv1d_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <bool kOffset, typename T, int TM, int TO, int RM, int RO, int CK>
+template <typename T, int TM, int TO, int RM, int RO, int CK>
 cudaError_t launch_conv1d_tile(const void* x, const void* w, const void* bias,
                                void* y, Conv1dGeom g, cudaStream_t stream) {
   constexpr int NT = (TM / RM) * (TO / RO);
@@ -159,7 +157,7 @@ cudaError_t launch_conv1d_tile(const void* x, const void* w, const void* bias,
   const int n_o = (g.cout + TO - 1) / TO;
   const size_t smem = sizeof(float) * ((size_t)g.s * CK * g.nb * g.rows_seg +
                                        (size_t)g.k * CK * TO);
-  auto kern = conv1d_tile_kernel<kOffset, T, TM, TO, RM, RO, CK>;
+  auto kern = conv1d_tile_kernel<T, TM, TO, RM, RO, CK>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -176,17 +174,17 @@ cudaError_t launch_conv1d_tile(const void* x, const void* w, const void* bias,
 
 // Tile choice from the layer's shape: one input channel, short rows, or
 // the rest.
-template <bool kOffset, typename T>
+template <typename T>
 cudaError_t dispatch_conv1d_tile(const void* x, const void* w,
                                  const void* bias, void* y,
                                  const Conv1dGeom& g, cudaStream_t stream) {
   if (g.cin < 8)
-    return launch_conv1d_tile<kOffset, T, 128, 64, 8, 4, 1>(x, w, bias, y, g,
+    return launch_conv1d_tile<T, 128, 64, 8, 4, 1>(x, w, bias, y, g,
                                                             stream);
   if (g.t_out <= 32)
-    return launch_conv1d_tile<kOffset, T, 64, 128, 4, 8, 8>(x, w, bias, y, g,
+    return launch_conv1d_tile<T, 64, 128, 4, 8, 8>(x, w, bias, y, g,
                                                             stream);
-  return launch_conv1d_tile<kOffset, T, 64, 64, 4, 4, 8>(x, w, bias, y, g,
+  return launch_conv1d_tile<T, 64, 64, 4, 4, 8>(x, w, bias, y, g,
                                                          stream);
 }
 
@@ -205,7 +203,7 @@ struct ConvTGeom {
 // (tm, to) owns rows m0 + tm + i*(TM/RM) and channels o0 + to +
 // j*(TO/RO): the strided maps make neighbouring threads read neighbouring
 // shared words and write neighbouring output channels.
-template <bool kOffset, typename T, int TM, int TO, int RM, int RO, int CK>
+template <typename T, int TM, int TO, int RM, int RO, int CK>
 __global__ void __launch_bounds__((TM / RM) * (TO / RO))
 convt1d_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ bias, T* __restrict__ y,
@@ -225,21 +223,17 @@ convt1d_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x;
   const int tm = tid / OT, to = tid % OT;
   const T* xb = x + (size_t)b * g.t_in * g.cin;
-  T* yb = nullptr;
-  int off = 0;
-  if constexpr (kOffset) {
-    yb = y + (size_t)b * g.out_rows * g.cout;
-    off = __ldg(g.offs + b);
-    // the 2*rad rows outside the window [off, off + out_len): zeros,
-    // written once per (element, Cout tile) by the first m-tile's rho = 0
-    // block
-    if (blockIdx.y == 0 && rho == 0) {
-      for (int e = tid; e < 2 * g.rad * TO; e += NT) {
-        const int zr = e / TO, o = o0 + e % TO;
-        const int row = zr < off ? zr : g.out_len + zr;
-        if (o < g.cout && row < g.out_rows)
-          store(yb + (size_t)row * g.cout + o, 0.f);
-      }
+  T* yb = y + (size_t)b * g.out_rows * g.cout;
+  const int off = __ldg(g.offs + b);
+  // the 2*rad rows outside the window [off, off + out_len): zeros,
+  // written once per (element, Cout tile) by the first m-tile's rho = 0
+  // block
+  if (blockIdx.y == 0 && rho == 0) {
+    for (int e = tid; e < 2 * g.rad * TO; e += NT) {
+      const int zr = e / TO, o = o0 + e % TO;
+      const int row = zr < off ? zr : g.out_len + zr;
+      if (o < g.cout && row < g.out_rows)
+        store(yb + (size_t)row * g.cout + o, 0.f);
     }
   }
 
@@ -290,31 +284,20 @@ convt1d_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int i = 0; i < RM; ++i) {
     const int m = m0 + tm + i * MT;
     const int t = m * g.s + rho;
-    if constexpr (kOffset) {
-      // u row t lands at output row t + off
-      const int row = t + off;
-      if (m >= g.m_out || t >= g.out_len || row < 0 || row >= g.out_rows)
-        continue;
-      T* yrow = yb + (size_t)row * g.cout;
+    // u row t lands at output row t + off
+    const int row = t + off;
+    if (m >= g.m_out || t >= g.out_len || row < 0 || row >= g.out_rows)
+      continue;
+    T* yrow = yb + (size_t)row * g.cout;
 #pragma unroll
-      for (int j = 0; j < RO; ++j) {
-        const int o = o0 + to + j * OT;
-        if (o < g.cout) store(yrow + o, acc[i][j]);
-      }
-    } else {
-      if (m >= g.m_out || t >= g.out_len) continue;
-      T* yrow = y + ((size_t)b * g.out_len + t) * g.cout;
-#pragma unroll
-      for (int j = 0; j < RO; ++j) {
-        const int o = o0 + to + j * OT;
-        if (o < g.cout)
-          store(yrow + o, apply_act(acc[i][j] + to_f32(bias[o]), g.act, g.slope));
-      }
+    for (int j = 0; j < RO; ++j) {
+      const int o = o0 + to + j * OT;
+      if (o < g.cout) store(yrow + o, acc[i][j]);
     }
   }
 }
 
-template <bool kOffset, typename T, int TM, int TO, int RM, int RO, int CK>
+template <typename T, int TM, int TO, int RM, int RO, int CK>
 cudaError_t launch_convt1d_tile(const void* x, const void* w,
                                 const void* bias, void* y, int batch,
                                 const ConvTGeom& g, cudaStream_t stream) {
@@ -323,7 +306,7 @@ cudaError_t launch_convt1d_tile(const void* x, const void* w,
   const int n_ot = (g.cout + TO - 1) / TO;
   const size_t smem = sizeof(float) * ((size_t)(TM + g.q_taps - 1) * CK +
                                        (size_t)g.q_taps * CK * TO);
-  auto kern = convt1d_tile_kernel<kOffset, T, TM, TO, RM, RO, CK>;
+  auto kern = convt1d_tile_kernel<T, TM, TO, RM, RO, CK>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -340,17 +323,17 @@ cudaError_t launch_convt1d_tile(const void* x, const void* w,
 }
 
 // Tile choice from the layer's shape: thin Cout, short m, or the rest.
-template <bool kOffset, typename T>
+template <typename T>
 cudaError_t dispatch_convt1d_tile(const void* x, const void* w,
                                   const void* bias, void* y, int batch,
                                   const ConvTGeom& g, cudaStream_t stream) {
   if (g.cout <= 16)
-    return launch_convt1d_tile<kOffset, T, 1024, 1, 4, 1, 8>(
+    return launch_convt1d_tile<T, 1024, 1, 4, 1, 8>(
         x, w, bias, y, batch, g, stream);
   if (g.m_out <= 16)
-    return launch_convt1d_tile<kOffset, T, 16, 128, 2, 4, 8>(
+    return launch_convt1d_tile<T, 16, 128, 2, 4, 8>(
         x, w, bias, y, batch, g, stream);
-  return launch_convt1d_tile<kOffset, T, 64, 64, 4, 4, 16>(x, w, bias, y,
+  return launch_convt1d_tile<T, 64, 64, 4, 4, 16>(x, w, bias, y,
                                                            batch, g, stream);
 }
 

@@ -48,8 +48,8 @@
 //    no code. The plan is conv1d's on z (kernels/conv.py::conv1d_tc_plan),
 //    stacking elements only where their rows are a multiple of 8;
 //  * sconv1d_launch: f32, and the rest, the CUDA-core tiles of
-//    csrc/rowconv_tiles.cuh in their offset form (f32 FMAs over tiles
-//    staged as f32, the z-space mask applied while staging).
+//    csrc/rowconv_tiles.cuh (f32 FMAs over tiles staged as f32, the
+//    z-space mask applied while staging).
 // K7:
 //  * sconvt1d_tc_launch: bf16 with convT's tensor-core shapes (Cc, Co >=
 //    64, multiples of 8, s <= 16): K1's implicit GEMM of csrc/igemm_tc.cuh
@@ -94,9 +94,9 @@ int sconv1d_launch(const void* xp, const void* w, const void* bias,
   g.nb = g.seg_len = g.rows_seg = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return (int)dispatch_conv1d_tile<true, float>(xp, w, bias, y, g, st);
+    return (int)dispatch_conv1d_tile<float>(xp, w, bias, y, g, st);
   if (dtype == DT_BF16)
-    return (int)dispatch_conv1d_tile<true, __nv_bfloat16>(xp, w, bias, y, g,
+    return (int)dispatch_conv1d_tile<__nv_bfloat16>(xp, w, bias, y, g,
                                                           st);
   return (int)cudaErrorInvalidValue;
 }
@@ -131,10 +131,10 @@ int sconvt1d_launch(const void* ct, const void* wf, const int* offs, void* y,
   if (g.q_taps <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return (int)dispatch_convt1d_tile<true, float>(ct, wf, nullptr, y, batch,
+    return (int)dispatch_convt1d_tile<float>(ct, wf, nullptr, y, batch,
                                                    g, st);
   if (dtype == DT_BF16)
-    return (int)dispatch_convt1d_tile<true, __nv_bfloat16>(ct, wf, nullptr, y,
+    return (int)dispatch_convt1d_tile<__nv_bfloat16>(ct, wf, nullptr, y,
                                                            batch, g, st);
   return (int)cudaErrorInvalidValue;
 }

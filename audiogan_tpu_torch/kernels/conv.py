@@ -14,10 +14,13 @@ Each kernel has two paths, and which one a call takes is a pure function
 of dtype and shape (``conv1d_tensor_core``, ``convt_tensor_core``): bf16
 with Cin, Cout >= 64 runs the implicit GEMM on the tensor cores
 (``csrc/igemm_tc.cuh``: TMA, an mbarrier ring, wgmma), everything else
-the CUDA-core tiles (``csrc/rowconv_tiles.cuh``). The tensor-core kernel
-does no tap arithmetic of its own: ``conv1d_ksteps`` / ``convt_ksteps``
-list its k-steps and ``tc_plan`` packs them with the tile shape into the
-int32 array the kernel is launched with.
+the CUDA-core kernels (``csrc/conv_cc.cuh``: an f32-FMA implicit GEMM
+with M flattened across the batch and a cp.async ring, and two kernels
+for one channel in or out). Neither does tap arithmetic of its own:
+``conv1d_ksteps`` / ``convt_ksteps`` list the tensor-core k-steps and
+``tc_plan`` packs them with the tile shape into the int32 array the
+kernel is launched with; ``cc_plan`` does the same for the CUDA cores
+(kind, tile, and each phase's (tap, row shift) list).
 
 conv1d is the strided cross-correlation of x with ``pad_lo`` zeros in
 front and ``pad_hi`` behind:
@@ -248,6 +251,202 @@ def convt_tc_plan(batch: int, cout: int, k: int, stride: int, pad_lo: int,
     return plan
 
 
+# The CUDA-core kernels of csrc/conv_cc.cuh: the implicit GEMM's tiles
+# (TM rows x TN channels, 256 threads), thin_cout's threads per block (4
+# rows m each; N = (phase, Cout) in groups of NP) and thin_cin's rows per
+# block (64 channels).
+CC_GEMM, CC_THIN_COUT, CC_THIN_CIN = 0, 1, 2
+CC_TILES = ((128, 128), (128, 64), (64, 64), (128, 32))
+CC_THIN_COUT_THREADS = (128, 256)
+CC_THIN_NP = (4, 8, 16)
+CC_THIN_CIN_ROWS = (256, 128)
+CC_THIN_CHUNK = 8        # thin_cout's channels per chunk
+CC_THIN_CIN_N = 64       # thin_cin's output channels per block
+CC_MAX_PHASES = 64
+CC_MAX_STEPS = 256
+CC_THIN_SMEM = 200 * 1024   # a thin kernel only where it fits the SM
+CC_ONE_BLOCK_SMEM = 113 * 1024   # above it one block per SM
+CC_MIN_BLOCKS = 132      # thin kernels: one block per SM, else the
+                         # smaller tile
+CC_GEMM_MIN_BLOCKS = 220  # the gemm's wide tile (128 x 128; 128 x 64 for
+                          # Cout <= 64, 128 x 32 for Cout <= 32) where its
+                          # grid gives most SMs two blocks, else 64 x 64
+                          # (PERF.md §6, PR 20)
+
+
+def thin_cout_smem(itemsize: int, threads: int, np_: int, cin: int,
+                   q_taps: int) -> int:
+    """Shared bytes of thin_cout_kernel: every tap of its columns in f32,
+    then two x stages of 4*threads + q_taps - 1 rows at a pitch of 48
+    (f32) or 16 (bf16) bytes."""
+    chunks = _cdiv(cin, CC_THIN_CHUNK)
+    pitch = 12 if itemsize == 4 else 8
+    return (4 * chunks * CC_THIN_CHUNK * q_taps * np_
+            + 2 * (4 * threads + q_taps - 1) * pitch * itemsize)
+
+
+def thin_cin_smem(rows: int, cin: int, k: int, s: int) -> int:
+    """Shared bytes of thin_cin_kernel: the taps [Cin][K][64] and the x
+    window [Cin][s][rows + (K-1)//s], all f32."""
+    return 4 * (cin * k * CC_THIN_CIN_N + cin * s * (rows + (k - 1) // s))
+
+
+def _thin_np(s: int, cout: int) -> int:
+    """thin_cout's columns per block: the (phase, Cout) pairs in the
+    smallest group that holds them, else groups of 16."""
+    return next((n for n in CC_THIN_NP if n >= s * cout), CC_THIN_NP[-1])
+
+
+def cc_kind(family: str, dtype, cin: int, cout: int, k: int, s: int,
+            pad_lo: int) -> int:
+    """Which CUDA-core kernel runs a geometry: thin_cout for a convT with
+    Cout <= 16, thin_cin for a conv1d with Cin < 8 (each where the shared
+    memory of its smaller tile fits), else the implicit GEMM."""
+    if family == "convt1d" and cout <= 16:
+        q_taps = _convt_phase_range(k, s, pad_lo)[1]
+        if thin_cout_smem(dtype.itemsize, min(CC_THIN_COUT_THREADS),
+                          _thin_np(s, cout), cin, q_taps) <= CC_THIN_SMEM:
+            return CC_THIN_COUT
+    if family == "conv1d" and cin < 8 and thin_cin_smem(
+            min(CC_THIN_CIN_ROWS), cin, k, s) <= CC_THIN_SMEM:
+        return CC_THIN_CIN
+    return CC_GEMM
+
+
+def cc_steps(family: str, k: int, s: int, pad_lo: int, kind: int
+             ) -> list[list[tuple[int, int]]]:
+    """Each output phase's k-steps (tap j, row shift): output row m of the
+    phase reads x row m * s_in + shift. conv1d: one phase, every tap, shift
+    j - pad_lo. convT: phase rho's taps j = pad_lo - rho + q*s at shift q,
+    those outside [0, K) left out, or on thin_cout kept as -1 (multiplied
+    as zeros, so every phase lists the same q_taps shifts)."""
+    if family == "conv1d":
+        return [[(j, j - pad_lo) for j in range(k)]]
+    q_min, q_taps = _convt_phase_range(k, s, pad_lo)
+    phases = []
+    for rho in range(s):
+        taps = [(pad_lo - rho + q * s, q) for q in range(q_min, q_min + q_taps)]
+        if kind == CC_THIN_COUT:
+            phases.append([(j if 0 <= j < k else -1, q) for j, q in taps])
+        else:
+            phases.append([(j, q) for j, q in taps if 0 <= j < k])
+    return phases
+
+
+def cc_blocks(kind: int, tile: int, batch: int, m_lim: int, n_phase: int,
+              cout: int) -> int:
+    """Blocks of a CUDA-core launch at the given tile."""
+    if kind == CC_GEMM:
+        tm, tn = CC_TILES[tile]
+        return _cdiv(batch * m_lim, tm) * n_phase * _cdiv(cout, tn)
+    if kind == CC_THIN_COUT:
+        return (_cdiv(m_lim, 4 * CC_THIN_COUT_THREADS[tile]) * batch
+                * _cdiv(n_phase * cout, _thin_np(n_phase, cout)))
+    return (_cdiv(m_lim, CC_THIN_CIN_ROWS[tile]) * batch
+            * _cdiv(cout, CC_THIN_CIN_N))
+
+
+def _gemm_wide(cout: int) -> int:
+    """The gemm's widest tile that Cout fills at least half of."""
+    return 0 if cout > 64 else 1 if cout > 32 else 3
+
+
+def cc_tiles(kind: int, cout: int) -> list[int]:
+    """The candidate tiles of a kind: the gemm's 64-wide tiles and its
+    widest one for Cout (kernels/conv.py::_gemm_wide)."""
+    if kind == CC_GEMM:
+        return sorted({1, 2, _gemm_wide(cout)})
+    return list(range(len(CC_THIN_COUT_THREADS if kind == CC_THIN_COUT
+                          else CC_THIN_CIN_ROWS)))
+
+
+def cc_tile(kind: int, batch: int, m_lim: int, n_phase: int, cout: int,
+            smem_of=None) -> int:
+    """The gemm: its widest tile for Cout where that grid has
+    CC_GEMM_MIN_BLOCKS blocks, else 64 x 64. (Every tile timed at every
+    cp and tp geometry on the card, PERF.md §6, PR 20: 128 x 128 was the
+    fastest or within 8% of it wherever its grid had 220 blocks or more,
+    and 4-70% slower wherever it had 180 or fewer, where 64 x 64 was the
+    fastest or within 11% of it.) The thin kernels: the first tile whose
+    grid gives every SM a block (and, for thin_cout, whose shared memory
+    leaves room for two blocks per SM); failing that the one with the
+    most blocks."""
+    if kind == CC_GEMM:
+        wide = _gemm_wide(cout)
+        return wide if cc_blocks(kind, wide, batch, m_lim, n_phase, cout) \
+            >= CC_GEMM_MIN_BLOCKS else 2
+    tiles = cc_tiles(kind, cout)
+    for t in tiles:
+        if cc_blocks(kind, t, batch, m_lim, n_phase, cout) >= CC_MIN_BLOCKS \
+                and (smem_of is None or smem_of(t) <= CC_ONE_BLOCK_SMEM):
+            return t
+    return max(tiles, key=lambda t: (cc_blocks(kind, t, batch, m_lim,
+                                               n_phase, cout), -t))
+
+
+def cc_plan(family: str, dtype, batch: int, t_in: int, cin: int, cout: int,
+            k: int, s: int, pad_lo: int, out_len: int,
+            tile: int | None = None) -> np.ndarray:
+    """The int32 array the CUDA-core kernels are launched with: kind, tile,
+    ck (the gemm's channel chunk, thin_cout's NP, thin_cin's Cin), m_lim
+    (output rows m per element and phase), s_in, s_out, out_len, n_phase,
+    n_steps, start[n_phase + 1], tap[n_steps], shift[n_steps]. out_len is
+    conv1d's t_out. ck keeps the first design's summation order: 8, or 16
+    on a convT gemm with more than 16 rows m."""
+    kind = cc_kind(family, dtype, cin, cout, k, s, pad_lo)
+    phases = cc_steps(family, k, s, pad_lo, kind)
+    if family == "conv1d":
+        m_lim, s_in, s_out = out_len, s, 1
+    else:
+        m_lim, s_in, s_out = _cdiv(out_len, s), 1, s
+    smem_of = None
+    if kind == CC_GEMM:
+        ck = 16 if family == "convt1d" and cout > 16 and m_lim > 16 else 8
+    elif kind == CC_THIN_COUT:
+        ck = _thin_np(s, cout)
+        smem_of = lambda t: thin_cout_smem(dtype.itemsize,
+                                           CC_THIN_COUT_THREADS[t], ck, cin,
+                                           len(phases[0]))
+    else:
+        ck = cin
+    if tile is None:
+        tile = cc_tile(kind, batch, m_lim, len(phases), cout, smem_of)
+    steps = [st for ph in phases for st in ph]
+    if len(phases) > CC_MAX_PHASES or len(steps) > CC_MAX_STEPS or not steps:
+        raise ValueError(f"{len(phases)} phases, {len(steps)} k-steps: "
+                         f"outside the kernel's {CC_MAX_PHASES}, "
+                         f"{CC_MAX_STEPS}")
+    start = np.cumsum([0] + [len(ph) for ph in phases]).tolist()
+    return np.asarray([kind, tile, ck, m_lim, s_in, s_out, out_len,
+                       len(phases), len(steps), *start,
+                       *(st[0] for st in steps), *(st[1] for st in steps)],
+                      dtype=np.int32)
+
+
+@functools.cache
+def conv1d_cc_plan(dtype, batch: int, t_in: int, cin: int, cout: int, k: int,
+                   stride: int, pad_lo: int, pad_hi: int,
+                   tile: int | None = None) -> np.ndarray:
+    """conv1d's CUDA-core plan (read-only; cached, the wrapper asks every
+    call)."""
+    plan = cc_plan("conv1d", dtype, batch, t_in, cin, cout, k, stride, pad_lo,
+                   conv1d_t_out(t_in, k, stride, pad_lo, pad_hi), tile)
+    plan.flags.writeable = False
+    return plan
+
+
+@functools.cache
+def convt_cc_plan(dtype, batch: int, t_in: int, cin: int, cout: int, k: int,
+                  stride: int, pad_lo: int, out_len: int,
+                  tile: int | None = None) -> np.ndarray:
+    """convT's CUDA-core plan (read-only; cached, the wrapper asks every
+    call)."""
+    plan = cc_plan("convt1d", dtype, batch, t_in, cin, cout, k, stride,
+                   pad_lo, out_len, tile)
+    plan.flags.writeable = False
+    return plan
+
+
 def _apply_act(r: torch.Tensor, act: str, slope: float) -> torch.Tensor:
     """The kernel's epilogue; leaky_relu keeps r where r >= 0."""
     if act == "relu":
@@ -370,8 +569,9 @@ def _conv1d_lib() -> ctypes.CDLL:
     """csrc/conv1d.cu, built at first use, with its C signatures."""
     lib = _build.load("conv1d")
     lib.conv1d_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+           ctypes.c_int, ctypes.c_void_p])
     lib.conv1d_launch.restype = ctypes.c_int
     lib.conv1d_tc_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
@@ -396,6 +596,18 @@ def _conv1d_tc(x, w, b, y, stride, plan, act, slope) -> None:
     _raise_on(lib, err, "conv1d")
 
 
+def _cc_launch(lib, name, x, w, b, y, plan, act, slope) -> None:
+    """One launch of a CUDA-core kernel (conv1d's or convT's library) with
+    the given plan."""
+    bsz, t_in, cin = x.shape
+    k, _, cout = w.shape
+    plan, ptr = _c_plan(plan)
+    err = getattr(lib, f"{name}_launch")(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t_in,
+        cin, cout, k, ptr, ACTS[act], slope, _DTYPES[x.dtype], _stream(x))
+    _raise_on(lib, err, name)
+
+
 @hooks.kernel
 def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               stride: int = 1, pad_lo: int = 0, pad_hi: int = 0,
@@ -407,7 +619,8 @@ def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     never falls back. pad_hi may be below what SAME gives (autodiff's dx
     of a convT asks for max(hi, 0)). Where ``conv1d_tensor_core`` holds,
     the tensor-core path runs (counted in ``launches_tc``), else the
-    CUDA-core tiles (``launches_cc``); ``launches`` counts both.
+    CUDA-core kernels of ``conv1d_cc_plan`` (``launches_cc``);
+    ``launches`` counts both.
     """
     if act not in ACTS:
         raise ValueError(f"act={act!r} not in {sorted(ACTS)}")
@@ -425,12 +638,9 @@ def conv1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    act, slope)
         conv1d_ba.launches_tc += 1
     else:
-        lib = _conv1d_lib()
-        err = lib.conv1d_launch(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz,
-            t_in, cin, cout, k, stride, pad_lo, pad_hi, ACTS[act], slope,
-            _DTYPES[x.dtype], _stream(x))
-        _raise_on(lib, err, "conv1d")
+        _cc_launch(_conv1d_lib(), "conv1d", x, w, b, y,
+                   conv1d_cc_plan(x.dtype, bsz, t_in, cin, cout, k, stride,
+                                  pad_lo, pad_hi), act, slope)
         conv1d_ba.launches_cc += 1
     conv1d_ba.launches += 1
     return y
@@ -444,8 +654,9 @@ def _kernel_lib() -> ctypes.CDLL:
     """csrc/convt1d.cu, built at first use, with its C signatures."""
     lib = _build.load("convt1d")
     lib.convt1d_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+           ctypes.c_int, ctypes.c_void_p])
     lib.convt1d_launch.restype = ctypes.c_int
     lib.convt1d_tc_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -470,17 +681,6 @@ def _convt_tc(x, w, b, y, plan, act, slope) -> None:
     _raise_on(lib, err, "convt1d")
 
 
-def _launch(x, w, b, y, stride, pad_lo, out_len, act, slope) -> None:
-    lib = _kernel_lib()
-    bsz, t_in, cin = x.shape
-    k, _, cout = w.shape
-    err = lib.convt1d_launch(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, t_in,
-        cin, cout, k, stride, pad_lo, out_len, ACTS[act], slope,
-        _DTYPES[x.dtype], _stream(x))
-    _raise_on(lib, err, "convt1d")
-
-
 @hooks.kernel
 def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         stride: int, pad_lo: int | None = None,
@@ -493,7 +693,8 @@ def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     raises; it never falls back. Defaults as in the JAX function:
     pad_lo = (K-1)//2, out_len = T*stride. Where ``convt_tensor_core``
     holds, the tensor-core path runs (counted in ``launches_tc``), else
-    the CUDA-core tiles (``launches_cc``); ``launches`` counts both.
+    the CUDA-core kernels of ``convt_cc_plan`` (``launches_cc``);
+    ``launches`` counts both.
     """
     k = w.shape[0]
     pad_lo = (k - 1) // 2 if pad_lo is None else pad_lo
@@ -514,7 +715,10 @@ def conv_transpose1d_ba(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   act, slope)
         conv_transpose1d_ba.launches_tc += 1
     else:
-        _launch(x, w, b, y, stride, pad_lo, out_len, act, slope)
+        bsz, t_in, cin = x.shape
+        _cc_launch(_kernel_lib(), "convt1d", x, w, b, y,
+                   convt_cc_plan(x.dtype, bsz, t_in, cin, cout, k, stride,
+                                 pad_lo, out_len), act, slope)
         conv_transpose1d_ba.launches_cc += 1
     conv_transpose1d_ba.launches += 1
     return y

@@ -35,9 +35,9 @@ class Kernel(NamedTuple):
 # the port's kernels by their wrappers' names
 KERNELS = {
     "conv_transpose1d_ba": Kernel(
-        "K1", ("igemm_kernel", "convt1d_tile_kernel"), "convt1d"),
+        "K1", ("igemm_kernel", "gemm_kernel", "thin_cout_kernel"), "convt1d"),
     "conv1d_ba": Kernel(
-        "K1'", ("igemm_kernel", "conv1d_tile_kernel"), "conv1d"),
+        "K1'", ("igemm_kernel", "gemm_kernel", "thin_cin_kernel"), "conv1d"),
     "ingest_fused": Kernel("K2", ("ingest_cluster_kernel",), "ingest"),
     "gru_cell_fwd": Kernel(
         "K3", ("gru_cell_kernel", "gru_cell_tc_kernel"), "gru_cell"),

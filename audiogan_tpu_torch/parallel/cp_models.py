@@ -17,7 +17,7 @@ carry handoff the persistent scan kernel cannot cross (so K3-K5 are not
 on it either); and nothing is cast to ``train.dtype``: the reference's
 cp functions take the f32 parameters and the f32 ingest as they are, so
 its cp step computes in f32 for a bf16 configuration too, and so does
-this one (the convs run K1/K1''s f32 CUDA-core tiles).
+this one (the convs run K1/K1''s f32 CUDA-core kernels).
 
 Which parameters are used only after the sum over cp matters to the
 step (train/cp_step.py): the heads' biases and the projection

@@ -23,7 +23,7 @@ As in the reference: the critic ignores ``model.fused_shuffle_sites``
 on this path), and nothing is cast to ``train.dtype``: the reference's
 function takes the f32 parameters as they are, so its tp step computes
 the critic in f32 for a bf16 configuration, and so does this one (the
-convs run K1/K1''s f32 CUDA-core tiles on the channel slices).
+convs run K1/K1''s f32 CUDA-core kernels on the channel slices).
 
 Which parameters are used through a slice, and which only after a sum
 over tp, matters to the step (train/tp_step.py): ``sliced_params``.

@@ -45,7 +45,8 @@ non-zero:
             gradients. In bf16, 16 of the 20 convt1d and conv1d
             geometries, every K6 and K7 geometry and both K3 cells run the
             tensor-core path (each line names its path), two launches to
-            the same bits; f32 and the one-channel layers the CUDA-core
+            the same bits; f32 and the one-channel layers K1/K1''s
+            CUDA-core kernels (csrc/conv_cc.cuh), K6/K7's CUDA-core
             tiles. Ingest (K2) two launches to the same bits too. The
             same for music_44k_dp16's 20 conv geometries (G forward B=64,
             critic forward and dx 2B=128, G's dx B=64) and its ingest
@@ -215,9 +216,13 @@ non-zero:
             K1's and K1''s rows at music_44k_dp16's geometries (each
             tile of the tensor-core path) and K2's at its ingest go into
             the kernels line's "music" entries; their rows at music's
-            cp=4 geometries, f32 (the CUDA-core tiles, the bound at the
-            f32 rate), into its "cp" entries; at the flagship's tp=2
-            geometries, f32, into its "tp" entries.
+            cp=4 geometries, f32 (the CUDA-core kernels of
+            csrc/conv_cc.cuh, the bound at the f32 rate), into its "cp"
+            entries; at the flagship's tp=2 geometries, f32, into its
+            "tp" entries. A row on the CUDA-core path names its kernel
+            and tile (gemm TM x TN and channel chunk, thin_cout's rows
+            and NP, thin_cin's rows) and times every candidate tile of
+            its kind (tile_ms).
 
 It prints the kernels line, then, last, {"ok": true, "device": {...}}.
 Without a CUDA device, or without the audiogan_tpu_torch package beside it,
@@ -2217,9 +2222,9 @@ def read_trace(path: Path, cfg) -> dict:
     host = Counter(e["name"] for e in events
                    if e.get("cat") == "user_annotation")
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    conv = sum(any(f in k for f in ("igemm_kernel", "conv1d_tile_kernel",
-                                    "convt1d_tile_kernel"))
-               for k in kernels)
+    k1 = {f for w in ("conv1d_ba", "conv_transpose1d_ba")
+          for f in hooks.KERNELS[w].functions}
+    conv = sum(any(f in k for f in k1) for k in kernels)
     steps = sorted(k for k in host if k.startswith("train_step "))
     window = [f"train_step {s}" for s in range(*TRACE_WINDOW)]
     views = 1 if cfg.train.fused_d_views else 2
@@ -2485,6 +2490,54 @@ def tc_tile_times(family: str, L: dict, x, w, b) -> dict:
     return out
 
 
+def cc_plan_of(family: str, L: dict, dtype, tile=None):
+    """The CUDA-core plan the wrapper runs at geometry L (or at `tile`)."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    if family == "conv1d":
+        return kconv.conv1d_cc_plan(dtype, L["b"], L["t_in"], L["cin"],
+                                    L["cout"], L["k"], L["s"], L["lo"],
+                                    L["hi"], tile)
+    return kconv.convt_cc_plan(dtype, L["b"], L["t_in"], L["cin"], L["cout"],
+                               L["k"], L["s"], L["pad_lo"], L["out_len"],
+                               tile)
+
+
+def cc_tile_name(plan) -> str:
+    """kind and tile of a CUDA-core plan: gemm TM x TN, thin_cout's
+    threads (4 rows m each) and NP, thin_cin's rows."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    kind, tile = int(plan[0]), int(plan[1])
+    if kind == kconv.CC_GEMM:
+        tm, tn = kconv.CC_TILES[tile]
+        return f"gemm {tm}x{tn} ck{int(plan[2])}"
+    if kind == kconv.CC_THIN_COUT:
+        return (f"thin_cout {4 * kconv.CC_THIN_COUT_THREADS[tile]} rows "
+                f"np{int(plan[2])}")
+    return f"thin_cin {kconv.CC_THIN_CIN_ROWS[tile]} rows"
+
+
+def cc_tile_times(family: str, L: dict, x, w, b) -> dict:
+    """The CUDA-core kernel at each candidate tile of its kind
+    (kernels/conv.py::cc_tiles), launched with that tile's plan: the
+    measured alternatives to the tile the wrapper picks. Not counted
+    launches."""
+    from audiogan_tpu_torch.kernels import conv as kconv
+    lib = kconv._conv1d_lib() if family == "conv1d" else kconv._kernel_lib()
+    out_len = (kconv.conv1d_t_out(L["t_in"], L["k"], L["s"], L["lo"],
+                                  L["hi"]) if family == "conv1d"
+               else L["out_len"])
+    y = torch.empty(L["b"], out_len, L["cout"], dtype=x.dtype,
+                    device=x.device)
+    kind = int(cc_plan_of(family, L, x.dtype)[0])
+    out = {}
+    for tile in kconv.cc_tiles(kind, L["cout"]):
+        plan = cc_plan_of(family, L, x.dtype, tile)
+        out[cc_tile_name(plan)] = cuda_ms(
+            lambda: kconv._cc_launch(lib, family, x, w, b, y, plan, L["act"],
+                                     0.2))
+    return out
+
+
 def time_conv(family: str, layers: list[dict], dev, errs: dict,
               dtype=torch.bfloat16) -> list:
     """Each geometry in dtype (bf16; f32 where the path computes in it:
@@ -2514,6 +2567,9 @@ def time_conv(family: str, layers: list[dict], dev, errs: dict,
             extra = {"tile": f"{64 * nwg}x{bn}", "rows": int(plan[1]),
                      "nb": int(plan[2]),
                      "tile_ms": tc_tile_times(family, L, x, w, b)}
+        else:
+            extra = {"tile": cc_tile_name(cc_plan_of(family, L, dtype)),
+                     "tile_ms": cc_tile_times(family, L, x, w, b)}
         rows.append({
             "geometry": L["name"], "x": list(x.shape), "cout": L["cout"],
             "path": "tensor_core" if tc else "cuda_core", **extra,
@@ -2793,7 +2849,7 @@ def main() -> int:
          "convt1d_tc": sum(tensor_core("convt1d", L) for L in m_g_fwd)})
     phase("serve", t0, **mserved)
     t0 = time.time()
-    # resample_22k's G is f32: every convT on the CUDA-core tiles
+    # resample_22k's G is f32: every convT on the CUDA-core kernels
     rsampler, rserved = serve_phase(
         rcfg, dev, counters,
         {"convt1d": len(rcfg.model.strides),
@@ -2972,7 +3028,7 @@ def main() -> int:
                 "library_ms": sum(r["library_ms"] for r in rows_c),
                 "per": f"one rank of music_44k_dp16 at cp={CP_MUSIC}: the "
                        "halo-extended geometries (critic 2B=128, G B=64), "
-                       "f32, the CUDA-core tiles",
+                       "f32, the CUDA-core kernels",
                 "launches_per_rank_step_cp2": cp_run[
                     "launches_per_rank_step"][cfg.name][0][family],
                 "geometries": rows_c}
@@ -2984,7 +3040,7 @@ def main() -> int:
                 "library_ms": sum(r["library_ms"] for r in rows_t),
                 "per": f"one rank of the flagship's critic at tp={TP_RANKS}:"
                        " the channel-sliced geometries (2B=128) and their "
-                       "dx, f32, the CUDA-core tiles",
+                       "dx, f32, the CUDA-core kernels",
                 "launches_per_rank_step_tp2": tp_run[
                     "launches_per_rank_step"][cfg.name][0][family],
                 "geometries": rows_t}

@@ -167,7 +167,7 @@ def _tc(family: str, L: dict) -> bool:
 def test_flagship_dispatch_takes_the_tensor_cores_at_sixteen_of_twenty():
     """wgan_gp_b64, bf16: every layer with Cin, Cout >= 64 on the tensor
     cores; D0 fwd, G4 dx (one channel in), G4 fwd and D0 dx (one out) on
-    the CUDA-core tiles. f32 never takes the tensor cores."""
+    the CUDA-core kernels. f32 never takes the tensor cores."""
     layers = _flagship()
     got = {L["name"]: _tc(fam, L) for fam, ls in layers.items() for L in ls}
     assert len(got) == 20

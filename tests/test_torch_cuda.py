@@ -29,11 +29,11 @@ from audiogan_tpu_torch.kernels import sconv as tsconv
 pytestmark = pytest.mark.cuda
 
 # (k, stride, t_in, cin, cout, pad_lo, out_len): ragged m tiles, ragged
-# Cout tiles, each of the kernel's three tile shapes, strides other than 4
+# Cout tiles, each CUDA-core kernel (gemm, thin_cout), strides other than 4
 GEOMS = [
-    (25, 4, 16, 96, 130, None, None),     # short m: 16-row tiles
-    (25, 4, 70, 40, 64, None, None),      # 64 x 64 tiles, ragged m
-    (25, 4, 300, 24, 1, None, None),      # thin Cout: 1024-row tiles
+    (25, 4, 16, 96, 130, None, None),     # short m: elements share a tile
+    (25, 4, 70, 40, 64, None, None),      # ragged m
+    (25, 4, 300, 24, 1, None, None),      # thin Cout: every phase a block
     (9, 4, 33, 17, 20, None, None),       # pad_lo=4
     (25, 7, 21, 32, 33, None, None),
     (25, 5, 9, 33, 7, None, None),
@@ -108,14 +108,14 @@ def test_kernel_rejects_mixed_devices(cuda_device):
                                   .transpose(0, 1), w, b, 4)
 
 
-# (k, stride, t_in, cin, cout, pad_lo, pad_hi): each of the conv1d
-# kernel's three tile shapes (Cin < 8; short rows with several batch
-# elements per block; the rest), ragged t and Cout tiles, strides 2-4,
-# pads below SAME (autodiff's dx of a convT) and pad_lo >= stride
+# (k, stride, t_in, cin, cout, pad_lo, pad_hi): each CUDA-core kernel
+# (thin_cin for Cin < 8; the gemm, short rows of several batch elements in
+# one tile), ragged t and Cout tiles, strides 2-4, pads below SAME
+# (autodiff's dx of a convT) and pad_lo >= stride
 CONV1D_GEOMS = [
-    (25, 4, 1000, 1, 64, 10, 11),       # Cin < 8: one-channel chunks
-    (25, 4, 64, 96, 130, 10, 11),       # t_out 16: 4 elements per block
-    (25, 4, 80, 40, 33, 10, 11),        # t_out 20: 3 elements per block
+    (25, 4, 1000, 1, 64, 10, 11),       # Cin < 8: thin_cin
+    (25, 4, 64, 96, 130, 10, 11),       # t_out 16: elements share a tile
+    (25, 4, 80, 40, 33, 10, 11),        # t_out 20
     (25, 4, 300, 24, 70, 12, 9),        # ragged t and Cout tiles
     (9, 2, 70, 17, 20, 4, 0),
     (9, 3, 50, 8, 40, 4, 4),
@@ -128,7 +128,7 @@ CONV1D_GEOMS = [
     (25, 4, 1000, 64, 72, 12, 9),       # ragged t tiles, hi below SAME
     (9, 2, 70, 72, 64, 4, 0),           # ragged channel chunk, stride 2
     (5, 1, 40, 64, 64, 2, 2),           # stride 1
-    (25, 4, 41, 64, 64, 14, 0),         # T % s != 0: the CUDA-core tiles
+    (25, 4, 41, 64, 64, 14, 0),         # T % s != 0: the CUDA-core gemm
 ]
 
 
@@ -212,7 +212,7 @@ def test_tensor_core_tiles_match_plain_and_repeat_bit_for_bit(
 
 def test_tensor_core_path_refuses_a_misaligned_tensor(cuda_device):
     """TMA reads 16-byte aligned bases: the wrapper raises, it does not
-    reroute to the CUDA-core tiles."""
+    reroute to the CUDA-core kernels."""
     x, w, b = _inputs((25, 4, 65, 64, 64, None, None), torch.bfloat16,
                       cuda_device)
     shifted = x.flatten()[1:1 + 3 * 64 * 64].view(3, 64, 64)
@@ -223,6 +223,99 @@ def test_tensor_core_path_refuses_a_misaligned_tensor(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         tconv.conv_transpose1d_ba(shifted, w, b, 4)
     assert tconv.conv1d_ba.launches == before
+
+
+# the CUDA-core kernels (csrc/conv_cc.cuh) at every tile of their kind:
+# (family, (k, stride, t_in, cin, cout, pad_lo, pad_hi or out_len))
+CC_TILE_CASES = [
+    ("convt1d", (25, 3, 12, 40, 72, 24, 58)),     # gemm: rows of 3 elements
+                                                  # per tile, a cp D4 dx's pads
+    ("convt1d", (9, 4, 4, 33, 40, 4, 16)),        # gemm, m <= 16, Cin % 4 != 0
+    ("convt1d", (25, 7, 300, 24, 1, 15, 2097)),   # thin_cout, every phase
+    ("convt1d", (25, 4, 40, 36, 16, 14, 160)),    # thin_cout, N in groups
+    ("convt1d", (25, 4, 64, 128, 32, 14, 256)),   # gemm, Cout 32
+    ("conv1d", (25, 7, 61, 24, 40, 0, 0)),        # gemm, t_in % s != 0
+    ("conv1d", (25, 5, 40, 40, 130, 12, 8)),      # gemm, short rows, ragged
+    ("conv1d", (9, 2, 70, 20, 30, 4, 0)),         # gemm, Cout 30: scalar
+                                                  # stores
+    ("conv1d", (25, 4, 777, 1, 70, 10, 11)),      # thin_cin
+    ("conv1d", (25, 7, 300, 3, 33, 9, 9)),        # thin_cin, three channels
+]
+
+
+def _cc_call(family, geom, tile, device, dtype, x=None):
+    """(kernel with the CUDA-core plan of `tile`, plain form) on the same
+    inputs; x replaces the input (another copy of the same values)."""
+    k, s, t_in, cin, cout, lo, hi_or_len = geom
+    x0, w, b = _inputs((k, s, t_in, cin, cout, None, None), dtype, device,
+                       seed=4)
+    x = x0 if x is None else x
+    if family == "conv1d":
+        t_out = tconv.conv1d_t_out(t_in, k, s, lo, hi_or_len)
+        plan = tconv.conv1d_cc_plan(dtype, 3, t_in, cin, cout, k, s, lo,
+                                    hi_or_len, tile)
+        lib, y_len = tconv._conv1d_lib(), t_out
+        want = tconv.conv1d_ba_plain(x0.float(), w.float(), b.float(), s, lo,
+                                     hi_or_len, "leaky_relu", 0.3)
+    else:
+        plan = tconv.convt_cc_plan(dtype, 3, t_in, cin, cout, k, s, lo,
+                                   hi_or_len, tile)
+        lib, y_len = tconv._kernel_lib(), hi_or_len
+        want = tconv.conv_transpose1d_ba_plain(
+            x0.float(), w.float(), b.float(), s, lo, hi_or_len, "leaky_relu",
+            0.3)
+
+    def kernel():
+        y = torch.full((3, y_len, cout), float("nan"), dtype=dtype,
+                       device=device)
+        tconv._cc_launch(lib, family, x, w, b, y, plan, "leaky_relu", 0.3)
+        return y
+    return kernel, want, x0, int(plan[0])
+
+
+def _cc_cases():
+    out = []
+    for family, geom in CC_TILE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            kind = tconv.cc_kind(family, dtype, geom[3], geom[4], geom[0],
+                                 geom[1], geom[5])
+            out += [(family, geom, dtype, t)
+                    for t in tconv.cc_tiles(kind, geom[4])]
+    return out
+
+
+@pytest.mark.parametrize("family,geom,dtype,tile", _cc_cases(), ids=str)
+def test_cuda_core_tiles_match_plain_and_repeat_bit_for_bit(
+        cuda_device, family, geom, dtype, tile):
+    """Every tile of each CUDA-core kernel against the plain form (f32
+    within 1e-4, bf16 within 2e-2 of the peak: the same sums in another
+    order, one rounding of the output), every output written (the output
+    starts as NaN), and two launches give the same bits."""
+    kernel, want, _, _ = _cc_call(family, geom, tile, cuda_device, dtype)
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (first.float() - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("family,geom,dtype", [
+    ("convt1d", CC_TILE_CASES[0][1], torch.float32),    # gemm, cp.async
+    ("convt1d", CC_TILE_CASES[2][1], torch.bfloat16),   # thin_cout, cp.async
+    ("conv1d", CC_TILE_CASES[4][1], torch.float32)], ids=str)
+def test_cuda_core_staging_route_keeps_the_bits(cuda_device, family, geom,
+                                                dtype):
+    """A tensor off a 16-byte boundary stages through plain loads instead
+    of cp.async; the sums run in the same order, so the bits are the
+    same as from an aligned copy."""
+    kernel, _, x0, _ = _cc_call(family, geom, None, cuda_device, dtype)
+    shifted = torch.empty(x0.numel() + 1, dtype=dtype, device=cuda_device)
+    x1 = shifted[1:].view(x0.shape)
+    x1.copy_(x0)
+    assert x1.data_ptr() % 16
+    off, _, _, _ = _cc_call(family, geom, None, cuda_device, dtype, x=x1)
+    assert torch.equal(kernel(), off())
 
 
 @pytest.mark.parametrize("mu", [255.0, 0.0])
