@@ -308,6 +308,13 @@ def main(argv: list[str] | None = None) -> int:
                   device=resolve_device(args.device),
                   log=lambda line: print(line, flush=True),
                   tensorboard=not args.no_tensorboard)
+        except Exception:
+            if torch.distributed.is_initialized() and \
+                    torch.distributed.get_world_size() > 1:
+                from audiogan_tpu_torch.parallel.multihost import \
+                    exit_after_failure
+                exit_after_failure()
+            raise
         finally:
             if torch.distributed.is_initialized():
                 torch.distributed.destroy_process_group()

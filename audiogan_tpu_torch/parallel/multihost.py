@@ -16,13 +16,17 @@ asked for the CPU, or the one the caller names (two processes on one
 card must use gloo: NCCL refuses two ranks on one device). A failed
 initialization raises; nothing falls back to another backend. Init and
 every collective have a finite timeout, so a rank that dies fails the
-run instead of hanging it.
+run instead of hanging it. A rank whose run raised leaves the group
+without tearing it down (``exit_after_failure``): its peers may wait in
+a collective it never joins, and NCCL's teardown would wait for them.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import sys
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -77,6 +81,20 @@ def maybe_initialize_distributed(device: torch.device,
     dist.init_process_group(
         backend, timeout=datetime.timedelta(seconds=timeout_s), **kw)
     return True
+
+
+def exit_after_failure() -> None:
+    """Ends this rank of a group of several processes after its run
+    raised: prints the error and exits with code 1 at once, without the
+    group's teardown. Its peers may wait in a collective this rank never
+    joins (a step that raised half way, train.dump_hlo's warm-up), and
+    destroying an NCCL group waits for them: on four H100s a rank whose
+    dump failed in its warm-up hung there. Under torchrun this exit ends
+    the peers; else the group's timeout does."""
+    traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(1)
 
 
 def make_train_mesh(cfg: Config, device: torch.device) -> DataMesh:

@@ -47,12 +47,18 @@ With ``--graph``, train.dump_hlo on a multi-process mesh instead:
 ``cli train --set train.dump_hlo=true`` under torchrun for each of
 GRAPH_CASES (the flagship at dp=4 replicated, with mesh.fsdp and on the
 sharded corpus, music at dp=2 x cp=2, the flagship at dp=2 x tp=2,
-cond_gru_sc09 at dp=4), each rank capturing its step with its NCCL
-kernels (train/step_graph.py): every rank's replay equal to its eager
-step, its NCCL kernel nodes equal to its collectives and to
-tools/step_checks.py::step_collectives, and the run's step-2 record and
-checkpoint equal to a run without the dump, to the bit; each rank's node
-counts and capture seconds reported.
+cond_gru_sc09 at dp=4, music at dp=1 x cp=4 on the sharded corpus, whose
+one data replica takes each step's indices where they lie), each rank
+capturing its step with its NCCL kernels (train/step_graph.py): every
+rank's replay equal to its eager step, its NCCL kernel nodes equal to its
+collectives and to tools/step_checks.py::step_collectives, and the run's
+step-2 record and checkpoint equal to a run without the dump, to the bit;
+each rank's node counts and capture seconds reported. Then GRAPH_FAULT:
+the flagship at dp=4 whose rank 2 fails in the dump's warm-up
+(``--dump_fault RANK DIR`` as the first arguments, then cli's: a worker
+of this file that runs cli's main): torchrun ends non-zero within
+FAULT_RUN_S, its failure summary and the rank's own error naming rank 2,
+every rank ended non-zero and no worker left.
 
 With ``--tp``, tensor parallelism instead, on the four cards: for the
 flagship the f32 parity protocol at tp=4 (B=8, shuffle off,
@@ -72,16 +78,20 @@ killed after its step-3 checkpoint and resumed, to the bit. With
 flagship step from the seeded init at dp=2 x cp=2 and dp=2 x tp=2, each
 with and without mesh.fsdp: every metric finite and the ranks equal.
 
-With ``--cp``, context parallelism instead, for music_44k_dp16 on the
-four cards: an f32 step at cp=4 (B=8, shuffle off) against the cp step
-at cp=1 on rank 0's card from one warm state (the parity bounds); at
-cp=4 and at dp=2 x cp=2 the preset's batch (its cp step computes in
-f32) twice to the same bits on every rank, K1', K1 and K2 launches and
-each conv's route per rank, one profiled step (the halo all-gathers'
-and the all-reduces' NCCL device time) and each rank's peak memory,
-beside the dp=1 step's on rank 0's card in the preset's dtype and in
-f32; then ``cli train`` at both meshes (steps/s of steps 11-30) and a
-cp=4 run killed after its step-3 checkpoint and resumed, to the bit.
+With ``--cp``, context parallelism instead, for each of ``--presets``
+among CP_PRESETS (music_44k_dp16 alone by default; cond_gru_sc09 and
+dual_stft; ``cp_plan``) on the four cards: two f32 steps at cp=4 (B=8,
+shuffle off) against the cp step at cp=1 on rank 0's card from one warm
+state (the parity bounds; beyond one, main exits non-zero after the
+rest has run); at cp=4 and at dp=2 x cp=2 the preset's batch (its cp
+step computes in f32) twice to the same bits on every rank, the
+kernels' launches per rank (``cp_step_launches``: K1', K1, K2 one per
+real view, none of K3-K7) and each conv's route, one profiled step (the
+halo all-gathers' and the all-reduces' NCCL device time) and each rank's
+peak memory, beside the dp=1 step's on rank 0's card in the preset's
+dtype and in f32; then per preset ``cli train`` at both meshes (steps/s
+of steps 11-30) and a cp=4 run killed after its step-3 checkpoint and
+resumed, to the bit.
 """
 
 from __future__ import annotations
@@ -106,8 +116,8 @@ import torch.distributed as dist
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.parallel.mesh import DataMesh, make_mesh
-from audiogan_tpu_torch.parallel.multihost import \
-    maybe_initialize_distributed
+from audiogan_tpu_torch.parallel.multihost import (
+    exit_after_failure, maybe_initialize_distributed)
 from audiogan_tpu_torch.tools.step_checks import (
     PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS, PARITY_STEPS, bits_of,
     compare_blobs, conv_step_launches, frozen, hold_bf16_to_dp1,
@@ -126,6 +136,7 @@ COUNTERS = (("conv1d", "conv", "conv1d_ba", "launches"),
             ("ingest", "ingest", "ingest_fused", "launches"),
             ("sconv1d", "sconv", "sconv1d_ba", "launches"),
             ("sconvt1d", "sconv", "sconvt1d", "launches"),
+            ("gru_cell", "gru", "gru_cell_fwd", "launches"),
             ("gru_scan", "gru", "gru_scan_fwd", "launches"),
             ("gru_scan_bwd", "gru", "gru_scan_bwd", "launches"),
             ("sconv1d_tc", "sconv", "sconv1d_ba", "launches_tc"),
@@ -882,6 +893,22 @@ def preset_checks(cfg, dev, out: Path) -> dict | None:
 
 
 CP_MESHES = ((1, 4), (2, 2))
+# --cp: the presets it takes (--presets), music alone by default
+CP_PRESETS = ("music_44k_dp16", "cond_gru_sc09", "dual_stft")
+
+
+def cp_plan(presets: list[str] | None, ranks: int) -> dict:
+    """What ``--cp`` runs for ``presets`` (None: CP_PRESETS' first, music
+    alone) on ``ranks`` cards: each preset's in-process checks
+    (``cp_checks``), its cli train rates at cp = ranks and at dp=2 x
+    cp = ranks / 2, and its cp = ranks run killed and resumed."""
+    presets = list(presets or CP_PRESETS[:1])
+    bad = sorted(set(presets) - set(CP_PRESETS))
+    if bad:
+        raise ValueError(f"--cp takes {list(CP_PRESETS)}, not {bad}")
+    return {"checks": presets,
+            "rates": [(p, cp) for p in presets for cp in (ranks, ranks // 2)],
+            "resume": [(p, ranks) for p in presets]}
 
 
 def cp_checks(cfg, dev, out: Path) -> dict | None:
@@ -918,9 +945,12 @@ def cp_checks(cfg, dev, out: Path) -> dict | None:
     got = steps_job(dev, on(c32, cp=world).to_json(), f32_batches,
                     state=warm)
     if rank == 0:
-        report["f32"] = compare_blobs(got, want, PARITY_REL_TOL,
-                                      PARITY_PARAM_TOL)
-        report["f32"].update(batch=F32_BATCH, cp=world)
+        # held to the parity bounds: an error beyond one is reported under
+        # "failed", and main exits non-zero after the other checks and
+        # measurements have run
+        report["f32"] = parity_errors(got, want)
+        report["f32"].update(batch=F32_BATCH, cp=world,
+                             failed=report["f32"]["over"])
     if len(set(_gather(digest(got)))) != 1:
         raise AssertionError(f"{cfg.name} f32 cp: ranks differ")
     del want, got
@@ -1072,10 +1102,8 @@ def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
                 cp: bool = False, tp: bool = False,
                 dryrun: bool = False) -> int:
     """--worker: one rank under torchrun (NCCL on cuda:LOCAL_RANK); its
-    workdirs under ``work``. A rank
-    that fails exits at once, without the group's teardown: it would wait
-    for ranks still in a collective, and torchrun ends the others when
-    one exits."""
+    workdirs under ``work``. A rank that fails exits at once
+    (multihost.exit_after_failure), and torchrun ends the others."""
     from audiogan_tpu_torch.device import resolve_device
     dev = resolve_device(None)
     maybe_initialize_distributed(dev, "nccl", WORKER_TIMEOUT_S)
@@ -1103,10 +1131,7 @@ def worker_main(work: Path, presets: tuple[str, ...] = PRESETS,
                 print(json.dumps({"dryrun": rep,
                                   "seconds": time.time() - t0}), flush=True)
     except Exception:
-        traceback.print_exc()
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(1)
+        exit_after_failure()
     dist.destroy_process_group()
     return 0
 
@@ -1288,8 +1313,16 @@ GRAPH_CASES = (
     ("wgan_gp_b64", 4, 1, 1, ("data.device_corpus_shard=shard",)),
     ("music_44k_dp16", 2, 2, 1, ()),
     ("wgan_gp_b64", 2, 1, 2, ()),
-    ("cond_gru_sc09", 4, 1, 1, ()))
+    ("cond_gru_sc09", 4, 1, 1, ()),
+    # one data replica: the sharded corpus's plan is the indices
+    # themselves, a row of the resident block where it lies
+    ("music_44k_dp16", 1, 4, 1, ("data.device_corpus_shard=shard",)))
 GRAPH_STEPS = 2
+# --graph's failing rank: (preset, dp, cp, tp, the rank whose dump's
+# warm-up fails); the run must end on every rank within FAULT_RUN_S, far
+# inside the group's timeout (parallel/multihost.py::TIMEOUT_S)
+GRAPH_FAULT = ("wgan_gp_b64", 4, 1, 1, 2)
+FAULT_RUN_S = 240
 
 
 def graph_case(name: str, dp: int, cp: int, tp: int, sets: tuple,
@@ -1363,24 +1396,152 @@ def graph_case(name: str, dp: int, cp: int, tp: int, sets: tuple,
             "dump_run_seconds": secs}
 
 
+def inject_dump_fault() -> None:
+    """Makes train.dump_hlo's first run of the step in this process (on
+    the card its warm-up, train/step_graph.py::dump_step) raise before
+    it issues a collective, so the peers of this rank wait in theirs."""
+    from audiogan_tpu_torch.train import loop
+    dump = loop.dump_step
+
+    def failing(cfg, state, step_fn, *args, **kw):
+        def step(*a, **k):
+            raise RuntimeError("a fault injected into the dump's first run "
+                               "of the step")
+        return dump(cfg, state, step, *args, **kw)
+    loop.dump_step = failing
+
+
+def dump_fault_worker(fail_rank: int, pid_dir: str, argv: list[str]) -> int:
+    """``--dump_fault RANK DIR``: one rank of ``cli train`` (``argv``:
+    cli's arguments) under torchrun, with ``inject_dump_fault`` on rank
+    RANK; each rank writes its pid to DIR/rank<r>.pid first, and prints
+    its threads' stacks on SIGUSR1 (``graph_fault_case`` sends it to a
+    run that outlives its limit)."""
+    import faulthandler
+
+    from audiogan_tpu_torch import cli
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    rank = int(os.environ["RANK"])
+    (Path(pid_dir) / f"rank{rank}.pid").write_text(str(os.getpid()))
+    if rank == fail_rank:
+        inject_dump_fault()
+    return cli.main(argv)
+
+
+def graph_fault_case(name: str, dp: int, cp: int, tp: int, fail_rank: int,
+                     base: Path, *extra: str) -> dict:
+    """``cli train --set train.dump_hlo=true`` of the preset on the mesh
+    under torchrun with rank ``fail_rank``'s dump failing in its warm-up
+    (``--dump_fault``); ``extra``: more cli arguments. Holds that torchrun
+    exits non-zero within FAULT_RUN_S (else its tree is killed and the
+    case fails), that its failure summary names ``fail_rank`` with a
+    non-zero exit code, that every other rank exited non-zero too or was
+    ended by torchrun's closing signal, that no worker outlives it and
+    that the failing rank's error names it (train/step_graph.py). Reports
+    each rank's end and that error line."""
+    import re
+    ranks = dp * cp * tp
+    tag = f"{name}_dp{dp}_cp{cp}_tp{tp}_fault{fail_rank}"
+    extra_sets = ["train.dump_hlo=true", "train.log_every=1",
+                  "train.sample_every=0"]
+    pid_dir = base / f"{tag}_pids"
+    pid_dir.mkdir(parents=True, exist_ok=True)
+    cmd = _torchrun(ranks, "-m", "audiogan_tpu_torch.tools.dp_check",
+                    "--dump_fault", fail_rank, pid_dir, *_cli(
+                        "--preset", name, "--total_steps", GRAPH_STEPS,
+                        *_mesh_sets(ranks, cp, tp),
+                        *[a for item in extra_sets for a in ("--set", item)],
+                        "--workdir", base / tag, *extra)[2:])
+    log = base / f"{tag}_run"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    out, err = (log.with_name(f"{log.name}.{k}") for k in ("out", "err"))
+    t0 = time.time()
+    with out.open("w") as fo, err.open("w") as fe:
+        fe.write(" ".join(map(str, cmd)) + "\n")
+        fe.flush()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fo, stderr=fe,
+                                text=True)
+        try:
+            proc.wait(timeout=FAULT_RUN_S)
+        except subprocess.TimeoutExpired:
+            # where each rank waits, into the log, before the tree goes
+            for f in pid_dir.glob("rank*.pid"):
+                try:
+                    os.kill(int(f.read_text()), signal.SIGUSR1)
+                except ProcessLookupError:
+                    pass
+            time.sleep(5)
+            _kill_tree(proc)
+    secs = time.time() - t0
+    text = err.read_text()
+    pids = {int(f.read_text()): int(f.stem[4:])
+            for f in pid_dir.glob("rank*.pid")}
+    # torchrun's failure summary: each failed rank's exit code and pid
+    failed = {int(r): (int(code), int(pid)) for r, code, pid in re.findall(
+        r"rank\s*:\s*(\d+) \(local_rank: \d+\)\s*exitcode\s*:\s*(-?\d+) "
+        r"\(pid: (\d+)\)", text)}
+    closed = {int(pid) for pid in re.findall(
+        r"process (\d+) (?:closing signal|via signal)", text)}
+    ends = {}
+    for pid, rank in sorted(pids.items(), key=lambda kv: kv[1]):
+        if rank in failed:
+            ends[rank] = f"exit {failed[rank][0]}"
+        elif pid in closed:
+            ends[rank] = "ended by torchrun's closing signal"
+    alive = sorted(pid for pid in pids if _alive(pid))
+    # the failing rank's own error, naming it
+    named = [ln for ln in text.splitlines()
+             if "Error:" in ln and f"rank {fail_rank} " in ln]
+    rep = {"case": tag, "preset": name, "dp": dp, "cp": cp, "tp": tp,
+           "fail_rank": fail_rank, "ranks": ranks, "seconds": secs,
+           "limit_seconds": FAULT_RUN_S, "returncode": proc.returncode,
+           "rank_ends": ends, "failed_ranks": sorted(failed),
+           "alive_after": alive, "error": named[-1:] or None}
+    problems = []
+    if secs > FAULT_RUN_S or proc.returncode in (0, None):
+        problems.append(f"torchrun returned {proc.returncode} after "
+                        f"{secs:.1f} s (limit {FAULT_RUN_S} s)")
+    if failed.get(fail_rank, (0,))[0] == 0:
+        problems.append(f"the summary does not name rank {fail_rank} with "
+                        f"a non-zero exit code: {sorted(failed)}")
+    if sorted(ends) != list(range(ranks)) or any(
+            v == "exit 0" for v in ends.values()):
+        problems.append(f"not every rank ended non-zero: {ends}")
+    if alive:
+        problems.append(f"workers alive after torchrun: {alive}")
+    if not named:
+        problems.append(f"no error names rank {fail_rank}")
+    if problems:
+        raise AssertionError(f"{tag}: {'; '.join(problems)}: "
+                             f"{json.dumps(rep)}\n{out.read_text()[-1000:]}"
+                             f"\n{text[-4000:]}")
+    return rep
+
+
 def graph_checks(base: Path, names: list[str]) -> list[dict]:
     """``graph_case`` of each GRAPH_CASES entry whose preset is in
-    ``names``; the flagship's dp=4 cases share one run without the dump
-    (ZeRO-1 and the sharded corpus train the replicated bits). A case
-    that fails is reported and the next one runs."""
+    ``names``, then ``graph_fault_case`` of GRAPH_FAULT if its preset is;
+    the flagship's dp=4 cases share one run without the dump (ZeRO-1 and
+    the sharded corpus train the replicated bits). A case that fails is
+    reported and the next one runs."""
     out, plain = [], {}
-    for name, dp, cp, tp, sets in GRAPH_CASES:
-        if name not in names:
-            continue
+    cases = [c for c in GRAPH_CASES if c[0] in names]
+    if GRAPH_FAULT[0] in names:
+        cases.append(GRAPH_FAULT)
+    for name, dp, cp, tp, sets in cases:
         key = (name, dp, cp, tp)
         t0 = time.time()
         try:
-            rep = graph_case(name, dp, cp, tp, sets, base, plain.get(key))
-            plain.setdefault(key, base / f"{rep['case']}_plain")
+            if isinstance(sets, int):
+                rep = graph_fault_case(name, dp, cp, tp, sets, base)
+            else:
+                rep = graph_case(name, dp, cp, tp, sets, base,
+                                 plain.get(key))
+                plain.setdefault(key, base / f"{rep['case']}_plain")
         except Exception as err:           # noqa: BLE001 - reported
             rep = {"preset": name, "dp": dp, "cp": cp, "tp": tp,
-                   "sets": list(sets), "failed": f"{type(err).__name__}: "
-                                                 f"{err}"[-3000:]}
+                   "sets": sets, "failed": f"{type(err).__name__}: "
+                                           f"{err}"[-3000:]}
         rep["seconds"] = time.time() - t0
         print(json.dumps({"graph": rep}), flush=True)
         out.append(rep)
@@ -1388,20 +1549,26 @@ def graph_checks(base: Path, names: list[str]) -> list[dict]:
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dump_fault"]:
+        return dump_fault_worker(int(argv[1]), argv[2], argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/dp_check/results",
                     help="where dp_check.jsonl goes (relative to the repo)")
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--presets", nargs="+",
-                    choices=sorted({*DP_PRESETS, *TP_PRESETS}),
+                    choices=sorted({*DP_PRESETS, *TP_PRESETS,
+                                    *CP_PRESETS}),
                     help="the presets to check (default: the mode's)")
     ap.add_argument("--checks_only", action="store_true",
                     help="only the in-process checks: no cli train rates, "
                          "no kill-and-resume")
     ap.add_argument("--cp", action="store_true",
-                    help="context parallelism instead: music_44k_dp16 at "
-                         "cp=4 and at dp=2 x cp=2 (the in-process checks, "
-                         "cli train's rates, a cp=4 run killed and resumed)")
+                    help="context parallelism instead: each of --presets "
+                         f"(of {', '.join(CP_PRESETS)}; default "
+                         "music_44k_dp16 alone) at cp=4 and at dp=2 x cp=2 "
+                         "(the in-process checks, cli train's rates, a cp=4 "
+                         "run killed and resumed)")
     ap.add_argument("--tp", action="store_true",
                     help="tensor parallelism instead: the flagship at "
                          "dp=2 x tp=2 and tp=4, cond_gru_sc09 at dp=2 x "
@@ -1417,8 +1584,10 @@ def main(argv: list[str] | None = None) -> int:
                          "captures each rank's step for the flagship at "
                          "dp=4 (replicated, mesh.fsdp, sharded corpus), "
                          "music at dp=2 x cp=2, the flagship at dp=2 x "
-                         "tp=2 and cond_gru_sc09 at dp=4, each held to a "
-                         "run without the dump")
+                         "tp=2, cond_gru_sc09 at dp=4 and music at dp=1 x "
+                         "cp=4 on the sharded corpus, each held to a run "
+                         "without the dump; then the flagship at dp=4 "
+                         "with rank 2's dump failing in its warm-up")
     ap.add_argument("--worker", action="store_true",
                     help="one rank under torchrun (internal)")
     args = ap.parse_args(argv)
@@ -1428,7 +1597,8 @@ def main(argv: list[str] | None = None) -> int:
     work = ROOT / "build" / "dp_check"
     graph_names = args.presets or sorted({c[0] for c in GRAPH_CASES})
     if args.cp:
-        args.presets = ["music_44k_dp16"]
+        plan = cp_plan(args.presets, args.ranks)
+        args.presets = plan["checks"]
     elif args.presets is None:
         args.presets = (list(TP_PRESETS) if args.tp else [] if args.dryrun
                         else list(PRESETS))
@@ -1492,11 +1662,13 @@ def main(argv: list[str] | None = None) -> int:
                                             work / f"resume_tp{tp}", tp=tp)
                             for tp in (2, args.ranks)])
     elif args.cp:
-        show("rates", [rate(args.presets[0], args.ranks,
-                            work / f"rate_cp{cp}", cp)
-                       for cp in (args.ranks, args.ranks // 2)])
-        show("resume", kill_and_resume(args.ranks, work / "resume",
-                                       args.presets[0], args.ranks))
+        show("rates", [rate(preset, args.ranks,
+                            work / f"rate_{preset}_cp{cp}", cp)
+                       for preset, cp in plan["rates"]])
+        show("resume", [kill_and_resume(args.ranks,
+                                        work / f"resume_{preset}", preset,
+                                        cp)
+                        for preset, cp in plan["resume"]])
     else:
         rates = []
         for preset in args.presets:

@@ -244,14 +244,18 @@ def cp_rank_layers(cfg, batch: int, cp: int) -> tuple[list[dict], list[dict]]:
 
 
 def cp_step_launches(cfg) -> dict:
-    """K1' and K1 launches of one context-parallel step on each rank:
-    the WaveGAN step's structure (``conv_step_launches``), every shuffle
-    site unfused (the cp critic ignores fused_shuffle_sites) and none on
-    the tensor cores (the cp step computes in f32)."""
+    """Kernel launches of one context-parallel step on each rank: K1' and
+    K1 as the WaveGAN step's structure gives them (``conv_step_launches``;
+    the GRU G's upsampling convTs), every shuffle site unfused (the cp
+    critic ignores fused_shuffle_sites, so no K6 or K7) and none on the
+    tensor cores (the cp step computes in f32); no K3, K4 or K5 (the cp
+    GRU G runs the torch-op cell under parallel/halo.py's chunked scan)."""
     import dataclasses
-    return conv_step_launches(cfg.replace(
+    return {**conv_step_launches(cfg.replace(
         model=dataclasses.replace(cfg.model, fused_shuffle_sites=0),
-        train=dataclasses.replace(cfg.train, dtype="float32")))
+        train=dataclasses.replace(cfg.train, dtype="float32"))),
+        "sconv1d": 0, "sconvt1d": 0, "gru_cell": 0, "gru_scan": 0,
+        "gru_scan_bwd": 0}
 
 
 def tp_rank_layers(cfg, batch: int, tp: int

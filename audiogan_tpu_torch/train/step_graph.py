@@ -54,8 +54,10 @@ module, whose collectives every process lowers together
 (audiogan_tpu/train/loop.py:247-261), is the set of every rank's graph:
   warm-up   every rank's eager step, its collectives run for real; it
             also builds the NCCL communicators. A rank that fails here
-            leaves its peers in a collective: the group's timeout ends
-            them (parallel/multihost.py).
+            raises at once, naming itself: its peers wait in a
+            collective it never joins, so no agreement can be reached.
+            Under torchrun its exit ends them; else the group's timeout
+            does (parallel/multihost.py).
   capture   every rank captures its step; NCCL's kernels are recorded,
             not run, with this thread's capture errors only (NCCL's
             watchdog thread queries its events meanwhile). Each
@@ -75,7 +77,8 @@ module, whose collectives every process lowers together
 A gloo group on CUDA tensors stages its collectives through the host,
 which no capture takes: train/loop.py::check_ported raises for it before
 the card is touched, naming NCCL. On the CPU the ranks agree and gather
-in the same way around their op lists.
+in the same way around their op lists; a rank whose step fails raises at
+once, as in the warm-up, and its peers raise at the collective it left.
 """
 
 from __future__ import annotations
@@ -364,6 +367,21 @@ def _agree(failure: str | None) -> None:
                        "with them): " + "; ".join(bad))
 
 
+def _step_failed(where: str, last: str | None,
+                 err: Exception) -> RuntimeError:
+    """The error of a rank whose eager run of the step failed. Its peers
+    may wait in a collective of the step that this rank never joins, so
+    no agreement can be reached (over the default gloo group it would
+    meet their collective, a mismatch that aborts the process): this rank
+    raises at once, naming itself, and its peers end at that collective
+    (gloo's lost connection; on NCCL torchrun's teardown or the group's
+    timeout, parallel/multihost.py)."""
+    at = f" at {last}" if last else ""
+    return RuntimeError(f"train.dump_hlo: the step failed on rank "
+                        f"{world_rank()} of {world_size()} in {where}{at}: "
+                        f"{err!r}")
+
+
 def _check_spmd(ranks: list[dict]) -> bool:
     """Raises unless every rank issues the same collectives (and, on the
     card, the same NCCL kernel nodes): the condition of one SPMD step.
@@ -421,12 +439,18 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
              + (" (sharded corpus)" if sharded else ""))
     if device.type != "cuda":
         watch = _Watch(record_ops=True)
-        failure = None
+        failure = step_error = None
         try:
             with watch:
-                step_fn(work, *args, draws=draws)
+                try:
+                    step_fn(work, *args, draws=draws)
+                except Exception as err:
+                    step_error = err
         except Exception as err:
-            failure = f"the step failed at {watch.last}: {err!r}"
+            failure = f"the step's record failed at {watch.last}: {err!r}"
+        if step_error is not None:
+            raise _step_failed("its step", watch.last, step_error) \
+                from step_error
         _agree(failure)
         calls, _ = _collective_counts(watch.collectives, None)
         summary = {"kind": "aten ops (the CPU has no CUDA graph)",
@@ -458,8 +482,11 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
     # communicators and every cache before any capture
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        eager = _outcome(work, step_fn(work, *args, draws=draws))
+    try:
+        with torch.cuda.stream(side):
+            eager = _outcome(work, step_fn(work, *args, draws=draws))
+    except Exception as err:
+        raise _step_failed("its warm-up", None, err) from err
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     restore(work, pre)

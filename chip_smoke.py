@@ -158,10 +158,15 @@ non-zero:
             the preset's lr, reported beside the bounds. The flagship at
             six seeds (PARITY_SEEDS), its two steps held at seed 60;
             dual_stft (its STFT critic and G's spectral term) at seed 60,
-            held against cp=1 and reported against the plain step. Ranks
-            equal to the bit after every run, K1', K1 and K2 launches
-            per rank held to the step's structure (cp_step_launches,
-            num_views), each conv's route.
+            held against cp=1 and reported against the plain step;
+            cond_gru_sc09 (its conditional GRU G's frame recurrence over
+            the ranks by parallel/halo.py::cp_chunked_scan, the torch-op
+            cell; the conditional cp critic) at seed 80 as in the tp
+            phase, the frozen step held against cp=1 and the plain step.
+            Ranks equal to the bit after every run, the kernels'
+            launches per rank held to the step's structure
+            (cp_step_launches: K1' and K1, no K3-K7; K2 one per real
+            view, num_views), each conv's route.
 6e. tp      tensor parallelism on this card: two gloo ranks, each half
             of the critic's channels (train/tp_step.py: column/row conv
             pairs, one sum over tp per row layer and per head), f32 at
@@ -2944,7 +2949,8 @@ def main() -> int:
     # 6d. context parallelism: two ranks on this card ------------------------
     t0 = time.time()
     cp_run = axis_phase("cp", [(cfg, PARITY_SEEDS, (60,), True),
-                               (dcfg, (60,), (60,), False)], dev)
+                               (dcfg, (60,), (60,), False),
+                               (gcfg, (80,), (), True)], dev)
     if "stft_loss" not in cp_run["last_metrics"][dcfg.name]:
         raise AssertionError("dual_stft at cp=2: no stft_loss")
     phase("cp", t0, card=card, **cp_run)

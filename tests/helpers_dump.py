@@ -8,18 +8,21 @@ import dataclasses
 import torch.distributed as dist
 
 from audiogan_tpu_torch.config import Config
-from audiogan_tpu_torch.tools.dp_check import load_blob, train_job
+from audiogan_tpu_torch.tools.dp_check import (inject_dump_fault, load_blob,
+                                               train_job)
 
 
 def dump_job(dev, cfg_json: str, workdir: str, steps: int,
              fail_rank: int | None = None, state: dict | None = None,
-             draws: dict | None = None) -> dict:
+             draws: dict | None = None, fail_in_step: bool = False
+             ) -> dict:
     """``train_job`` with train.dump_hlo on: its log lines, the rank's
     state and what the dump returned on this rank. ``state``: the run
     starts from it; ``draws``: each step's draws by step (the
     reference's, injected as train/step.py::draw_step's). With
     ``fail_rank``, that rank's record of the step fails after the step
-    (every collective done), and the error each rank raised is
+    (every collective done), or with ``fail_in_step`` its step fails
+    before its first collective, and the error each rank raised is
     returned."""
     from audiogan_tpu_torch.train import loop, step_graph
     from audiogan_tpu_torch.train import step as tstep
@@ -42,7 +45,9 @@ def dump_job(dev, cfg_json: str, workdir: str, steps: int,
         load_blob(st, state)
         return st
     loop.dump_step = dump
-    if fail_rank == dist.get_rank():
+    if fail_rank == dist.get_rank() and fail_in_step:
+        inject_dump_fault()
+    elif fail_rank == dist.get_rank():
         step_graph._Watch.__exit__ = failing_exit
     if state is not None:
         loop.create_train_state = create

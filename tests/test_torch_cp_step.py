@@ -22,7 +22,9 @@ tests/parallel/test_cp_step.py); parameters within 2.5 lr (the card
 parity phase's bound); both nets' Adam moments within 1e-3 of each
 tensor's largest, which a b_head or proj_embed gradient summed over cp
 (cp times too large, hidden from the parameters by Adam) fails. Every
-rank's state equal to the bit after the steps.
+rank's state equal to the bit after the steps, and each rank's kernel
+wrapper calls (counted through kernels/hooks.py) the launches
+tools/step_checks.py::cp_step_launches gives the card.
 
 Last, `cli train --preset tiny_sc09 --device cpu --set mesh.cp=2` under
 torchrun's two gloo ranks, killed after its step-2 checkpoint and run
@@ -52,11 +54,15 @@ from audiogan_tpu.train.state import create_train_state as jcreate
 from audiogan_tpu.utils.prng import split_for_step
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.convert import params_from_jax
+from audiogan_tpu_torch.kernels import hooks
 from audiogan_tpu_torch.parallel.mesh import CpMesh, DataMesh
 from audiogan_tpu_torch.tools import dp_check
-from audiogan_tpu_torch.tools.step_checks import same_bits, state_parts
+from audiogan_tpu_torch.tools.step_checks import (cp_step_launches,
+                                                  same_bits, state_parts)
 from audiogan_tpu_torch.train.cp_step import build_cp_train_step
+from audiogan_tpu_torch.train.step import num_views
 
+from helpers_launches import counted_steps_job
 from helpers_train import raw_batch, tiny_config
 from test_torch_train import _port_state
 
@@ -203,7 +209,7 @@ def runs(tmp_path_factory):
                   for d in range(cfg.mesh.dp)] for s in range(STEPS)]
         blob = dp_check.state_blob(st)
         jobs[cfg.mesh.dp * cfg.mesh.cp].append({
-            "name": name, "fn": "steps", "kw": {
+            "name": name, "fn": counted_steps_job, "kw": {
                 "cfg_json": pcfg.to_json(), "batches": _batches(cfg),
                 "draws": draws, "state": blob}})
         if name == "shuffle":
@@ -271,6 +277,27 @@ def test_every_rank_holds_the_same_bits(runs, variant):
     for r in ranks[1:]:
         assert r["metrics"] == ranks[0]["metrics"]
         assert same_bits(state_parts(r), state_parts(ranks[0])) > 0
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_each_rank_calls_the_kernels_cp_step_launches_gives(runs, variant):
+    """Each rank's kernel wrapper calls over the steps (counted through
+    kernels/hooks.py) are tools/step_checks.py::cp_step_launches per step
+    and K2 once per real view: the critic's and G's convs (the GRU G's
+    upsampling convTs), no K3, K4 or K5 (the cp GRU runs the torch-op
+    cell), no K6 or K7 (the cp critic ignores fused_shuffle_sites)."""
+    pcfg = Config.from_json(VARIANTS[variant]().to_json())
+    counters = {k.counter for k in hooks.KERNELS.values()}
+    want = {k: n * STEPS for k, n in {**cp_step_launches(pcfg),
+                                      "ingest": num_views(pcfg)}.items()
+            if k in counters}
+    assert set(want) == counters
+    if pcfg.model.generator == "gru":
+        assert want["gru_scan"] == want["gru_cell"] == 0
+        assert want["convt1d"] > 0
+    for rank, r in enumerate(runs[0][variant][2]):
+        assert {k: r["calls"].get(k, 0) for k in want} == want, rank
+        assert set(r["calls"]) <= counters
 
 
 def test_cp2_matches_the_cp_step_at_cp1(runs):

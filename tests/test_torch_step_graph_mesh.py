@@ -2,14 +2,17 @@
 over two gloo ranks at one intra-op thread, and where the loop refuses it.
 
 At dp=2 (the resident corpus replicated, with mesh.fsdp and sharded;
-the host batcher), cp=2 and tp=2 each
+the host batcher), cp=2 (replicated, and sharded over its one data
+replica) and tp=2 each
 rank's record holds the c10d collectives in the count the step's
 structure gives (tools/step_checks.py::step_collectives), as do conditional,
 dual-critic, GRU, chunked-penalty, even-depth and all-gather-route
 variants; rank
 0's step_graph.txt lists both ranks; the run's step-2 checkpoint and
 records equal a run without the dump, to the bit; a rank whose dump
-fails makes every rank raise, naming it, and none hangs. The dumped dp=2
+fails after the step makes every rank raise, naming it, and none hangs;
+a rank whose step fails raises at once, naming itself, and its peer
+raises at the collective it left. The dumped dp=2
 loop, from the reference's initial state with its draws injected,
 writes the metrics.jsonl of the reference's dumped loop on the same
 mesh within tests/test_torch_dp.py::test_dp2_matches_jax_auto_spmd's
@@ -53,6 +56,9 @@ MESHES = {
     "dp2_fsdp": (MeshCfg(dp=2, fsdp=True), {}, False),
     "dp2_sharded": (MeshCfg(dp=2), {}, True),
     "cp2": (MeshCfg(cp=2), {}, False),
+    # one data replica on the sharded corpus: its plan is the indices,
+    # a row of the resident block taken where it lies
+    "cp2_sharded": (MeshCfg(cp=2), {}, True),
     "tp2": (MeshCfg(tp=2), {}, False),
 }
 # more of the structure step_collectives follows, dumped with no step run
@@ -193,6 +199,25 @@ def test_a_rank_that_fails_its_dump_makes_every_rank_raise(runs):
         assert "rank 0: " not in err, err
 
 
+def test_a_rank_whose_step_fails_raises_at_once_naming_itself(tmp_path):
+    """Rank 1's step fails before its first collective, while rank 0
+    waits in the step's gradient all-reduce: rank 1 raises at once,
+    naming itself and its failure (an agreement over the default gloo
+    group would meet rank 0's all-reduce, a collective mismatch that
+    aborts the process and loses the error), and rank 0 raises at that
+    all-reduce when rank 1 is gone; the spawn returned, so neither hung
+    or aborted."""
+    out = dp_check.spawn(2, [{"name": "fail", "fn": dump_job, "kw": {
+        "cfg_json": _cfg(MeshCfg(dp=2), {}, False).to_json(),
+        "workdir": str(tmp_path / "fail"), "steps": 1, "fail_rank": 1,
+        "fail_in_step": True}}], tmp_path / "spawn")["fail"]
+    errors = [res.get("error", "") for res in out]
+    assert "the step failed on rank 1 of 2 in its step" in errors[1]
+    assert "a fault injected into the dump's first run" in errors[1]
+    assert "the step failed on rank 0 of 2 in its step at collective" \
+        in errors[0]
+
+
 def test_dumped_dp2_loop_matches_the_reference_dumped_loop(tmp_path):
     """The reference's loop at dp=2 with dump_hlo on the fake devices
     (its one SPMD module written) and the port's dumped dp=2 loop over
@@ -273,3 +298,38 @@ def test_check_ported_refuses_only_gloo_on_the_card(monkeypatch, backend,
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     dump_hlo=False))
     loop.check_ported(cfg, device)
+
+
+@pytest.mark.parametrize("world", [2, 1])
+def test_a_rank_whose_cli_train_raised_leaves_without_the_teardown(
+        tmp_path, monkeypatch, world):
+    """`cli train` whose run raised: in a group of several processes
+    (faked) the rank exits with code 1 at once, before any teardown of
+    the group (an NCCL group's waits for peers that sit in a collective
+    this rank never joins); alone, the error propagates as it is."""
+    from audiogan_tpu_torch.parallel import multihost
+    _faked_group(monkeypatch, "nccl")
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: world)
+    events = []
+
+    def failing_train(*a, **k):
+        raise RuntimeError("a fault in the run")
+
+    def exit_now(code):
+        events.append(("exit", code))
+        raise SystemExit(code)
+    monkeypatch.setattr(loop, "check_ported", lambda *a: None)
+    monkeypatch.setattr(loop, "train", failing_train)
+    monkeypatch.setattr(multihost.os, "_exit", exit_now)
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda *a: events.append("destroy"))
+    args = ["train", "--preset", "tiny_sc09", "--workdir", str(tmp_path),
+            "--device", "cpu"]
+    if world > 1:
+        with pytest.raises(SystemExit):
+            main(args)
+        assert events[0] == ("exit", 1)
+    else:
+        with pytest.raises(RuntimeError, match="a fault in the run"):
+            main(args)
+        assert events == ["destroy"]
