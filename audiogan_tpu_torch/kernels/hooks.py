@@ -46,7 +46,12 @@ KERNELS = {
     "sconv1d_ba": Kernel(
         "K6", ("igemm_kernel", "conv1d_tile_kernel"), "sconv1d"),
     "sconvt1d": Kernel(
-        "K7", ("igemm_kernel", "convt1d_tile_kernel"), "sconvt1d")}
+        "K7", ("igemm_kernel", "convt1d_tile_kernel"), "sconvt1d"),
+    # no Pallas kernel's port: Adam's update from device scalars
+    "adam_update": Kernel("Adam", ("adam_update_kernel",), "adam")}
+
+# the decorated wrappers by name, for the counts of their launches
+WRAPPERS: dict = {}
 
 
 def label(wrapper: str) -> str:
@@ -70,7 +75,24 @@ def kernel(fn: Callable) -> Callable:
             return fn(*args, **kwargs)
         return tool.kernel_call(name, fn, args, kwargs)
 
+    WRAPPERS[fn.__name__] = call
     return call
+
+
+def launch_counts() -> dict:
+    """Every launch counter of every wrapper (``launches`` and its
+    per-path ``launches_*``), by (wrapper, attribute): a replayed CUDA
+    graph launches what its capture counted (train/step_graph.py)."""
+    return {(name, attr): value for name, w in WRAPPERS.items()
+            for attr, value in vars(w).items()
+            if attr.startswith("launches")}
+
+
+def add_launches(delta: dict) -> None:
+    """Adds ``delta`` (of ``launch_counts``' form) to the counters."""
+    for (name, attr), n in delta.items():
+        w = WRAPPERS[name]
+        setattr(w, attr, getattr(w, attr) + n)
 
 
 class KernelMode(TorchDispatchMode):

@@ -43,22 +43,26 @@ wgan_gp_b64_fused, the flagship with every shuffle site fused, K6 and K7
 per rank). Prints one JSON line per check and a summary line; ``--out``
 keeps them.
 
-With ``--graph``, train.dump_hlo on a multi-process mesh instead:
-``cli train --set train.dump_hlo=true`` under torchrun for each of
-GRAPH_CASES (the flagship at dp=4 replicated, with mesh.fsdp and on the
-sharded corpus, music at dp=2 x cp=2, the flagship at dp=2 x tp=2,
-cond_gru_sc09 at dp=4, music at dp=1 x cp=4 on the sharded corpus, whose
-one data replica takes each step's indices where they lie), each rank
-capturing its step with its NCCL kernels (train/step_graph.py): every
-rank's replay equal to its eager step, its NCCL kernel nodes equal to its
-collectives and to tools/step_checks.py::step_collectives, and the run's
-step-2 record and checkpoint equal to a run without the dump, to the bit;
-each rank's node counts and capture seconds reported. Then GRAPH_FAULT:
-the flagship at dp=4 whose rank 2 fails in the dump's warm-up
-(``--dump_fault RANK DIR`` as the first arguments, then cli's: a worker
-of this file that runs cli's main): torchrun ends non-zero within
-FAULT_RUN_S, its failure summary and the rank's own error naming rank 2,
-every rank ended non-zero and no worker left.
+With ``--graph``, the loop's replayed step on a multi-process mesh
+instead: for each of GRAPH_CASES (the flagship at dp=4 replicated, with
+mesh.fsdp and on the sharded corpus (its fixed-size exchange), music at
+dp=2 x cp=2, the flagship at dp=2 x tp=2, cond_gru_sc09 at dp=4, music
+at dp=1 x cp=4 on the sharded corpus, whose one data replica takes each
+step's indices where they lie, and music at tp=4), ``cli train`` under
+torchrun for GRAPH_STEPS steps twice through ``--cli_worker MODE DIR``
+(a worker of this file that runs cli's main with the loop's route
+forced): replayed, with train.dump_hlo on, each rank capturing its step
+with its NCCL kernels (train/step_graph.py): every rank's dumped replay
+equal to its eager step, its NCCL kernel nodes equal to its collectives
+and to tools/step_checks.py::step_collectives; and every step eager.
+Every step's record and the checkpoints of steps 3 and 6 of the two
+runs equal to the bit; both rates, each rank's peak memory and its last
+step's NCCL and device ms, node counts and capture seconds reported.
+Then GRAPH_FAULT: the flagship at dp=4 whose rank 2 fails in the dump's
+warm-up (``--dump_fault RANK DIR`` as the first arguments, then cli's:
+a worker of this file that runs cli's main): torchrun ends non-zero
+within FAULT_RUN_S, its failure summary and the rank's own error naming
+rank 2, every rank ended non-zero and no worker left.
 
 With ``--tp``, tensor parallelism instead, on the four cards: for the
 flagship the f32 parity protocol at tp=4 (B=8, shuffle off,
@@ -144,7 +148,8 @@ COUNTERS = (("conv1d", "conv", "conv1d_ba", "launches"),
             ("gru_scan_persistent", "gru", "gru_scan_fwd",
              "launches_persistent"),
             ("gru_scan_bwd_persistent", "gru", "gru_scan_bwd",
-             "launches_persistent"))
+             "launches_persistent"),
+            ("adam", "adam", "adam_update", "launches"))
 
 
 def free_port() -> int:
@@ -703,7 +708,21 @@ def _profile_step(cfg, dev, mesh, raw, labels) -> dict:
         step(st, raw, labels)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    out = {"wall_ms": wall, "device_ms": 0.0, "nccl_ms": 0.0,
+    out = {"wall_ms": wall, **device_split(prof)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step(st, raw, labels)
+    torch.cuda.synchronize()
+    out["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def device_split(prof) -> dict:
+    """A profile's device ms in all, NCCL's ms and kernels, and those of
+    its all-gathers and all-reduces."""
+    from torch.autograd import DeviceType
+    out = {"device_ms": 0.0, "nccl_ms": 0.0,
            "nccl_kernels": 0, "all_gather_ms": 0.0, "all_gather_kernels": 0,
            "all_reduce_ms": 0.0, "all_reduce_kernels": 0}
     for e in prof.key_averages():
@@ -722,12 +741,6 @@ def _profile_step(cfg, dev, mesh, raw, labels) -> dict:
             if kind.replace("_", "") in key.replace("_", ""):
                 out[kind + "_ms"] += us / 1e3
                 out[kind + "_kernels"] += e.count
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    step(st, raw, labels)
-    torch.cuda.synchronize()
-    out["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3
-    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
 
 
@@ -760,12 +773,14 @@ def allreduce_ms(cfg, dev, iters: int = 10) -> dict:
 
 def corpus_exchange_ms(cfg, dev, iters: int = 10) -> dict:
     """The sharded corpus's exchange of one step of cfg (its views of the
-    global batch, seeded indices into 4 V B random clips) against the
-    replicated gather of the same rows from a corpus of that size held
-    whole on this card:
+    global batch, seeded indices into 4 V B random clips), planned (uneven
+    splits) and at fixed sizes (the loop's; byte-equal, checked), against
+    the replicated gather of the same rows from a corpus of that size held
+    whole on this card: the bytes each rank sends,
     host ms per call (the plan included), the mean of ``iters`` after a
     warm-up, each after a barrier so no rank waits for another."""
     from audiogan_tpu_torch.parallel.sharded_corpus import (
+        exchange_bytes, gather_fixed, plan_fixed, plan_step,
         sharded_corpus_gather)
     from audiogan_tpu_torch.train.step import num_views
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -790,10 +805,21 @@ def corpus_exchange_ms(cfg, dev, iters: int = 10) -> dict:
             torch.cuda.synchronize(dev)
             total += time.perf_counter() - t0
         return total / iters * 1e3
+    def fixed():
+        return gather_fixed(local, plan_fixed(idx, n_local, mesh, dev), mesh)
+    if not torch.equal(fixed(), sharded_corpus_gather(local, idx, mesh)):
+        raise AssertionError("the fixed-size exchange differs from the "
+                             "planned one")
     out = {"clips_per_rank": int(mine.size),
            "bytes_per_rank": int(mine.size) * cfg.data.store_len * 2,
+           "sent_bytes_per_rank": {
+               "planned": exchange_bytes(plan_step(idx, n_local, mesh, dev),
+                                         cfg.data.store_len),
+               "fixed": exchange_bytes(plan_fixed(idx, n_local, mesh, dev),
+                                       cfg.data.store_len)},
            "sharded_ms": timed(lambda: sharded_corpus_gather(local, idx,
                                                              mesh)),
+           "fixed_ms": timed(fixed),
            "replicated_ms": timed(lambda: whole[torch.from_numpy(mine).to(
                dev)])}
     del local, whole
@@ -1316,8 +1342,9 @@ GRAPH_CASES = (
     ("cond_gru_sc09", 4, 1, 1, ()),
     # one data replica: the sharded corpus's plan is the indices
     # themselves, a row of the resident block where it lies
-    ("music_44k_dp16", 1, 4, 1, ("data.device_corpus_shard=shard",)))
-GRAPH_STEPS = 2
+    ("music_44k_dp16", 1, 4, 1, ("data.device_corpus_shard=shard",)),
+    ("music_44k_dp16", 1, 1, 4, ()))
+GRAPH_STEPS = 6
 # --graph's failing rank: (preset, dp, cp, tp, the rank whose dump's
 # warm-up fails); the run must end on every rank within FAULT_RUN_S, far
 # inside the group's timeout (parallel/multihost.py::TIMEOUT_S)
@@ -1326,37 +1353,45 @@ FAULT_RUN_S = 240
 
 
 def graph_case(name: str, dp: int, cp: int, tp: int, sets: tuple,
-               base: Path, plain: Path | None = None) -> dict:
-    """``cli train --set train.dump_hlo=true`` of the preset on the mesh
-    under torchrun for GRAPH_STEPS steps, and (unless ``plain`` holds
-    one already) the same run without the dump: every rank's replay
-    equal to its eager step, its NCCL kernel nodes equal to its
-    collectives and to ``step_collectives``, the ranks' collectives
-    equal (dump_step raises otherwise), and the runs' last records and
-    checkpoints equal to the bit. Rank 0's step_graph.txt summary per
-    rank (node counts by kind, NCCL nodes by collective, capture
-    seconds)."""
+               base: Path, eager: Path | None = None) -> dict:
+    """The preset on the mesh under torchrun for GRAPH_STEPS steps, twice
+    through ``--cli_worker``: replayed (the loop's route on NCCL: the
+    first step eager, the second captured, the rest replayed) with
+    train.dump_hlo on, and (unless ``eager`` holds one already) every step
+    eager. The dump: every rank's replay equal to its eager step, its
+    NCCL kernel nodes equal to its collectives and to
+    ``step_collectives``, the ranks' collectives equal (dump_step raises
+    otherwise). The runs: every step's record and the checkpoints of
+    steps GRAPH_STEPS / 2 and GRAPH_STEPS equal to the bit (the
+    checkpoint holds every rank's ZeRO-1 block; the other tensors every
+    rank holds alike); both rates (steps/s of the steps after the
+    capture), each rank's peak memory, its last step's NCCL and device
+    ms (torch.profiler around that step or replay), its capture's nodes
+    and seconds. The rates leave out the capture's step and the
+    profiled last one."""
     from audiogan_tpu_torch.tools.step_checks import step_collectives
     from audiogan_tpu_torch.train.step_graph import read_summary
     ranks = dp * cp * tp
     tag = "_".join([name, f"dp{dp}", f"cp{cp}", f"tp{tp}",
                     *[x.split("=")[0].split(".")[-1] for x in sets]])
 
-    def cmd(workdir, dump):
-        extra = [*sets, f"train.dump_hlo={str(dump).lower()}",
-                 f"train.ckpt_every={GRAPH_STEPS}", "train.log_every=1",
-                 "train.sample_every=0"]
-        return _torchrun(ranks, *_cli(
-            "--preset", name, "--total_steps", GRAPH_STEPS,
-            *_mesh_sets(ranks, cp, tp),
-            *[a for item in extra for a in ("--set", item)],
-            "--workdir", workdir))
-    dumped = base / f"{tag}_dump"
-    _, secs = _run(cmd(dumped, True), base / f"{tag}_dump_run")
-    if plain is None:
-        plain = base / f"{tag}_plain"
-        _run(cmd(plain, False), base / f"{tag}_plain_run")
-    summary = read_summary(dumped)
+    def cmd(workdir, mode):
+        extra = [*sets, f"train.dump_hlo={str(mode == 'replay').lower()}",
+                 f"train.ckpt_every={GRAPH_STEPS // 2}",
+                 "train.log_every=1", "train.sample_every=0"]
+        return _torchrun(ranks, "-m", "audiogan_tpu_torch.tools.dp_check",
+                         "--cli_worker", mode, workdir / "ranks",
+                         *_cli("--preset", name, "--total_steps",
+                               GRAPH_STEPS, *_mesh_sets(ranks, cp, tp),
+                               *[a for item in extra
+                                 for a in ("--set", item)],
+                               "--workdir", workdir)[2:])
+    replayed = base / f"{tag}_replay"
+    _, secs = _run(cmd(replayed, "replay"), base / f"{tag}_replay_run")
+    if eager is None:
+        eager = base / f"{tag}_eager"
+        _run(cmd(eager, "eager"), base / f"{tag}_eager_run")
+    summary = read_summary(replayed)
     per_rank = summary["ranks"]
     expected = step_collectives(
         preset_config(name, *sets, f"mesh.dp={dp}", f"mesh.cp={cp}",
@@ -1371,29 +1406,118 @@ def graph_case(name: str, dp: int, cp: int, tp: int, sets: tuple,
                 f"{tag} rank {r}: NCCL nodes {rec['nccl_kernel_nodes']}, "
                 f"collectives {rec['collectives']}, the structure's "
                 f"{expected}")
-    ra, rb = (_records(w)[GRAPH_STEPS] for w in (dumped, plain))
-    keys = sorted(k for k in ra if k != "time" and "per_sec" not in k)
-    if any(ra[k] != rb.get(k) for k in keys):
-        raise AssertionError(f"{tag}: step {GRAPH_STEPS} differs from the "
-                             f"run without the dump: {ra} != {rb}")
-    last = f"ckpt/{GRAPH_STEPS}.pt"
-    tensors = same_checkpoint(dumped / last, plain / last)
+    ra, rb = _records(replayed), _records(eager)
+    keys = sorted(k for k in ra[GRAPH_STEPS] if k != "time"
+                  and "per_sec" not in k)
+    for step in range(1, GRAPH_STEPS + 1):
+        if any(ra[step][k] != rb[step].get(k) for k in keys):
+            raise AssertionError(f"{tag}: step {step} of the replayed run "
+                                 f"differs from the eager run's: "
+                                 f"{ra[step]} != {rb[step]}")
+    tensors = {s: same_checkpoint(replayed / f"ckpt/{s}.pt",
+                                  eager / f"ckpt/{s}.pt")
+               for s in (GRAPH_STEPS // 2, GRAPH_STEPS)}
+    worker = {mode: [json.loads((w / "ranks" / f"rank{r}.json").read_text())
+                     for r in range(ranks)]
+              for mode, w in (("replay", replayed), ("eager", eager))}
+    if any(w["route"] != "replay" for w in worker["replay"]) or \
+            any(w["graph"] is None or w["graph"]["step"] != 1
+                for w in worker["replay"]):
+        raise AssertionError(f"{tag}: the replayed run did not capture its "
+                             f"second step on every rank: {worker}")
+
+    def rate(recs):
+        # the steps after the capture's, but the last: it runs under
+        # torch.profiler (``cli_worker``)
+        after = [recs[s]["steps_per_sec"] for s in range(3, GRAPH_STEPS)]
+        return len(after) / sum(1 / v for v in after)
     return {"case": tag, "preset": name, "dp": dp, "cp": cp, "tp": tp,
             "sets": list(sets), "ranks": ranks,
-            "nodes": [r["nodes"] for r in per_rank],
-            "by_kind": [r["by_kind"] for r in per_rank],
-            "nccl_kernel_nodes": [r["nccl_kernel_nodes"] for r in per_rank],
+            "steps_per_s": {"replay": rate(ra), "eager": rate(rb)},
+            "per_rank": {mode: [{k: w[k] for k in
+                                 ("peak_memory_gib", "last_step")}
+                                for w in ws]
+                         for mode, ws in worker.items()},
+            "loop_graph_rank0": worker["replay"][0]["graph"],
+            "dump": {"nodes": [r["nodes"] for r in per_rank],
+                     "by_kind": [r["by_kind"] for r in per_rank],
+                     "nccl_kernel_nodes": [r["nccl_kernel_nodes"]
+                                           for r in per_rank],
+                     "capture_seconds": [r["capture_seconds"]
+                                         for r in per_rank],
+                     "replay_equals_eager": [r["replay_equals_eager"]
+                                             for r in per_rank],
+                     "counts_agree_across_ranks": summary[
+                         "counts_agree_across_ranks"]},
             "collectives_expected": expected,
-            "capture_seconds": [r["capture_seconds"] for r in per_rank],
-            "replay_equals_eager": [r["replay_equals_eager"]
-                                    for r in per_rank],
-            "tensors_compared": per_rank[0]["tensors_compared"],
-            "counts_agree_across_ranks": summary[
-                "counts_agree_across_ranks"],
             "port_kernels_rank0": summary["port_kernels"],
-            "later_steps_equal": {"record_keys": keys,
-                                  "checkpoint_tensors": tensors},
-            "dump_run_seconds": secs}
+            "equal": {"record_keys": keys, "steps": GRAPH_STEPS,
+                      "checkpoint_tensors": tensors},
+            "replay_run_seconds": secs}
+
+
+def cli_worker(mode: str, out_dir: str, argv: list[str]) -> int:
+    """``--cli_worker MODE DIR``: one rank of ``cli train`` (``argv``:
+    cli's arguments) under torchrun, its loop replaying (MODE "replay":
+    the loop's own route) or every step eager ("eager":
+    train.loop.train's ``replay=False``, which no Config field or cli flag
+    reaches). The rank's last step (its replay, or its eager step) runs
+    under torch.profiler; DIR/rank<R>.json gets the route the loop named,
+    its capture's summary, that step's NCCL and device ms and the rank's
+    peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiogan_tpu_torch import cli
+    from audiogan_tpu_torch.train import loop, step_graph
+    rank = int(os.environ.get("RANK", "0"))
+    rec: dict = {"graph": None, "last_step": None}
+    train, capture = loop.train, step_graph.StepGraph.capture
+    run = "replay" if mode == "replay" else "eager"
+    timed = getattr(step_graph.StepGraph, run)
+    total: dict = {}
+
+    def routed(cfg, workdir, steps=None, **kw):
+        total["steps"] = cfg.train.total_steps if steps is None else steps
+        return train(cfg, workdir, steps, **kw, replay=mode == "replay")
+
+    def captured(self, state):
+        capture(self, state)
+        rec["graph"] = {"step": state.step, **self.summary()}
+
+    card = torch.cuda.is_available()
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def last(self, state):
+        if state.step != total["steps"] - 1:
+            return timed(self, state)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if card else [])) as prof:
+            t0 = time.perf_counter()
+            out = timed(self, state)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        rec["last_step"] = {"wall_ms": wall, **device_split(prof)}
+        return out
+
+    def route(device, replay=True):
+        rec["route"] = loop_route(device, replay)
+        return rec["route"]
+    loop_route = loop.step_route
+    loop.train, loop.step_route = routed, route
+    step_graph.StepGraph.capture = captured
+    setattr(step_graph.StepGraph, run, last)
+    code = cli.main(argv)
+    dev = torch.device(f"cuda:{os.environ.get('LOCAL_RANK', '0')}")
+    rec["peak_memory_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                              if card else None)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    return code or 0
 
 
 def inject_dump_fault() -> None:
@@ -1537,7 +1661,7 @@ def graph_checks(base: Path, names: list[str]) -> list[dict]:
             else:
                 rep = graph_case(name, dp, cp, tp, sets, base,
                                  plain.get(key))
-                plain.setdefault(key, base / f"{rep['case']}_plain")
+                plain.setdefault(key, base / f"{rep['case']}_eager")
         except Exception as err:           # noqa: BLE001 - reported
             rep = {"preset": name, "dp": dp, "cp": cp, "tp": tp,
                    "sets": sets, "failed": f"{type(err).__name__}: "
@@ -1552,6 +1676,8 @@ def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dump_fault"]:
         return dump_fault_worker(int(argv[1]), argv[2], argv[3:])
+    if argv[:1] == ["--cli_worker"]:
+        return cli_worker(argv[1], argv[2], argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/dp_check/results",
                     help="where dp_check.jsonl goes (relative to the repo)")

@@ -249,13 +249,21 @@ def cp_step_launches(cfg) -> dict:
     the GRU G's upsampling convTs), every shuffle site unfused (the cp
     critic ignores fused_shuffle_sites, so no K6 or K7) and none on the
     tensor cores (the cp step computes in f32); no K3, K4 or K5 (the cp
-    GRU G runs the torch-op cell under parallel/halo.py's chunked scan)."""
+    GRU G runs the torch-op cell under parallel/halo.py's chunked scan);
+    Adam's kernel once per update (``adam_step_launches``)."""
     import dataclasses
     return {**conv_step_launches(cfg.replace(
         model=dataclasses.replace(cfg.model, fused_shuffle_sites=0),
         train=dataclasses.replace(cfg.train, dtype="float32"))),
         "sconv1d": 0, "sconvt1d": 0, "gru_cell": 0, "gru_scan": 0,
-        "gru_scan_bwd": 0}
+        "gru_scan_bwd": 0, **adam_step_launches(cfg)}
+
+
+def adam_step_launches(cfg) -> dict:
+    """Adam's kernel (kernels/adam.py) in one step: one launch per update,
+    n_critic of the critic and one of G (each net's parameters fit one
+    launch's table)."""
+    return {"adam": cfg.loss.n_critic + 1}
 
 
 def tp_rank_layers(cfg, batch: int, tp: int
@@ -289,8 +297,10 @@ def tp_step_launches(cfg) -> dict:
     on a channel slice in f32 (so none on the tensor cores) with every
     shuffle site unfused (the tp critic ignores fused_shuffle_sites), G
     the ordinary module in the config's dtype; with the GRU G, K4 once
-    per G forward (n_critic + 1) and K5 once."""
-    counts = conv_step_launches(cfg, critic_f32=True)
+    per G forward (n_critic + 1) and K5 once; Adam's kernel once per
+    update."""
+    counts = {**conv_step_launches(cfg, critic_f32=True),
+              **adam_step_launches(cfg)}
     if cfg.model.generator == "gru":
         counts.update(gru_scan=cfg.loss.n_critic + 1, gru_scan_bwd=1)
     return counts
@@ -621,3 +631,85 @@ def hold_bf16_to_dp1(got: dict, want: dict, exact: dict) -> dict:
             raise AssertionError(f"bf16 dp state differs beyond bf16's "
                                  f"own error ({key}): {out}")
     return out
+
+
+# -- Adam's update from device scalars (kernels/adam.py) -----------------------
+
+# every parameter shape of these presets' G and D; ZeRO-1's row blocks of
+# the flagship at dp=4 (each rank's views, off the tensors' starts)
+ADAM_PRESETS = ("wgan_gp_b64", "cond_gru_sc09", "dual_stft",
+                "music_44k_dp16", "resample_22k")
+ADAM_ZERO1 = ("wgan_gp_b64", 4)
+ADAM_COUNTS = range(1, 401)
+
+
+def adam_cases(dev) -> list[dict]:
+    """Each preset's G and D parameters (seeded values, moments of a few
+    steps' scale, the second moment with exact zeros), their lr and
+    betas; then the ZeRO-1 blocks of ADAM_ZERO1, one case per rank."""
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.models import (build_discriminator,
+                                           build_generator)
+    from audiogan_tpu_torch.parallel.mesh import DataMesh, zero1_rows
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def tensors(shapes):
+        ps = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        mu = [torch.randn(s, generator=gen, device=dev) * 1e-3
+              for s in shapes]
+        nu = [(torch.rand(s, generator=gen, device=dev) - 0.1).clamp_min(0)
+              ** 4 * 1e-4 for s in shapes]
+        return ps, mu, nu
+
+    cases = []
+    for name in ADAM_PRESETS:
+        cfg = get_preset(name)
+        t = cfg.train
+        for net, build, lr in (("G", build_generator, t.lr_g),
+                               ("D", build_discriminator, t.lr_d)):
+            shapes = [tuple(p.shape) for p in
+                      build(cfg, device="meta").parameters()]
+            ps, mu, nu = tensors(shapes)
+            cases.append({"name": f"{name} {net}", "params": ps, "mu": mu,
+                          "nu": nu, "lr": lr, "betas": (t.beta1, t.beta2)})
+    name, dp = ADAM_ZERO1
+    for case in [c for c in cases if c["name"].startswith(name + " ")]:
+        for r in range(dp):
+            mesh = DataMesh(dp, r)
+            views = [p[zero1_rows(p, mesh)] for p in case["params"]]
+            cases.append({**case, "name": f"{case['name']} zero1 {r}/{dp}",
+                          "params": views,
+                          "mu": [m[zero1_rows(m, mesh)] for m in case["mu"]],
+                          "nu": [v[zero1_rows(v, mesh)]
+                                 for v in case["nu"]]})
+    return cases
+
+
+def hold_adam(case: dict, counts=ADAM_COUNTS) -> dict:
+    """kernels/adam.py's kernel against its plain form (torch's foreach
+    ops) on ``case`` at each count: every parameter equal to the bit, or
+    AssertionError. The parameters are put back after each count."""
+    from audiogan_tpu_torch.kernels.adam import (adam_update,
+                                                 adam_update_plain)
+    from audiogan_tpu_torch.train.state import ADAM_EPS, adam_scalars
+    ps, mu, nu = case["params"], case["mu"], case["nu"]
+    saved = [p.clone() for p in ps]
+    n = len(ps)
+    cols = list(range(n))
+    for t in counts:
+        scal = torch.tensor(adam_scalars(case["lr"], *case["betas"],
+                                         [float(t)] * n),
+                            dtype=torch.float32, device=ps[0].device)
+        adam_update(ps, mu, nu, scal, cols, ADAM_EPS)
+        got = [p.clone() for p in ps]
+        torch._foreach_copy_(ps, saved)
+        adam_update_plain(ps, mu, nu, scal, cols, ADAM_EPS)
+        for i, (a, b) in enumerate(zip(got, ps)):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(
+                    f"adam {case['name']} count {t}: tensor {i} "
+                    f"{list(b.shape)} differs from torch's foreach ops by "
+                    f"{(a - b).abs().max().item()}")
+        torch._foreach_copy_(ps, saved)
+    return {"case": case["name"], "tensors": n, "counts": len(counts),
+            "elements": sum(p.numel() for p in ps)}

@@ -191,7 +191,11 @@ def _flag_all(flag: bool, device: torch.device) -> bool:
 
 class NanGuard:
     """The loop's debug_nans: ``before`` each step, ``after`` it with the
-    step's metrics and a callable that runs the same step again."""
+    step's metrics and a callable that runs the same step again. Under
+    replay ``after`` checks the replay's outputs; on a NaN the snapshot
+    is restored in place (the graph keeps its addresses) and the step runs
+    again eagerly under the check, as the reference's jax_debug_nans
+    re-runs its jitted step op by op (audiogan_tpu/train/loop.py:188-189)."""
 
     def __init__(self, device: torch.device):
         self.device = device

@@ -14,8 +14,29 @@ the next step's copy on a side stream while the current step runs. Every
 path gives the step the same clips, so they train to the same bits. On
 the resident paths data.index_chunk > 0 ships the indices and labels of
 steps [m chunk, (m+1) chunk) as one block once per chunk steps, and the
-step takes its row at state.step % chunk (data/corpus.py::index_row, the
+step takes its row, step % chunk (data/corpus.py::index_row, the
 reference's resident index blocks); 0 ships each step's own.
+
+How a step runs (``step_route``), the counterpart of the reference's one
+jit'd step (audiogan_tpu/train/loop.py:203-213, 314-318): on the card
+the run's first step runs eagerly (it builds every cache and Adam's
+moments), the next is captured as one CUDA graph and every step after
+replays it (train/step_graph.py::StepGraph). Before each step, eager or
+replayed, its inputs are copied into the step's fixed buffers: the data
+path's arguments (the row of an index block, the host batcher's clips
+from HostFeed's buffer, the sharded corpus's fixed-size exchange plan;
+the resident corpus is used in place), the step's draws, and both Adams'
+scalars (train/state.py::Adam.stage). The graph's metrics are fixed
+buffers, read at a log step before the next replay; a checkpoint's
+device copy runs on the loop's stream, so before the next replay writes
+the parameters. Eager by design: the CPU, which has no graphs; a
+multi-process gloo group on CUDA tensors, which no capture takes; the
+steps in train.profile_dir's window, whose spans StepTrace records; and
+the caller's ``replay=False`` (no Config field or CLI flag reaches it).
+The run's ``init`` record says which (``steps``, and under replay the
+``eager_steps``), and the capture logs one ``graph`` record (its step,
+nodes by kind, each port kernel's calls and nodes, its seconds). A
+failed capture or replay raises; nothing falls back to eager.
 
 The reference's tracing options: train.dump_hlo captures the step the
 loop will run, on its data path, as one CUDA graph before the first step
@@ -25,8 +46,9 @@ the steps [start + profile_steps[0], start + profile_steps[1]) counted
 from the step the run starts at, closing at the last step if the window
 runs past it (utils/profiling.py::StepTrace); train.debug_nans checks
 each step for NaN and, on one, runs the step again from a snapshot to
-name the first op that made it (train/debug_nans.py). None of them
-changes a bit of the run.
+name the first op that made it (train/debug_nans.py: a replayed step
+is run again eagerly, as the reference re-runs its jitted step op by
+op). None of them changes a bit of the run.
 
 Data, context and tensor parallelism: under torchrun (one process per
 card) the loop joins the process group (parallel/multihost.py); each
@@ -80,7 +102,8 @@ import torch
 import torch.distributed as dist
 
 from audiogan_tpu_torch.config import Config
-from audiogan_tpu_torch.data.corpus import Corpus, HostBatcher, build_corpus
+from audiogan_tpu_torch.data.corpus import (Corpus, HostBatcher, build_corpus,
+                                            index_row)
 from audiogan_tpu_torch.data.synthetic import make_synthetic_sc09
 from audiogan_tpu_torch.data.wavio import write_wav
 from audiogan_tpu_torch.device import resolve_device
@@ -89,12 +112,12 @@ from audiogan_tpu_torch.parallel.mesh import (DataMesh, check_world,
 from audiogan_tpu_torch.parallel.multihost import make_train_mesh
 from audiogan_tpu_torch.parallel.sharded_corpus import (corpus_num_shards,
                                                         local_shard,
-                                                        plan_step,
+                                                        plan_fixed,
                                                         wrap_sharded_corpus)
 from audiogan_tpu_torch.train.debug_nans import NanGuard
 from audiogan_tpu_torch.train.state import (TrainState, create_train_state,
                                             param_count)
-from audiogan_tpu_torch.train.step_graph import dump_step
+from audiogan_tpu_torch.train.step_graph import StepGraph, dump_step
 from audiogan_tpu_torch.train.sample import generate
 from audiogan_tpu_torch.train.step import (build_train_step, num_views,
                                            wrap_device_corpus)
@@ -261,15 +284,35 @@ class HostFeed:
         self.staged = self._stage(step + 1)
 
 
+def step_route(device: torch.device, replay: bool = True) -> str:
+    """How the loop runs its steps: "replay" (the card: the first step
+    eagerly, then one captured CUDA graph replayed, train/step_graph.py),
+    or "eager" and why: the CPU, which has no graphs; a multi-process
+    gloo group on CUDA tensors, whose collectives stage through the host
+    and which no capture takes; or the caller's ``replay=False``."""
+    if device.type != "cuda":
+        return "eager: the CPU has no CUDA graphs"
+    if world_size() > 1 and dist.is_initialized() and \
+            dist.get_backend() == "gloo":
+        return ("eager: a gloo group on CUDA tensors, which no capture "
+                "takes")
+    if not replay:
+        return "eager: asked by the caller"
+    return "replay"
+
+
 def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
           resume: bool = True, device=None,
           log: Callable[[str], None] = print,
-          tensorboard: bool = True) -> tuple[TrainState, dict]:
+          tensorboard: bool = True,
+          replay: bool = True) -> tuple[TrainState, dict]:
     """Runs from the latest checkpoint (or step 0, or always from 0 without
     ``resume``) up to step ``steps`` (default cfg.train.total_steps);
     returns the state and the last logged step's metrics as floats.
-    ``tensorboard=False`` skips the TensorBoard scalars. Under torchrun
-    every rank calls it; only rank 0 logs and writes."""
+    ``tensorboard=False`` skips the TensorBoard scalars. ``replay=False``
+    runs every step eagerly on the card (the checks' reference run; no
+    Config field or CLI flag reaches it). Under torchrun every rank calls
+    it; only rank 0 logs and writes."""
     cfg.validate()
     check_ported(cfg, device)
     dev = resolve_device(device)
@@ -288,18 +331,25 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
     check_corpus(cfg, corpus)
     placement = corpus_placement(cfg, corpus, mesh, say)
     state = create_train_state(cfg, device=dev, mesh=mesh)
+    t = cfg.train
+    route = step_route(dev, replay)
+    eager_steps = ["the run's first step"]
+    if t.profile_dir:
+        eager_steps.append(f"train.profile_dir's window {list(t.profile_steps)}"
+                           " from the run's first step")
     log(json.dumps({"init": {"g_params": param_count(state.g),
                              "d_params": param_count(state.d),
                              "corpus_clips": len(corpus),
                              "device": str(dev), "dp": mesh.dp,
                              "cp": cfg.mesh.cp, "tp": cfg.mesh.tp,
-                             "corpus": placement}}))
+                             "corpus": placement, "steps": route,
+                             **({"eager_steps": eager_steps}
+                                if route == "replay" else {})}}))
     mngr = ckpt_lib.make_manager(workdir, keep=cfg.train.keep_ckpts,
                                  config=cfg)
     if resume and ckpt_lib.latest_step(mngr) is not None:
         ckpt_lib.restore(mngr, state)
         log(json.dumps({"resume": {"step": state.step}}))
-    t = cfg.train
     b, n_views = t.batch_size, num_views(cfg)
     inner = build_train_step(cfg, dev, mesh)
     writer = (MetricsWriter(workdir, also_tensorboard=tensorboard)
@@ -322,16 +372,16 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
             # the dump needs the first step's batch even with no step to run
             feed = HostFeed(batcher, state.step,
                             max(total, state.step + t.dump_hlo), dev)
-            step_fn = inner
+            step_fn, resident = inner, ()
             inputs = feed.take
         else:
             if placement == "shard":
                 clips = torch.from_numpy(local_shard(corpus.clips, mesh))
-                step_fn = wrap_sharded_corpus(inner, mesh, chunk)
+                step_fn = wrap_sharded_corpus(inner, mesh)
             else:
                 clips = torch.from_numpy(np.array(corpus.clips))
-                step_fn = wrap_device_corpus(inner, chunk)
-            clips = clips.to(dev)
+                step_fn = wrap_device_corpus(inner)
+            clips, resident = clips.to(dev), (0,)
             # over several ranks the sharded corpus takes each step's
             # exchange plan, made here from its host indices
             # (parallel/sharded_corpus.py); one rank's plan is its indices
@@ -342,8 +392,7 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
             def indices(step):
                 if not chunk:
                     idx, labels = batcher.get(step)
-                    return (clips, torch.from_numpy(idx),
-                            torch.from_numpy(labels))
+                    return torch.from_numpy(idx), torch.from_numpy(labels)
                 m = step // chunk
                 if block.get("m") != m:
                     # steps [m chunk, (m+1) chunk), shipped once; a resume
@@ -356,19 +405,19 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                                                            torch.long),
                         labels=torch.from_numpy(
                             np.stack([r[1] for r in rows])).to(dev))
-                return clips, block["idx"], block["labels"]
+                # the step's row, copied into the step's fixed buffer
+                return index_row(step, block["idx"], block["labels"], chunk)
 
             def inputs(step):
-                args = indices(step)
-                if placement != "shard":
-                    return args
-                idx = args[1][step % chunk] if chunk else args[1]
-                return (clips, plan_step(idx, clips.shape[0], mesh, dev),
-                        args[2])
+                idx, labels = indices(step)
+                if placement == "shard":
+                    idx = plan_fixed(idx, clips.shape[0], mesh, dev)
+                return clips, idx, labels
         if t.dump_hlo:
             # the step the loop runs next, on its data path
             dump_step(cfg, state, step_fn, inputs(state.step), workdir, dev,
                       say)
+        runner = StepGraph(cfg, step_fn, dev, resident)
         guard = NanGuard(dev) if t.debug_nans else None
         start = state.step
         prof_on, prof_off = (start + t.profile_steps[0],
@@ -378,13 +427,22 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
         for step in range(state.step, total):
             if t.profile_dir and step == prof_on and prof_off > prof_on:
                 trace = StepTrace(t.profile_dir, world_rank(), dev)
-            args = inputs(step)
+            runner.fill(state, inputs(step))
             if guard is not None:
                 guard.before(state)
+            eager = (route != "replay" or step == start
+                     or trace is not None)
             with trace.step(step) if trace else contextlib.nullcontext():
-                out = step_fn(state, *args)
+                if eager:
+                    out = runner.eager(state)
+                else:
+                    if runner.graph is None:
+                        runner.capture(state)
+                        log(json.dumps({"graph": {
+                            "step": step, **runner.summary()}}))
+                    out = runner.replay(state)
             if guard is not None:
-                guard.after(state, out, lambda: step_fn(state, *args))
+                guard.after(state, out, lambda: runner.eager(state))
             if feed is not None:
                 feed.done(step)
             done = step + 1
@@ -393,6 +451,8 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                 say(f"[profile] trace in {t.profile_dir}")
                 trace = None
             if done % every == 0 or done == total:
+                # the graph's metrics are fixed buffers: read before the
+                # next replay
                 metrics = {k: float(v) for k, v in out.items()}  # sync
                 now = time.perf_counter()
                 # the steps timed since the last log: a resume from a
@@ -412,7 +472,8 @@ def train(cfg: Config, workdir: str | Path, steps: int | None = None, *,
                                              f"{done}")
                 last_logged, t_log = done, time.perf_counter()
             if (t.ckpt_every and done % t.ckpt_every == 0) or done == total:
-                # the step rate leaves out what the save blocked
+                # the step rate leaves out what the save blocked; its
+                # device copy runs on this stream, before the next replay
                 t_log += saver.save(state, metrics if last_logged == done
                                     else None)
             saver.poll()

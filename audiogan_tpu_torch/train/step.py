@@ -63,7 +63,6 @@ from typing import Callable
 import torch
 
 from audiogan_tpu_torch.config import Config
-from audiogan_tpu_torch.data.corpus import index_row
 from audiogan_tpu_torch.device import resolve_device
 from audiogan_tpu_torch.kernels.autograd import cudnn_deterministic
 from audiogan_tpu_torch.losses import (batch_spectral_matching_loss,
@@ -311,19 +310,16 @@ def build_train_step(cfg: Config, device=None,
     return step_fn
 
 
-def wrap_device_corpus(inner: Callable, chunk: int = 0) -> Callable:
+def wrap_device_corpus(inner: Callable) -> Callable:
     """(state, corpus_clips [N, store_len] int16 resident on the device,
     idx [num_views, B], labels [num_views, B], draws=None) -> metrics: the
     step gathers its raw views from the resident corpus by index, so the
-    host ships only indices per step (step.py:82-142). With chunk > 0 idx
-    and labels are resident blocks (data/corpus.py::index_row), which
-    the loop ships once per chunk steps, as the reference's
-    ``wrap_device_corpus(..., chunk)``: no host-to-device copy is left
-    inside the step."""
+    host ships only indices per step (step.py:82-142). With
+    data.index_chunk the loop ships resident blocks of indices and hands
+    the step its row (data/corpus.py::index_row), as the reference's
+    ``wrap_device_corpus(..., chunk)`` takes it inside its step."""
 
     def step_fn(state, corpus_clips, idx, labels, draws=None):
-        if chunk:
-            idx, labels = index_row(state.step, idx, labels, chunk)
         idx = idx.to(corpus_clips.device, torch.long)
         raw = corpus_clips[idx.reshape(-1)].reshape(
             *idx.shape, corpus_clips.shape[1])

@@ -1,20 +1,28 @@
-"""train.dump_hlo: the whole training step as one CUDA graph, the port's
-counterpart of the reference's one optimized HLO module
+"""The training step as one CUDA graph: the loop's replayed step
+(``StepGraph``), the port's counterpart of the reference's one jit'd step
+(audiogan_tpu/train/loop.py:203-213, 314-318), and train.dump_hlo
+(``dump_step``), the counterpart of its one optimized HLO module
 (audiogan_tpu/train/loop.py:247-261: "the WHOLE training step (ingest +
 n_critic scan + GP double-backprop + both optimizers) is one optimized
 HLO module").
+
+``StepGraph`` holds a step's inputs in fixed buffers and runs the step
+on them eagerly, or captures it once and replays it (its docstring);
+train/loop.py trains every step after the first by replay, and
+``dump_step`` uses the same object on a copy of the state.
 
 ``dump_step`` runs before the loop's first step, on the data path the
 loop uses, and never moves the loop's state: it works on
 ``copy.deepcopy`` of the state (modules and optimizers together).
 
 On the card:
-  draws     the step's draws are made first and passed in (``draws=``):
-            utils/prng.py makes a fresh generator per (seed, step, role),
-            which a capture can neither create nor replay. A host tensor
-            among the step's inputs (the labels of the host batcher's
-            path, the indices at data.index_chunk=0) is copied to the
-            device first; the header says which.
+  inputs    the step's inputs, its draws (utils/prng.py makes a fresh
+            generator per (seed, step, role), which a capture can neither
+            create nor replay) and both Adams' scalars go into fixed
+            buffers first (``StepGraph.fill``, ``stage``); a host tensor
+            among the inputs (the labels of the host batcher's path, the
+            indices at data.index_chunk=0) through pinned memory, and
+            the header says which.
   warm-up   one eager step on a side stream, from a snapshot of the copy
             (train/state.py::snapshot): it builds every cache a step
             makes at first use (the kernels' libraries, K4/K5's device
@@ -22,17 +30,19 @@ On the card:
             none. Its result is the eager step the replay is held to.
   capture   the copy restored to the snapshot, then one step under
             ``torch.cuda.graph`` in debug mode, on the calling thread as
-            every step (train/step.py). Python still runs: the copy's
-            ``state.step`` and Adam's CPU counts advance and their values
-            (the row of an index block, the bias corrections) are baked
-            into the graph, so the graph is the step at this step only.
-            The tensor-core convs' TMA tensor maps (csrc/igemm_tc.cuh) are
-            encoded on the host with the operands' addresses and frozen
-            into their nodes' parameters, which is right only because a
-            graph's addresses are fixed. While the capture runs, each
-            kernel call of the port (kernels/hooks.py) notes the nodes its
-            launch added to the graph, and the last op and kernel call are
-            kept: a capture that fails raises naming them.
+            every step (train/step.py). Nothing of the step's own
+            (seed, step) is baked in: the row of an index block, the
+            draws and Adam's bias corrections are read from the fixed
+            buffers; what the step's Python does on the host (its step
+            count, Adam's CPU counts) is put back after the capture and
+            done again after each replay. The tensor-core convs' TMA
+            tensor maps (csrc/igemm_tc.cuh) are encoded on the host with
+            the operands' addresses and frozen into their nodes'
+            parameters, which is right only because a graph's addresses
+            are fixed. While the capture runs, each kernel call of the
+            port (kernels/hooks.py) notes the nodes its launch added to
+            the graph, and the last op and kernel call are kept: a
+            capture that fails raises naming them.
   replay    the copy restored to the snapshot again, the graph replayed
             once; its parameters, both Adams' moments and the metrics are
             held to the warm-up's to the bit (the header reports each
@@ -85,6 +95,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -99,7 +110,7 @@ import torch.distributed as dist
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.kernels import hooks
 from audiogan_tpu_torch.parallel.mesh import world_rank, world_size
-from audiogan_tpu_torch.parallel.sharded_corpus import ShardPlan
+from audiogan_tpu_torch.parallel.sharded_corpus import FixedPlan
 from audiogan_tpu_torch.train.state import (TrainState, restore, snapshot,
                                             state_tensors)
 from audiogan_tpu_torch.train.step import step_draws
@@ -253,16 +264,66 @@ class _Watch(hooks.KernelMode):
         return out
 
 
-def _to_device(args: tuple, dev: torch.device) -> tuple[tuple, list]:
-    """The step's inputs with every host tensor copied to ``dev``, and a
-    note of each one copied."""
-    out, moved = [], []
-    for i, a in enumerate(args):
-        if isinstance(a, torch.Tensor) and a.device.type != dev.type:
-            moved.append(f"input {i} {a.dtype} {list(a.shape)}")
-            a = a.to(dev)
-        out.append(a)
-    return tuple(out), moved
+def _static(x, dev: torch.device):
+    """A fixed buffer of ``x``'s form on ``dev``: each tensor an empty one
+    of its shape and dtype, each container and dataclass (a FixedPlan)
+    rebuilt around them, anything else kept (it must not change)."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device=dev)
+    if isinstance(x, dict):
+        return {k: _static(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_static(v, dev) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _static(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def _fill(static, x, where: str) -> list[str]:
+    """Copies ``x`` into ``static`` (``_static``'s form of it), on the
+    current stream: from pinned memory when it lies on the host, so no
+    copy waits for the card. Returns a note of each host tensor copied;
+    raises if ``x``'s form differs (a captured step's shapes and its
+    other arguments are fixed)."""
+    if isinstance(static, torch.Tensor):
+        if not isinstance(x, torch.Tensor) or x.shape != static.shape \
+                or x.dtype != static.dtype:
+            raise ValueError(f"{where}: {_form(x)} where the step's fixed "
+                             f"buffer is {_form(static)}")
+        if x is static:
+            return []
+        host = x.device.type == "cpu" and static.device.type == "cuda"
+        static.copy_(x.pin_memory() if host else x, non_blocking=True)
+        return [f"{where} {x.dtype} {list(x.shape)}"] if host else []
+    if isinstance(static, dict):
+        if not isinstance(x, dict) or x.keys() != static.keys():
+            raise ValueError(f"{where}: other keys than the step's")
+        return [n for k in static for n in _fill(static[k], x[k],
+                                                  f"{where}.{k}")]
+    if isinstance(static, (list, tuple)):
+        if not isinstance(x, (list, tuple)) or len(x) != len(static):
+            raise ValueError(f"{where}: another length than the step's")
+        return [n for i, (s, v) in enumerate(zip(static, x))
+                for n in _fill(s, v, f"{where}[{i}]")]
+    if dataclasses.is_dataclass(static):
+        if type(x) is not type(static):
+            raise ValueError(f"{where}: a {type(x).__name__} where the "
+                             f"step has a {type(static).__name__}")
+        return [n for f in dataclasses.fields(static)
+                for n in _fill(getattr(static, f.name), getattr(x, f.name),
+                               f"{where}.{f.name}")]
+    if x != static:
+        raise ValueError(f"{where}: {x!r} where the step was built with "
+                         f"{static!r}")
+    return []
+
+
+def _form(x) -> str:
+    if isinstance(x, torch.Tensor):
+        return f"{x.dtype} {list(x.shape)}"
+    return type(x).__name__
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -419,6 +480,180 @@ def _collective_counts(collectives: list, nodes_by_handle: dict | None
     return calls, dict(nccl)
 
 
+def _count_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Both Adams' CPU counts, one per parameter with state."""
+    return [st["step"] for opt in (state.opt_g, state.opt_d)
+            for p in opt._params() if (st := opt.state.get(p))]
+
+
+def _advance(state: TrainState, counts: list, delta: list) -> None:
+    """Adds ``delta`` (the step's, then one per count) to the step and the
+    counts, in place."""
+    state.step += int(delta[0])
+    for t, d in zip(counts, delta[1:]):
+        if d:
+            t.add_(d)
+
+
+class StepGraph:
+    """The training step as the loop runs it: its inputs in fixed
+    buffers, run eagerly or captured once as one CUDA graph and replayed,
+    the port's counterpart of the reference's one jit'd step
+    (audiogan_tpu/train/loop.py:203-213, 314-318).
+
+    ``fill(state, args)`` copies a step's inputs (the data path's
+    arguments; ``resident`` names those, such as the resident corpus,
+    that are the same tensor every step and are used in place) and its
+    draws (train/step.py::step_draws of (seed, state.step): a capture can
+    neither create nor replay utils/prng.py's fresh generators) into
+    fixed buffers, on the current stream; a host tensor goes through
+    pinned memory. ``stage`` writes both Adams' scalars of the step into
+    their slots (train/state.py::Adam.stage). ``body`` is the step on
+    the fixed buffers; ``eager`` stages, then runs it.
+
+    ``capture`` runs ``body`` under ``torch.cuda.graph`` (``_capture``:
+    each kernel call of the port notes its nodes through
+    kernels/hooks.py, a failure names the last op and kernel call; on a
+    mesh every rank captures, and they agree over a gloo twin of the
+    group before any replays). The capture changes nothing on the device,
+    so it puts back what the step's Python did on the host (state.step,
+    both Adams' counts: ``host_delta``) and the port kernels' launch
+    counts (``launch_delta``); ``replay`` stages, replays the graph, then
+    applies both, so a replayed step leaves the state and the counts as
+    the eager step does. The graph's metrics are fixed buffers: read them
+    before the next replay. Every port kernel must own one kernel node
+    per counted launch, so the counts a replay adds are its kernel nodes.
+    A state's step must have been run once (``eager``) before a capture:
+    that step builds every cache and Adam's moments (``dump_step``
+    captures a step that makes them, its eager warm-up run before)."""
+
+    def __init__(self, cfg: Config, step_fn: Callable, device,
+                 resident: tuple = ()):
+        self.cfg, self.step_fn = cfg, step_fn
+        self.device = torch.device(device)
+        self.resident = frozenset(resident)
+        self.args: tuple | None = None
+        self.draws = None
+        self.copied: list[str] = []
+        self.graph = None
+        self.metrics: dict | None = None
+        self.nodes: list = []
+        self.calls: list = []
+        self.collectives: list = []
+        self.capture_seconds = 0.0
+        self.host_delta: list | None = None
+        self.launch_delta: dict = {}
+        self.replays = 0
+
+    def fill(self, state: TrainState, args: tuple) -> None:
+        cfg = self.cfg
+        draws = step_draws(cfg, state.seed, state.step, self.device,
+                           world_rank() // (cfg.mesh.cp * cfg.mesh.tp))
+        if self.args is None:
+            self.args = tuple(a if i in self.resident
+                              else _static(a, self.device)
+                              for i, a in enumerate(args))
+            self.draws = _static(draws, self.device)
+        if len(args) != len(self.args):
+            raise ValueError(f"{len(args)} inputs for a step of "
+                             f"{len(self.args)}")
+        copied = []
+        for i, (fixed, a) in enumerate(zip(self.args, args)):
+            if i not in self.resident:
+                copied += _fill(fixed, a, f"input {i}")
+            elif a is not fixed:
+                raise ValueError(f"input {i} is resident: every step takes "
+                                 "the same tensor")
+        _fill(self.draws, draws, "draws")
+        self.copied = copied
+
+    def stage(self, state: TrainState) -> None:
+        state.opt_d.stage(self.cfg.loss.n_critic)
+        state.opt_g.stage(1)
+
+    def body(self, state: TrainState) -> dict:
+        return self.step_fn(state, *self.args, draws=self.draws)
+
+    def eager(self, state: TrainState) -> dict:
+        self.stage(state)
+        return self.body(state)
+
+    def capture(self, state: TrainState) -> None:
+        self.stage(state)
+        step = state.step
+        held = {id(t): float(t) for t in _count_tensors(state)}
+        launches = hooks.launch_counts()
+        failure = None
+        try:
+            (self.graph, self.nodes, self.calls, self.collectives,
+             self.metrics, self.capture_seconds) = _capture(
+                 self.step_fn, state, self.args, self.draws, self.device,
+                 world_size() > 1)
+        except Exception as err:
+            failure = str(err)
+        # no rank replays alone: a replay waits on its peers' NCCL kernels
+        _agree(failure)
+        # a state Adam made in the capture (a dump at a run's first step)
+        # counts from 0
+        counts = _count_tensors(state)
+        self.host_delta = [state.step - step, *(float(t) - held.get(id(t), 0.0)
+                                                for t in counts)]
+        _advance(state, counts, [-d for d in self.host_delta])
+        now = hooks.launch_counts()
+        self.launch_delta = {k: v - launches.get(k, 0)
+                             for k, v in now.items()
+                             if v != launches.get(k, 0)}
+        hooks.add_launches({k: -v for k, v in self.launch_delta.items()})
+        for name, rec in self.port_kernels().items():
+            counted = self.launch_delta.get((name.split()[-1], "launches"),
+                                            0)
+            if rec["kernel_nodes"] != counted:
+                raise RuntimeError(f"the captured step holds "
+                                   f"{rec['kernel_nodes']} kernel nodes of "
+                                   f"{name} for {counted} launches")
+
+    def replay(self, state: TrainState) -> dict:
+        self.stage(state)
+        self.graph.replay()
+        state.opt_d.release()
+        state.opt_g.release()
+        counts = _count_tensors(state)
+        if len(counts) != len(self.host_delta) - 1:
+            raise RuntimeError("Adam's state changed since the capture")
+        _advance(state, counts, self.host_delta)
+        hooks.add_launches(self.launch_delta)
+        self.replays += 1
+        return self.metrics
+
+    def port_kernels(self) -> dict:
+        """By port kernel: its calls in the capture, its own kernel nodes
+        and any other nodes its calls added."""
+        by_handle = {n["handle"]: n for n in self.nodes}
+        port: dict[str, dict] = {}
+        for name, added in self.calls:
+            rec = port.setdefault(name, {"calls": 0, "kernel_nodes": 0,
+                                         "other_nodes": 0})
+            rec["calls"] += 1
+            own = hooks.kernel_of(name).functions
+            for h in added:
+                n = by_handle[h]
+                mine = n["kind"] == "kernel" and any(
+                    f in n.get("name", "") for f in own)
+                rec["kernel_nodes" if mine else "other_nodes"] += 1
+        return port
+
+    def summary(self) -> dict:
+        """The capture's nodes by kind, port kernels, collectives and
+        seconds."""
+        by_handle = {n["handle"]: n for n in self.nodes}
+        calls, nccl = _collective_counts(self.collectives, by_handle)
+        return {"kind": "CUDA graph", "nodes": len(self.nodes),
+                "by_kind": dict(Counter(n["kind"] for n in self.nodes)),
+                "port_kernels": self.port_kernels(), "collectives": calls,
+                "nccl_kernel_nodes": nccl,
+                "capture_seconds": self.capture_seconds}
+
+
 def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
               args: tuple, workdir: Path, device: torch.device,
               say: Callable[[str], None] = print) -> dict:
@@ -429,21 +664,22 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
     workdir = Path(workdir)
     rank = world_rank()
     work = copy.deepcopy(state)
-    draws = step_draws(cfg, state.seed, state.step, device,
-                       rank // (cfg.mesh.cp * cfg.mesh.tp))
-    sharded = any(isinstance(a, ShardPlan) for a in args)
+    runner = StepGraph(cfg, step_fn, device)
+    sharded = any(isinstance(a, FixedPlan) for a in args)
     title = (f"one training step of {cfg.name} at step {state.step}, "
              f"batch {cfg.train.batch_size}, {cfg.train.dtype}, on "
              f"{device}, mesh dp={cfg.mesh.dp} cp={cfg.mesh.cp} "
              f"tp={cfg.mesh.tp}" + (" fsdp" if cfg.mesh.fsdp else "")
              + (" (sharded corpus)" if sharded else ""))
+    runner.fill(work, args)
     if device.type != "cuda":
+        runner.stage(work)
         watch = _Watch(record_ops=True)
         failure = step_error = None
         try:
             with watch:
                 try:
-                    step_fn(work, *args, draws=draws)
+                    runner.body(work)
                 except Exception as err:
                     step_error = err
         except Exception as err:
@@ -475,8 +711,6 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
             f"{workdir / GRAPH_FILE}")
         return {**summary, "ranks": ranks}
 
-    parallel = world_size() > 1
-    args, moved = _to_device(args, device)
     pre = snapshot(work)
     # every rank's warm-up runs its collectives for real: it builds the
     # communicators and every cache before any capture
@@ -484,59 +718,38 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
     side.wait_stream(torch.cuda.current_stream(device))
     try:
         with torch.cuda.stream(side):
-            eager = _outcome(work, step_fn(work, *args, draws=draws))
+            eager = _outcome(work, runner.eager(work))
     except Exception as err:
         raise _step_failed("its warm-up", None, err) from err
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     restore(work, pre)
-    failure = None
-    try:
-        graph, nodes, calls, colls, metrics, seconds = _capture(
-            step_fn, work, args, draws, device, parallel)
-    except Exception as err:
-        failure = str(err)
-    # no rank replays alone: a replay waits on its peers' NCCL kernels
-    _agree(failure)
+    runner.capture(work)
     if rank == 0:
-        graph.debug_dump(str(workdir / DOT_FILE))
+        runner.graph.debug_dump(str(workdir / DOT_FILE))
         if not (workdir / DOT_FILE).exists():
             raise RuntimeError(f"CUDAGraph.debug_dump wrote no "
                                f"{workdir / DOT_FILE}")
     restore(work, pre, drop_new=False)
-    graph.replay()
+    metrics = runner.replay(work)
     torch.cuda.synchronize(device)
     differ = differing(_outcome(work, metrics), eager)
 
+    nodes = runner.nodes
     readable = _demangle(sorted({n["name"] for n in nodes if "name" in n}))
-    by_handle = {n["handle"]: n for n in nodes}
     owner: dict[int, str] = {}
-    port: dict[str, dict] = {}
-    for name, added in calls:
-        rec = port.setdefault(name, {"calls": 0, "kernel_nodes": 0,
-                                     "other_nodes": 0})
-        rec["calls"] += 1
-        own = hooks.kernel_of(name).functions
+    for name, added in runner.calls:
         for h in added:
             owner[h] = name
-            n = by_handle[h]
-            mine = n["kind"] == "kernel" and any(
-                f in n.get("name", "") for f in own)
-            rec["kernel_nodes" if mine else "other_nodes"] += 1
-    for kind, added in colls:
+    for kind, added in runner.collectives:
         for h in added:
             owner[h] = f"c10d {kind}"
-    n_calls, nccl = _collective_counts(colls, by_handle)
-    kinds = Counter(n["kind"] for n in nodes)
-    summary = {"kind": "CUDA graph", "nodes": len(nodes),
-               "by_kind": dict(kinds), "port_kernels": port,
-               "collectives": n_calls, "nccl_kernel_nodes": nccl,
+    summary = {**runner.summary(),
                "sharded_corpus": sharded,
-               "capture_seconds": seconds,
                "replay_equals_eager": not differ,
                "replay_differs_in": differ,
                "tensors_compared": len(eager),
-               "inputs_copied_to_device": moved}
+               "inputs_copied_to_device": runner.copied}
     ranks = _all_gather(summary)
     summary["counts_agree_across_ranks"] = _check_spmd(ranks)
     if rank == 0:
@@ -559,7 +772,7 @@ def dump_step(cfg: Config, state: TrainState, step_fn: Callable,
                                f"step on ranks {bad}")
     say(f"[graph] dumped {len(nodes)} nodes per rank into "
         f"{workdir / GRAPH_FILE} and {workdir / DOT_FILE}{note}")
-    del graph
+    del runner
     return {**summary, "ranks": ranks}
 
 

@@ -21,9 +21,9 @@ line with its own ``seconds``; any failure raises and the script exits
 non-zero:
 
 1. env      the card's name and power limit (nvidia-smi).
-2. build    the six sources (convt1d, conv1d, ingest, gru_scan, sconv,
-            gru_cell) from a clean build directory, one plain nvcc each,
-            all started together; ptxas registers and spills.
+2. build    the seven sources (convt1d, conv1d, ingest, gru_scan, sconv,
+            gru_cell, adam) from a clean build directory, one plain nvcc
+            each, all started together; ptxas registers and spills.
 3. compare  each kernel against its plain PyTorch form, f32 and bf16:
             convt1d at the five wgan_gp_b64 generator layers (batch 64) and
             at the critic's backward geometries (the dx of every critic
@@ -63,7 +63,11 @@ non-zero:
             flagship critic's per-rank geometries at tp=2 (2B=128: the
             column layers D0, D2, D4 at C_out / 2, the row layers D1,
             D3 at C_in / 2 with no bias) and their dx, which the tp
-            step runs in f32.
+            step runs in f32. Adam's kernel (csrc/adam.cu: the update's
+            step-dependent tail from device scalars) against torch's
+            foreach ops, to the bit, at every parameter shape of every
+            preset's G and D and the flagship's ZeRO-1 row blocks at
+            dp=4, counts 1 ... 400 (tools/step_checks.py::hold_adam).
 4. serve    each generator at full width (random weights from init seed 0,
             bf16; dual_stft's G is the flagship's) exported, loaded and
             served over HTTP on 127.0.0.1; a few requests (with labels for
@@ -80,9 +84,15 @@ non-zero:
             penalty alone.
 6. train    each preset, and the fused flagship, through train.loop.train
             (what `cli train` runs): B=64, bf16, n_critic 5, fused views,
-            resident synthetic corpus; warm-up steps then timed ones, finite
-            losses, steps/s, launches per step of each kernel (counts zeroed
-            just before each path, read just after; K1', K1, their
+            resident synthetic corpus; the loop trains by replay (its
+            first step eager, the second captured as one CUDA graph,
+            train/step_graph.py), 2 warm-up steps then 20 timed ones,
+            finite losses, steps/s, the replay's device ms (CUDA events
+            around each replay) and the window's idle share, the
+            capture's seconds and nodes, launches per step of each
+            kernel (counts zeroed just before each path, read just
+            after: the eager step's calls plus each port kernel's kernel
+            nodes times the replays; Adam's kernel n_critic + 1; K1', K1, their
             tensor-core launches (zero is a failure), K6 and K7 held to
             the counts the step's structure gives, every K6 and K7 launch
             on the tensor cores, the unfused shuffle to none, K4 6 and K5 1
@@ -108,6 +118,11 @@ non-zero:
             that step's [V, 64] clips gathered by the host batcher's
             native row gather (data/native.py) and by numpy's fancy
             index: the same bytes, each one's seconds.
+6r. replay  after each train run, the same run again from the same start
+            with every step eager (train.loop.train(..., replay=False)):
+            every step's record and the last checkpoint equal to the
+            replayed run's, to the bit; both rates, the replay's device
+            ms, idle share, capture and both runs' peak memory.
 6b. resume  `cli train --total_steps 6 --set train.ckpt_every=3` in
             subprocesses for the flagship, the fused flagship,
             cond_gru_sc09, dual_stft, music_44k_dp16 (mesh.dp=1; B=64,
@@ -115,7 +130,8 @@ non-zero:
             once sent SIGKILL when it logs its step-3 checkpoint and run
             again; the second run must restore step 3, and its step-6
             metrics.jsonl record (but time and rates) and step-6
-            checkpoint must equal the uninterrupted run's to the bit.
+            checkpoint must equal the uninterrupted run's to the bit;
+            every run replays (its init record says so).
             Then, on every workdir but the fused flagship's, `cli sample
             --workdir --seed 0` twice (the same bytes, WAVs at the
             preset's rate and length) and `cli serve --workdir` (one
@@ -263,7 +279,7 @@ import torch.nn.functional as F
 from audiogan_tpu_torch.kernels import hooks
 from audiogan_tpu_torch.tools.step_checks import (
     PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS,
-    compare_blobs, compute_dtype, conv_step_launches, cp_rank_layers,
+    adam_step_launches, compare_blobs, compute_dtype, conv_step_launches, cp_rank_layers,
     cp_step_launches, critic_dx_layers, critic_layers, fused_step_launches,
     generator_dx_layers, generator_layers, hold_bf16_to_dp1, hold_launches, random_raw, same_bits,
     same_checkpoint, state_parts, tensor_core, tp_rank_layers,
@@ -287,7 +303,8 @@ RESAMPLE_CPU_TOL = 1e-5       # the float64 polyphase product, card vs CPU
 SERVE_BF16_REL_TOL = 5e-2
 GRU_BWD_REL_L2 = 1e-3         # K5: every gradient sums over 16384 rows
 BUILD_LIMIT_S = 180.0
-SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell")
+SOURCES = ("convt1d", "conv1d", "ingest", "gru_scan", "sconv", "gru_cell",
+           "adam")
 # K3 against torch.nn.GRUCell: alternating rounds of launches, medians
 K3_ROUNDS, K3_LAUNCHES = 5, 50
 # a cell ragged against K3's tensor-core tiles: B 7, in 24, H 40
@@ -296,7 +313,7 @@ SLEEP_CYCLES = 200_000        # about 0.1 ms of device time ahead of a call
 # a flagship step takes about 0.13 s on the tensor-core convs: 20 timed
 # steps keep the rate's window near 3 s; a music step is several times
 # longer
-TRAIN_WARMUP, TRAIN_TIMED, MUSIC_TIMED = 2, 20, 8
+TRAIN_WARMUP, TRAIN_TIMED = 2, 20
 # the resume phase: `cli train --total_steps 6`, a checkpoint every 3 steps;
 # one run uninterrupted, one killed after its step-3 checkpoint and resumed
 RESUME_STEPS, RESUME_KILL_AT = 6, 3
@@ -1768,24 +1785,54 @@ def compare_steps(m_card, card, m_host, host) -> dict:
 
 
 def train_phase(cfg, dev, counters: dict, per_step: dict,
-                timed: int = TRAIN_TIMED) -> dict:
-    """cfg through train.loop.train: counts zeroed just before, read just
-    after. Every counter must have launched, a whole number of times per
-    step, but those per_step holds at 0; per_step names exact counts."""
+                timed: int = TRAIN_TIMED) -> tuple[dict, object]:
+    """cfg through train.loop.train, which trains by replaying one CUDA
+    graph (its first step eager, the second captured): counts zeroed just
+    before, read just after, each the eager step's calls plus the graph's
+    kernel nodes times its replays (train/step_graph.py). Every counter
+    must have launched, a whole number of times per step, but those
+    per_step holds at 0; per_step names exact counts (Adam's kernel one
+    per update: n_critic + 1). Events around each replay give its device
+    time, and the timed window's idle share. Returns the report and the
+    trained state."""
     from audiogan_tpu_torch.train.loop import train
+    from audiogan_tpu_torch.train.step_graph import StepGraph
     workdir = ROOT / "build" / f"chip_smoke_train_{cfg.name}"
     shutil.rmtree(workdir, ignore_errors=True)
     lines = []
     n_steps = TRAIN_WARMUP + timed
+    per_step = {**per_step, **adam_step_launches(cfg)}
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters.values():
         c.launches = 0
-    state, last = train(cfg, workdir, n_steps, device=dev,
-                        log=lambda s: lines.append(json.loads(s)))
+    events = []
+    replay = StepGraph.replay
+
+    def timed_replay(self, state):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = replay(self, state)
+        pair[1].record()
+        events.append(pair)
+        return out
+    StepGraph.replay = timed_replay
+    try:
+        state, last = train(cfg, workdir, n_steps, device=dev,
+                            log=lambda s: lines.append(json.loads(s)))
+    finally:
+        StepGraph.replay = replay
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    profile = profile_step(cfg, dev, state)
+    torch.cuda.synchronize(dev)
+    replay_ms = [a.elapsed_time(b) for a, b in events]
+    init = [ln for ln in lines if "init" in ln][0]["init"]
+    graphs = [ln["graph"] for ln in lines if "graph" in ln]
+    if init["steps"] != "replay" or len(graphs) != 1 or \
+            len(replay_ms) != n_steps - 1:
+        raise AssertionError(f"{cfg.name}: the loop did not replay: "
+                             f"{init}, {len(graphs)} captures, "
+                             f"{len(replay_ms)} replays")
     steps = [ln for ln in lines if "step" in ln]
     if len(steps) != n_steps:
         raise AssertionError(f"{len(steps)} metric lines for {n_steps} steps")
@@ -1811,6 +1858,8 @@ def train_phase(cfg, dev, counters: dict, per_step: dict,
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{n_steps} steps, want {want} per step")
     timed_s = steps[-1]["seconds"] - steps[TRAIN_WARMUP - 1]["seconds"]
+    timed_ms = replay_ms[-timed:]
+    g = graphs[0]
     return dict(preset=cfg.name, batch=cfg.train.batch_size,
                 dtype=cfg.train.dtype, n_critic=cfg.loss.n_critic,
                 fused_d_views=cfg.train.fused_d_views, steps=n_steps,
@@ -1821,8 +1870,70 @@ def train_phase(cfg, dev, counters: dict, per_step: dict,
                 launches_per_step={k: v // n_steps
                                    for k, v in launches.items()},
                 peak_memory_gib=peak / 2**30, first=steps[0], last=last,
-                profile=profile, ckpt=lines[saves[0]]["ckpt"],
-                init=[ln for ln in lines if "init" in ln][0]["init"])
+                replay={"device_ms": sum(timed_ms) / timed,
+                        "device_ms_min": min(timed_ms),
+                        "device_ms_max": max(timed_ms),
+                        "idle_share": max(1.0 - sum(timed_ms)
+                                          / (timed_s * 1e3), 0.0),
+                        "capture_seconds": g["capture_seconds"],
+                        "nodes": g["nodes"], "by_kind": g["by_kind"],
+                        "captured_at_step": g["step"]},
+                ckpt=lines[saves[0]]["ckpt"], init=init), state
+
+
+def replay_phase(cfg, dev, trained: dict, state) -> dict:
+    """The train phase's run of cfg again from the same start, every step
+    eager (train.loop.train(..., replay=False), no Config field or flag):
+    each step's record (but its seconds) and the last checkpoint equal to
+    the replayed run's, to the bit; both rates over the same timed
+    window, beside the replay's device time, idle share, capture and
+    peak memory. Then ``profile_step`` on the replayed run's state, after
+    the eager run (its eager steps read slower after a torch.profiler
+    session in this process; tools/replay_rates.py times both routes in
+    fresh processes)."""
+    from audiogan_tpu_torch.train.loop import train
+    workdir = ROOT / "build" / f"chip_smoke_eager_{cfg.name}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    lines = []
+    n_steps, timed = trained["steps"], trained["timed_steps"]
+    c = cfg.replace(train=dataclasses.replace(cfg.train, log_every=1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    train(c, workdir, n_steps, device=dev, replay=False, tensorboard=False,
+          log=lambda s: lines.append(json.loads(s)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    init = [ln for ln in lines if "init" in ln][0]["init"]
+    if init["steps"] != "eager: asked by the caller" or \
+            any("graph" in ln for ln in lines):
+        raise AssertionError(f"{cfg.name}: the eager run replayed: {init}")
+    steps = [ln for ln in lines if "step" in ln]
+    replayed = [json.loads(ln) for ln in (Path(trained["workdir"])
+                                          / "metrics.jsonl").read_text()
+                .splitlines()]
+    eager = [json.loads(ln) for ln in (workdir / "metrics.jsonl")
+             .read_text().splitlines()]
+
+    def losses(recs):
+        return [{k: v for k, v in r.items() if k != "seconds"
+                 and "per_sec" not in k and k != "time"} for r in recs]
+    if losses(replayed) != losses(eager):
+        raise AssertionError(f"{cfg.name}: the replayed run's records "
+                             f"differ from the eager run's")
+    last = f"ckpt/{n_steps}.pt"
+    tensors = same_checkpoint(Path(trained["workdir"]) / last,
+                              workdir / last)
+    timed_s = steps[-1]["seconds"] - steps[TRAIN_WARMUP - 1]["seconds"]
+    eager_sps = timed / timed_s
+    return dict(preset=cfg.name, fused_shuffle_sites=(
+                    cfg.model.fused_shuffle_sites), steps=n_steps,
+                timed_steps=timed, records_equal=len(eager),
+                checkpoint_tensors_equal=tensors,
+                replay_steps_per_s=trained["steps_per_s"],
+                eager_steps_per_s=eager_sps,
+                replay_over_eager=trained["steps_per_s"] / eager_sps,
+                replay=trained["replay"],
+                peak_memory_gib={"replay": trained["peak_memory_gib"],
+                                 "eager": peak / 2**30},
+                profile=profile_step(cfg, dev, state))
 
 
 def host_batcher_phase(cfg, dev, trained: dict) -> dict:
@@ -2006,6 +2117,10 @@ def resume_case(preset: str, sets: tuple, base: Path) -> dict:
     restored = [ln["resume"]["step"] for ln in r_lines if "resume" in ln]
     if restored != [RESUME_KILL_AT]:
         raise AssertionError(f"{tag}: the second run restored {restored}")
+    routes = {ln["init"]["steps"] for ln in a_lines + r_lines
+              if "init" in ln}
+    if routes != {"replay"}:
+        raise AssertionError(f"{tag}: the runs did not replay: {routes}")
     ra, rb = (step_record(runs[k], RESUME_STEPS) for k in ("a", "b"))
     keys = sorted(k for k in ra if k != "time" and "per_sec" not in k)
     if keys != sorted(k for k in rb if k != "time" and "per_sec" not in k) \
@@ -2648,6 +2763,61 @@ def time_ingest(cases: list[dict], errs: dict) -> list:
     return rows
 
 
+def compare_adam(dev) -> dict:
+    """kernels/adam.py's kernel against torch's foreach ops at every
+    parameter shape of every preset and ZeRO-1's row blocks, counts 1 ...
+    400 (tools/step_checks.py::hold_adam): equal to the bit, or a
+    failure."""
+    from audiogan_tpu_torch.tools.step_checks import adam_cases, hold_adam
+    errs = {}
+    for case in adam_cases(dev):
+        rec = hold_adam(case)
+        print(json.dumps({"compare": "adam", **rec, "bits_equal": True}),
+              flush=True)
+        errs[case["name"]] = 0.0
+    return errs
+
+
+def time_adam(dev, errs: dict) -> list:
+    """Adam's kernel on the flagship's D and G and music's D at count 1
+    (ms: 20 back-to-back calls) beside the same four ops as torch's
+    foreach kernels with host scalar lists (the port's update before the
+    kernel) and the byte bound (16 bytes an element)."""
+    from audiogan_tpu_torch.kernels.adam import adam_update, adam_work
+    from audiogan_tpu_torch.tools.step_checks import adam_cases
+    from audiogan_tpu_torch.train.state import ADAM_EPS, adam_scalars
+    rows = []
+    names = ("wgan_gp_b64 D", "wgan_gp_b64 G", "music_44k_dp16 D")
+    for case in [c for c in adam_cases(dev) if c["name"] in names]:
+        ps, mu, nu = case["params"], case["mu"], case["nu"]
+        n = len(ps)
+        step_size, bias2 = adam_scalars(case["lr"], *case["betas"],
+                                        [1.0] * n)
+        scal = torch.tensor([step_size, bias2], dtype=torch.float32,
+                            device=dev)
+
+        def foreach():
+            den = torch._foreach_sqrt(nu)
+            torch._foreach_div_(den, bias2)
+            torch._foreach_add_(den, ADAM_EPS)
+            torch._foreach_addcdiv_(ps, mu, den, step_size)
+        flops, nbytes = adam_work(ps)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        rows.append({
+            "geometry": case["name"], "tensors": n,
+            "elements": sum(p.numel() for p in ps),
+            "ms": cuda_ms(lambda: adam_update(ps, mu, nu, scal,
+                                              list(range(n)), ADAM_EPS)),
+            "device_ms": profiled_device_ms(
+                lambda: adam_update(ps, mu, nu, scal, list(range(n)),
+                                    ADAM_EPS)),
+            "plain_ms": cuda_ms(foreach),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "max_abs_err": errs[case["name"]]})
+        print(json.dumps({"timing": "adam", **rows[-1]}), flush=True)
+    return rows
+
+
 def kernel_entry(name, source, replaces, function, launches, rows, per,
                  card, **extra) -> dict:
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
@@ -2690,6 +2860,7 @@ def main() -> int:
     from audiogan_tpu_torch.cli import apply_overrides
     from audiogan_tpu_torch.config import get_preset
     from audiogan_tpu_torch.kernels import _build
+    from audiogan_tpu_torch.kernels import adam as kadam
     from audiogan_tpu_torch.kernels import conv as kconv
     from audiogan_tpu_torch.kernels import gru as kgru
     from audiogan_tpu_torch.kernels import ingest as king
@@ -2711,9 +2882,11 @@ def main() -> int:
                     kgru.gru_scan_bwd, "launches_persistent"),
                 "convt1d_tc": PathCounter(kconv.conv_transpose1d_ba,
                                           "launches_tc"),
-                "conv1d_tc": PathCounter(kconv.conv1d_ba, "launches_tc")}
+                "conv1d_tc": PathCounter(kconv.conv1d_ba, "launches_tc"),
+                "adam": kadam.adam_update}
     wave_kernels = {k: counters[k] for k in ("convt1d", "conv1d", "ingest",
-                                             "convt1d_tc", "conv1d_tc")}
+                                             "convt1d_tc", "conv1d_tc",
+                                             "adam")}
     fused_kernels = {**wave_kernels, "sconv1d": ksconv.sconv1d_ba,
                      "sconvt1d": ksconv.sconvt1d,
                      "sconv1d_tc": PathCounter(ksconv.sconv1d_ba,
@@ -2814,9 +2987,11 @@ def main() -> int:
     gru_launches = gru_launch_counts(gcfg, dev)
     errs["gru_cell"] = compare_gru_cell(gcfg, dev)
     resampled = compare_resample(dev)
+    errs["adam"] = compare_adam(dev)
     single = ("gru", "gru_cell")
-    phase("compare", t0, geometries={k: len(v) // 2 if k != "ingest"
-                                     else len(v) for k, v in errs.items()
+    phase("compare", t0, geometries={k: len(v) // 2 if k not in
+                                     ("ingest", "adam") else len(v)
+                                     for k, v in errs.items()
                                      if k not in single},
           max_abs_err={k: max(v.values()) for k, v in errs.items()
                        if k not in single},
@@ -2877,7 +3052,7 @@ def main() -> int:
     PShuf.calls = ksconv.sconv1d_ba.launches = ksconv.sconvt1d.launches = 0
     # K1' 85 and K1 80 per flagship step, 68 each on the tensor cores;
     # the fused flagship 21 and 36, 4 and 24; K2 one per real view
-    trained = train_phase(cfg, dev, wave_kernels,
+    trained, cstate = train_phase(cfg, dev, wave_kernels,
                           {**conv_step_launches(cfg),
                            "ingest": num_views(cfg)})
     unfused_shuffles = PShuf.calls
@@ -2887,10 +3062,13 @@ def main() -> int:
                              "neither K6 nor K7")
     phase("train", t0, card=card, pshuf_calls=unfused_shuffles, **trained)
     t0 = time.time()
+    replayed = {cfg.name: replay_phase(cfg, dev, trained, cstate)}
+    phase("replay", t0, card=card, **replayed[cfg.name])
+    t0 = time.time()
     k6_step, k7_step = fused_step_launches(fcfg)
     PShuf.calls = 0
     # every K6 and K7 launch of the step on the tensor cores
-    ftrained = train_phase(fcfg, dev, fused_kernels,
+    ftrained, fstate = train_phase(fcfg, dev, fused_kernels,
                            {"sconv1d": k6_step, "sconvt1d": k7_step,
                             "sconv1d_tc": k6_step, "sconvt1d_tc": k7_step,
                             "ingest": num_views(fcfg),
@@ -2900,39 +3078,56 @@ def main() -> int:
     phase("train", t0, card=card, fused_shuffle_sites=-1,
           pshuf_calls=PShuf.calls, **ftrained)
     t0 = time.time()
+    replayed[cfg.name + " fused_shuffle_sites=-1"] = replay_phase(
+        fcfg, dev, ftrained, fstate)
+    phase("replay", t0, card=card,
+          **replayed[cfg.name + " fused_shuffle_sites=-1"])
+    t0 = time.time()
     # K4 6 and K5 1 per step, every one on the persistent path in bf16
-    gtrained = train_phase(gcfg, dev, counters,
+    gtrained, gstate = train_phase(gcfg, dev, counters,
                            {"gru_scan": 1 + gcfg.loss.n_critic,
                             "gru_scan_bwd": 1, "ingest": num_views(gcfg),
                             "gru_scan_persistent": 1 + gcfg.loss.n_critic,
                             "gru_scan_bwd_persistent": 1})
     phase("train", t0, card=card, **gtrained)
     t0 = time.time()
+    replayed[gcfg.name] = replay_phase(gcfg, dev, gtrained, gstate)
+    phase("replay", t0, card=card, **replayed[gcfg.name])
+    t0 = time.time()
     # the dual critic's wave critic and G run the flagship's convs; K2 6:
     # five critic views and G's real view for its spectral term
     PShuf.calls = 0
-    dtrained = train_phase(dcfg, dev, wave_kernels,
+    dtrained, dstate = train_phase(dcfg, dev, wave_kernels,
                            {**conv_step_launches(dcfg),
                             "ingest": num_views(dcfg)})
     if "stft_loss" not in dtrained["last"] or not PShuf.calls:
         raise AssertionError("dual_stft: no stft_loss or no shuffle")
     phase("train", t0, card=card, **dtrained)
     t0 = time.time()
+    replayed[dcfg.name] = replay_phase(dcfg, dev, dtrained, dstate)
+    phase("replay", t0, card=card, **replayed[dcfg.name])
+    t0 = time.time()
     # music at dp=1: K1' and K1 as the step's structure gives them at
     # strides 7/7/5/5/3, K2 one per critic view (store 220500 -> 176400)
-    mtrained = train_phase(mcfg, dev, wave_kernels,
+    mtrained, mstate = train_phase(mcfg, dev, wave_kernels,
                            {**conv_step_launches(mcfg),
-                            "ingest": num_views(mcfg)}, timed=MUSIC_TIMED)
+                            "ingest": num_views(mcfg)})
     phase("train", t0, card=card, **mtrained)
+    t0 = time.time()
+    replayed[mcfg.name] = replay_phase(mcfg, dev, mtrained, mstate)
+    phase("replay", t0, card=card, **replayed[mcfg.name])
     t0 = time.time()
     phase("train", t0, card=card, preset=mcfg.name, data_path="host_batcher",
           **host_batcher_phase(mcfg, dev, mtrained))
     t0 = time.time()
     # resample_22k: every view resampled in plain torch ops (the
     # reference's route), so K2 never; f32, so no tensor-core conv
-    rtrained = train_phase(rcfg, dev, wave_kernels,
+    rtrained, rstate = train_phase(rcfg, dev, wave_kernels,
                            {**conv_step_launches(rcfg), "ingest": 0})
     phase("train", t0, card=card, **rtrained)
+    t0 = time.time()
+    replayed[rcfg.name] = replay_phase(rcfg, dev, rtrained, rstate)
+    phase("replay", t0, card=card, **replayed[rcfg.name])
     t0 = time.time()
     cell_run = gru_cell_phase(gcfg, dev)
     phase("gru_cell", t0, card=card, **cell_run)
@@ -2991,7 +3186,8 @@ def main() -> int:
             **time_gru(gcfg, dev, errs["gru"], gru_launches),
             "sconv1d": time_sconv(False, s_fwd, dev, errs["sconv1d"]),
             "sconvt1d": time_sconv(True, s_dx, dev, errs["sconvt1d"]),
-            "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"])}
+            "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"]),
+            "adam": time_adam(dev, errs["adam"])}
     samplers = {cfg.name: sampler_rate(sampler, cfg),
                 gcfg.name: sampler_rate(gsampler, gcfg),
                 dcfg.name: sampler_rate(dsampler, dcfg),
@@ -3007,6 +3203,10 @@ def main() -> int:
                              rcfg.name: rtrained["steps_per_s"]},
           peak_memory_gib={mcfg.name: mtrained["peak_memory_gib"],
                            rcfg.name: rtrained["peak_memory_gib"]},
+          replay_steps_per_s={k: v["replay_steps_per_s"]
+                              for k, v in replayed.items()},
+          eager_steps_per_s={k: v["eager_steps_per_s"]
+                             for k, v in replayed.items()},
           card=card)
 
     per_step = trained["launches_per_step"]
@@ -3171,6 +3371,20 @@ def main() -> int:
             launches_per_recurrence=cell_run["bf16"]["launches"],
             launches_tensor_core=cell_run["bf16"]["launches_tensor_core"],
             launches_f32_recurrence=cell_run["launches"]),
+        kernel_entry(
+            "adam", "audiogan_tpu_torch/csrc/adam.cu",
+            "audiogan_tpu/train/state.py:38",
+            "optax.adam (XLA's, no Pallas kernel): the update's "
+            "step-dependent tail from device scalars",
+            trained["launches"]["adam"], rows["adam"],
+            "one update of the flagship's D, of its G and of music's D "
+            "(f32 parameters and moments)", card,
+            launches_per_train_step=per_step["adam"],
+            launches_per_train_step_gru=gper_step["adam"],
+            launches_per_train_step_dual=dper_step["adam"],
+            launches_per_train_step_music=mper_step["adam"],
+            launches_per_rank_step_dp2=dp_run["launches_per_rank_step"][0][
+                "adam"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,8 @@ torch and the port only, so they also run on a machine without JAX:
         tests/test_torch_cuda.py -q
 """
 
+import json
+
 import pytest
 import torch
 
@@ -1336,3 +1338,121 @@ def test_async_save_on_the_card_holds_the_state_it_was_given(cuda_device,
     assert [r["step"] for r in done] == [1]
     assert same_checkpoint(tmp_path / "sync" / "ckpt" / "1.pt",
                            tmp_path / "async" / "ckpt" / "1.pt") > 0
+
+
+# -- the loop's replayed step (train/step_graph.py::StepGraph) ---------------
+
+REPLAY_PRESETS = [("wgan_gp_b64", ["train.dtype=float32"]),
+                  ("wgan_gp_b64", []),
+                  ("wgan_gp_b64", ["model.fused_shuffle_sites=-1"]),
+                  ("cond_gru_sc09", []), ("dual_stft", []),
+                  ("music_44k_dp16", ["mesh.dp=1"]), ("resample_22k", [])]
+REPLAY_IDS = ["f32", "bf16", "fused_sites", "gru", "dual_stft", "music",
+              "resample_22k"]
+
+
+def _replay_cfg(preset: str, sets: list, batch: int = 4):
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    return apply_overrides(get_preset(preset), [
+        f"train.batch_size={batch}", "data.index_chunk=4",
+        "train.log_every=1", "train.ckpt_every=3", "train.sample_every=0",
+        *sets]).validate()
+
+
+def _records(lines: list) -> list:
+    return [{k: v for k, v in ln.items() if k != "seconds"}
+            for ln in lines if "step" in ln and "d_loss" in ln]
+
+
+def _loop(cfg, workdir, steps, device, replay=True):
+    from audiogan_tpu_torch.train.loop import train
+    lines = []
+    train(cfg, workdir, steps, device=device, tensorboard=False,
+          replay=replay, log=lambda s: lines.append(json.loads(s)))
+    return lines
+
+
+@pytest.mark.parametrize("preset,sets", REPLAY_PRESETS, ids=REPLAY_IDS)
+def test_replayed_loop_equals_the_eager_loop_to_the_bit(
+        cuda_device, tmp_path, preset, sets):
+    """Six steps through train.loop.train at batch 4 (index_chunk 4: a
+    block boundary at step 4), replayed (the first step eager, the second
+    captured) and all eager: every step's record and the checkpoints of
+    steps 3 and 6 equal to the bit; the replayed run's init names its
+    route and its graph line each port kernel's nodes."""
+    from audiogan_tpu_torch.tools.step_checks import same_checkpoint
+    cfg = _replay_cfg(preset, sets)
+    rep = _loop(cfg, tmp_path / "replay", 6, cuda_device)
+    eag = _loop(cfg, tmp_path / "eager", 6, cuda_device, replay=False)
+    assert next(ln["init"]["steps"] for ln in rep if "init" in ln) == \
+        "replay"
+    graph = [ln["graph"] for ln in rep if "graph" in ln]
+    assert len(graph) == 1 and graph[0]["step"] == 1
+    for name, rec in graph[0]["port_kernels"].items():
+        assert rec["kernel_nodes"] == rec["calls"] > 0, name
+    assert _records(rep) == _records(eag)
+    for s in (3, 6):
+        assert same_checkpoint(tmp_path / "replay" / f"ckpt/{s}.pt",
+                               tmp_path / "eager" / f"ckpt/{s}.pt") > 0
+
+
+@pytest.mark.parametrize("preset,sets", [REPLAY_PRESETS[1],
+                                         REPLAY_PRESETS[3]],
+                         ids=["bf16", "gru"])
+def test_replayed_run_resumed_equals_the_uninterrupted_one(
+        cuda_device, tmp_path, preset, sets):
+    """Stopped after its step-3 checkpoint and run again to 6 (a fresh
+    capture after the resume's eager first step), the replayed run ends
+    in the uninterrupted replayed run's records and checkpoint."""
+    from audiogan_tpu_torch.tools.step_checks import same_checkpoint
+    cfg = _replay_cfg(preset, sets)
+    whole = _loop(cfg, tmp_path / "a", 6, cuda_device)
+    _loop(cfg, tmp_path / "b", 3, cuda_device)
+    resumed = _loop(cfg, tmp_path / "b", 6, cuda_device)
+    assert [ln["resume"]["step"] for ln in resumed if "resume" in ln] == [3]
+    assert _records(whole)[3:] == _records(resumed)
+    assert same_checkpoint(tmp_path / "a" / "ckpt/6.pt",
+                           tmp_path / "b" / "ckpt/6.pt") > 0
+
+
+def test_nan_in_the_critic_is_named_under_replay(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """train.debug_nans on a replayed run: a NaN written into the critic's
+    conv_0 kernel before step 2 (a replay) is found after the replay,
+    and the step run again eagerly under the check names K1', the wave
+    critic, forward, D.conv_0_kernel."""
+    from audiogan_tpu_torch.train import debug_nans
+    cfg = _replay_cfg("wgan_gp_b64", ["train.debug_nans=true"])
+    before = debug_nans.NanGuard.before
+
+    def poison(self, state):
+        if state.step == 2:
+            with torch.no_grad():
+                state.d.conv_0_kernel[0, 0, 0] = float("nan")
+        before(self, state)
+    monkeypatch.setattr(debug_nans.NanGuard, "before", poison)
+    lines = []
+    with pytest.raises(FloatingPointError) as err:
+        from audiogan_tpu_torch.train.loop import train
+        train(cfg, tmp_path, 4, device=cuda_device, tensorboard=False,
+              log=lambda s: lines.append(json.loads(s)))
+    assert any("graph" in ln for ln in lines)
+    msg = str(err.value)
+    assert "step 2" in msg and "K1' conv1d_ba" in msg
+    assert "wave_critic, forward" in msg and "D.conv_0_kernel" in msg
+
+
+@pytest.mark.parametrize("preset", ["wgan_gp_b64", "cond_gru_sc09",
+                                    "dual_stft", "music_44k_dp16",
+                                    "resample_22k"])
+def test_adam_kernel_equals_torch_foreach_ops(cuda_device, preset):
+    """kernels/adam.py's kernel against torch's foreach ops to the bit at
+    every parameter shape of the preset's G and D (and, for the
+    flagship, ZeRO-1's row blocks at dp=4), counts 1 ... 400."""
+    from audiogan_tpu_torch.tools import step_checks
+    cases = [c for c in step_checks.adam_cases(cuda_device)
+             if c["name"].split()[0] == preset]
+    assert cases
+    for case in cases:
+        assert step_checks.hold_adam(case)["counts"] == 400

@@ -108,5 +108,6 @@ def test_dump_hlo_lists_the_step_on_the_cpu(tmp_path):
     assert len(convs) == want["conv1d"] + want["convt1d"]
     assert all("[K1" in ln for ln in convs)
     n_adam = _cfg().loss.n_critic + 1
-    assert ops.count("aten._foreach_addcdiv_.ScalarList") == n_adam
+    # the step sizes as a tensor (kernels/adam.py's plain form)
+    assert ops.count("aten._foreach_addcdiv_.Tensor") == n_adam
     assert ops.count("aten._foreach_lerp_.Scalar") == n_adam
