@@ -389,7 +389,7 @@ def main(argv: list[str] | None = None) -> int:
         host, port = srv.server_address[:2]
         print(f"[serve] {sampler.meta.get('model')} on http://{host}:{port} "
               f"(batch {sampler.num}, {sampler.sample_rate} Hz, "
-              f"{sampler.device})", flush=True)
+              f"{sampler.device}, {sampler.route})", flush=True)
         try:
             srv.serve_forever()
         except KeyboardInterrupt:

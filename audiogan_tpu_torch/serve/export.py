@@ -1,11 +1,14 @@
 """Sampler export: the generator's state dict plus ``meta.json``.
 
-The JAX package bakes its weights into a StableHLO graph; PyTorch runs
-eagerly, so here the artifact is the weights (``generator.pt``, written
-with ``torch.save``) and the config, and ``ServedSampler`` rebuilds G from
-the config on load. ``meta.json`` carries the JAX artifact's keys. The
-artifact has a fixed batch ``num``: every call draws ``num`` latents, so a
-request for fewer clips gets a prefix of the same bytes.
+The JAX package bakes its weights into a StableHLO graph at a fixed batch;
+here the artifact is the weights (``generator.pt``, written with
+``torch.save``) and the config, and ``ServedSampler`` rebuilds G from the
+config on load. On the card it then captures the whole sampler, draw
+aside, as one CUDA graph at the artifact's batch and replays it for every
+request (serve/sample_graph.py), the counterpart of calling the compiled
+artifact. ``meta.json`` carries the JAX artifact's keys. The artifact has
+a fixed batch ``num``: every call draws ``num`` latents, so a request for
+fewer clips gets a prefix of the same bytes.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from audiogan_tpu_torch.config import Config
 from audiogan_tpu_torch.device import resolve_device
-from audiogan_tpu_torch.train.sample import build_sample_fn
+from audiogan_tpu_torch.serve.sample_graph import SampleGraph
 
 _WEIGHTS = "generator.pt"
 _META = "meta.json"
@@ -44,16 +47,32 @@ def export_sampler(cfg: Config, params_g: dict[str, torch.Tensor], num: int,
 
 
 class ServedSampler:
-    """A loaded artifact on one device: seeded, deterministic generation."""
+    """A loaded artifact on one device: seeded, deterministic generation.
+    On the card every request replays one CUDA graph captured at load
+    (``route`` "replay", serve/sample_graph.py); a warm-up or capture that
+    fails raises here. The CPU, and ``replay=False`` (the checks' eager
+    route, which no Config field or CLI flag reaches), run the same body
+    eagerly. Requests are serialised: one batch on the device at a time."""
 
-    def __init__(self, art_dir: str | Path, device=None):
+    def __init__(self, art_dir: str | Path, device=None,
+                 replay: bool = True):
         d = Path(art_dir)
         self.device = resolve_device(device)
         self.meta = json.loads((d / _META).read_text())
         cfg = Config.from_json(json.dumps(self.meta["config"])).validate()
         self._params = torch.load(d / _WEIGHTS, map_location=self.device,
                                   weights_only=True)
-        self._sample = build_sample_fn(cfg, self.device)
+        self._graph = SampleGraph(cfg, self._params, self.num, self.device,
+                                  replay)
+
+    @property
+    def route(self) -> str:
+        return self._graph.route
+
+    def summary(self) -> dict:
+        """The route and, under replay, the capture's nodes by kind, port
+        kernels' nodes and seconds."""
+        return self._graph.summary()
 
     @property
     def num(self) -> int:
@@ -85,11 +104,10 @@ class ServedSampler:
             if lab.min() < 0 or lab.max() >= self.meta["num_classes"]:
                 raise ValueError(f"labels must be in [0, "
                                  f"{self.meta['num_classes']})")
-            lab = torch.as_tensor(lab.astype(np.int64))
+            lab = lab.astype(np.int64)
         elif labels is not None:
             raise ValueError("labels passed to an unconditional artifact")
-        y = self._sample(self._params, seed, lab, num=self.num)
-        return y.cpu().numpy()
+        return self._graph(seed, lab)
 
 
 def load_sampler(art_dir: str | Path, device=None) -> ServedSampler:

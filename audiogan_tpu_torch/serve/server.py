@@ -7,15 +7,16 @@ Endpoints (as audiogan_tpu/serve/server.py):
      response: {"sample_rate": int, "num": int, "wavs": [base64 wav...]}
 
 A request for fewer clips than the artifact's batch runs the full batch and
-returns a prefix. One lock serialises generation: one batch on the card at
-a time. Malformed requests get 400 with an error message.
+returns a prefix. The sampler serialises generation (one batch on the card
+at a time; on the card one replayed CUDA graph per request) and hands each
+request an array of its own, so the WAVs are encoded outside its lock.
+Malformed requests get 400 with an error message.
 """
 
 from __future__ import annotations
 
 import base64
 import json
-import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -27,7 +28,6 @@ from audiogan_tpu_torch.serve.export import ServedSampler
 def make_server(sampler: ServedSampler, host: str = "127.0.0.1",
                 port: int = 0) -> ThreadingHTTPServer:
     """Build (not start) the server; .server_address has the bound port."""
-    lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet by default
@@ -74,8 +74,7 @@ def make_server(sampler: ServedSampler, host: str = "127.0.0.1",
                     full = np.zeros((sampler.num,), labels.dtype)
                     full[:num] = labels
                     labels = full
-                with lock:  # one batch on the card at a time
-                    waves = sampler.generate(seed, labels)[:num]
+                waves = sampler.generate(seed, labels)[:num]
             except (ValueError, TypeError, KeyError,
                     json.JSONDecodeError) as e:
                 return self._json(400, {"error": str(e)})

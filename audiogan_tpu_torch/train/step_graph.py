@@ -96,6 +96,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -222,7 +223,7 @@ class _Watch(hooks.KernelMode):
     port (``calls``: name, and with ``on_call``, which lists the graph's
     nodes, the nodes the call added) and every collective (``collectives``:
     its kind and, with ``on_call``, its nodes). Keeps the last op and call
-    for a failure."""
+    for a failure (``failed_at``)."""
 
     def __init__(self, record_ops: bool,
                  on_call: Callable[[], list] | None = None):
@@ -233,6 +234,7 @@ class _Watch(hooks.KernelMode):
         self.collectives: list = []
         self.kernel: str | None = None
         self.last = "nothing yet"
+        self.last_call: str | None = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = str(func)
@@ -252,6 +254,7 @@ class _Watch(hooks.KernelMode):
     def kernel_call(self, name, fn, args, kwargs):
         outer, self.kernel = self.kernel, self.kernel or name
         self.last = f"the launch of {name}"
+        self.last_call = name
         before = self.on_call() if self.on_call and outer is None else ()
         try:
             out = fn(*args, **kwargs)
@@ -262,6 +265,12 @@ class _Watch(hooks.KernelMode):
                      else set())
             self.calls.append((name, added))
         return out
+
+    def failed_at(self) -> str:
+        """Where a run under the watch stopped: its last op or launch, and
+        the last kernel call of the port it began."""
+        return (f"{self.last} (the last kernel call: "
+                f"{self.last_call or 'none'})")
 
 
 def _static(x, dev: torch.device):
@@ -285,13 +294,13 @@ def _fill(static, x, where: str) -> list[str]:
     """Copies ``x`` into ``static`` (``_static``'s form of it), on the
     current stream: from pinned memory when it lies on the host, so no
     copy waits for the card. Returns a note of each host tensor copied;
-    raises if ``x``'s form differs (a captured step's shapes and its
+    raises if ``x``'s form differs (a captured graph's shapes and its
     other arguments are fixed)."""
     if isinstance(static, torch.Tensor):
         if not isinstance(x, torch.Tensor) or x.shape != static.shape \
                 or x.dtype != static.dtype:
-            raise ValueError(f"{where}: {_form(x)} where the step's fixed "
-                             f"buffer is {_form(static)}")
+            raise ValueError(f"{where}: {_form(x)} where the fixed buffer "
+                             f"is {_form(static)}")
         if x is static:
             return []
         host = x.device.type == "cpu" and static.device.type == "cuda"
@@ -353,13 +362,15 @@ def _header(title: str, summary: dict, by_name: Counter,
     return lines
 
 
-def _capture(step_fn, work: TrainState, args: tuple, draws,
-             dev: torch.device, parallel: bool):
+def _capture(fn: Callable, dev: torch.device, parallel: bool, what: str,
+             stream: torch.cuda.Stream | None = None):
     """(graph, its node records, the kernel calls with their nodes, the
-    collectives with their nodes, the metrics' static tensors, capture
-    seconds) of one step on ``work``. On a mesh the capture's errors are
-    this thread's own (``thread_local``): NCCL's watchdog thread queries
-    its events meanwhile."""
+    collectives with their nodes, what ``fn()`` returned (its static
+    tensors), capture seconds) of one call of ``fn`` under
+    ``torch.cuda.graph`` on ``stream`` (torch's capture stream if None).
+    A failure raises naming ``what`` and the last op and kernel call. On a
+    mesh the capture's errors are this thread's own (``thread_local``):
+    NCCL's watchdog thread queries its events meanwhile."""
     drv = _Driver()
     # keep_graph: the cudaGraph_t outlives the capture, for debug_dump
     graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -372,18 +383,77 @@ def _capture(step_fn, work: TrainState, args: tuple, draws,
 
     watch = _Watch(record_ops=False, on_call=listed)
     mode = "thread_local" if parallel else "global"
+    # garbage, a dead graph among it (a sampler's, a step's), is freed
+    # now and not by the collector inside the capture: a graph's
+    # destructor frees its pool and handles, calls that break a capture
+    # they fall in
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph, capture_error_mode=mode), watch:
-            metrics = step_fn(work, *args, draws=draws)
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode=mode), watch:
+            out = fn()
             g = drv.capturing_graph(torch.cuda.current_stream(dev).cuda_stream)
             nodes = [dict(drv.describe(n), handle=n) for n in drv.nodes(g)]
     except Exception as err:
-        raise RuntimeError(f"capture of the training step failed at "
-                           f"{watch.last}: {err}") from err
+        raise RuntimeError(f"capture of {what} failed at "
+                           f"{watch.failed_at()}: {err}") from err
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize(dev)
-    return (graph, nodes, watch.calls, watch.collectives, metrics,
+    return (graph, nodes, watch.calls, watch.collectives, out,
             time.perf_counter() - t0)
+
+
+def take_back_launches(before: dict) -> dict:
+    """The launches the port's wrappers counted since ``before`` (of
+    ``hooks.launch_counts``' form), taken back off the counters: a capture
+    launches nothing, and each replay adds them again."""
+    now = hooks.launch_counts()
+    delta = {k: v - before.get(k, 0) for k, v in now.items()
+             if v != before.get(k, 0)}
+    hooks.add_launches({k: -v for k, v in delta.items()})
+    return delta
+
+
+def port_kernels(nodes: list, calls: list) -> dict:
+    """By port kernel: its calls in a capture, its own kernel nodes and
+    any other nodes its calls added (``_capture``'s nodes and calls)."""
+    by_handle = {n["handle"]: n for n in nodes}
+    port: dict[str, dict] = {}
+    for name, added in calls:
+        rec = port.setdefault(name, {"calls": 0, "kernel_nodes": 0,
+                                     "other_nodes": 0})
+        rec["calls"] += 1
+        own = hooks.kernel_of(name).functions
+        for h in added:
+            n = by_handle[h]
+            mine = n["kind"] == "kernel" and any(
+                f in n.get("name", "") for f in own)
+            rec["kernel_nodes" if mine else "other_nodes"] += 1
+    return port
+
+
+def check_kernel_nodes(port: dict, delta: dict, what: str) -> None:
+    """Raises unless each port kernel of a capture owns one kernel node per
+    launch it counted (``delta``, ``take_back_launches``' form), so the
+    counts a replay adds are its kernel nodes. A launch of K4's or K5's
+    host loop (``launches_loop``: f32, or B > 64) is the loop's own
+    kernels, captured as they are, none of them the scan's: it owns no
+    node, and its calls must have added others."""
+    for name, rec in port.items():
+        wrapper = name.split()[-1]
+        loop = delta.get((wrapper, "launches_loop"), 0)
+        counted = delta.get((wrapper, "launches"), 0) - loop
+        if rec["kernel_nodes"] != counted or (loop and not
+                                              rec["other_nodes"]):
+            raise RuntimeError(f"{what} holds {rec['kernel_nodes']} kernel "
+                               f"nodes of {name} ({rec['other_nodes']} "
+                               f"others) for {counted} launches ({loop} on "
+                               f"the host loop)")
 
 
 # the default group's gloo twin, for the dump's own agreement (never NCCL:
@@ -587,8 +657,8 @@ class StepGraph:
         try:
             (self.graph, self.nodes, self.calls, self.collectives,
              self.metrics, self.capture_seconds) = _capture(
-                 self.step_fn, state, self.args, self.draws, self.device,
-                 world_size() > 1)
+                 lambda: self.step_fn(state, *self.args, draws=self.draws),
+                 self.device, world_size() > 1, "the training step")
         except Exception as err:
             failure = str(err)
         # no rank replays alone: a replay waits on its peers' NCCL kernels
@@ -599,18 +669,9 @@ class StepGraph:
         self.host_delta = [state.step - step, *(float(t) - held.get(id(t), 0.0)
                                                 for t in counts)]
         _advance(state, counts, [-d for d in self.host_delta])
-        now = hooks.launch_counts()
-        self.launch_delta = {k: v - launches.get(k, 0)
-                             for k, v in now.items()
-                             if v != launches.get(k, 0)}
-        hooks.add_launches({k: -v for k, v in self.launch_delta.items()})
-        for name, rec in self.port_kernels().items():
-            counted = self.launch_delta.get((name.split()[-1], "launches"),
-                                            0)
-            if rec["kernel_nodes"] != counted:
-                raise RuntimeError(f"the captured step holds "
-                                   f"{rec['kernel_nodes']} kernel nodes of "
-                                   f"{name} for {counted} launches")
+        self.launch_delta = take_back_launches(launches)
+        check_kernel_nodes(self.port_kernels(), self.launch_delta,
+                           "the captured step")
 
     def replay(self, state: TrainState) -> dict:
         self.stage(state)
@@ -628,19 +689,7 @@ class StepGraph:
     def port_kernels(self) -> dict:
         """By port kernel: its calls in the capture, its own kernel nodes
         and any other nodes its calls added."""
-        by_handle = {n["handle"]: n for n in self.nodes}
-        port: dict[str, dict] = {}
-        for name, added in self.calls:
-            rec = port.setdefault(name, {"calls": 0, "kernel_nodes": 0,
-                                         "other_nodes": 0})
-            rec["calls"] += 1
-            own = hooks.kernel_of(name).functions
-            for h in added:
-                n = by_handle[h]
-                mine = n["kind"] == "kernel" and any(
-                    f in n.get("name", "") for f in own)
-                rec["kernel_nodes" if mine else "other_nodes"] += 1
-        return port
+        return port_kernels(self.nodes, self.calls)
 
     def summary(self) -> dict:
         """The capture's nodes by kind, port kernels, collectives and

@@ -72,7 +72,13 @@ non-zero:
             bf16; dual_stft's G is the flagship's) exported, loaded and
             served over HTTP on 127.0.0.1; a few requests (with labels for
             the GRU), each kernel's launches per request, the served audio
-            against a CPU reference.
+            against a CPU reference. The sampler answers by replaying one
+            CUDA graph captured at load (serve/sample_graph.py): each
+            kernel's launches per request equal its kernel nodes in the
+            graph, and the replayed batch equals the eager route's
+            (replay=False) and build_sample_fn's to the bit; the
+            capture's seconds, nodes by kind, port kernel nodes and pool
+            bytes.
 5. parity   one f32 training step of each preset (and of the fused
             flagship) at full width, batch 2, on the card (kernels; the
             STFT critic's conv2d in cuDNN, its DFT in cuBLAS, both without
@@ -233,7 +239,13 @@ non-zero:
             CUDA launches per
             call, its path, K5's three stages (recompute, sweep, weight
             gradients), the persistent kernels at each grid of gru_grids
-            and the host loop on the same inputs; each sampler's clips/s.
+            and the host loop on the same inputs; each sampler at batch
+            64 and 8 (the CLI's default): replay and eager ms per batch,
+            and the route before the replayed graph (build_sample_fn,
+            then a pageable copy), in alternating rounds (host clock,
+            each batch ending in its copy to the host), a replay's device
+            ms (CUDA events) and the idle share, and the median wall time
+            of one HTTP /generate at num = batch on both routes.
             K1's and K1''s rows at music_44k_dp16's geometries (each
             tile of the tensor-core path) and K2's at its ingest go into
             the kernels line's "music" entries; their rows at music's
@@ -289,7 +301,12 @@ from audiogan_tpu_torch.utils.profiling import (SPAN_NAMES, profiler_spans,
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 64
-SMALL = 8                     # a request for a prefix of the batch
+SMALL = 8                     # a request for a prefix of the batch; the
+                              # CLI's default artifact batch
+# the samplers' timing: alternating rounds (replay, eager, parent, parent,
+# eager, replay) of this many batches each, and this many HTTP requests
+# per route
+SAMPLER_ITERS, SAMPLER_HTTP = 10, 5
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 rate
@@ -1486,21 +1503,49 @@ def decode_wav(b64: str) -> tuple[int, np.ndarray]:
     return rate, pcm
 
 
+def graph_pool_bytes(graph) -> int | None:
+    """The bytes of the segments a captured graph's private memory pool
+    holds (the allocator's snapshot), or None where the snapshot does not
+    name its segments' pools."""
+    snap = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in snap):
+        return None
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in snap
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def sampler_graph(sampler) -> dict:
+    """A replaying sampler's capture: its summary and its pool's bytes."""
+    if sampler.route != "replay":
+        raise AssertionError(f"the sampler runs {sampler.route}, want replay")
+    return {**sampler.summary(),
+            "pool_bytes": graph_pool_bytes(sampler._graph.graph)}
+
+
 def serve_phase(cfg, dev, counters: dict, per_request: dict):
-    """cfg's generator exported, loaded and served over HTTP; the requests
-    carry labels when cfg is conditional. per_request: the launches each
-    batch must make of each kernel; the other counters must stay 0."""
+    """cfg's generator exported (at BATCH, and at SMALL for the timing),
+    loaded and served over HTTP; the requests carry labels when cfg is
+    conditional. per_request: the launches each batch must make of each
+    kernel; the other counters must stay 0. The sampler replays one CUDA
+    graph per request: each kernel wrapper's kernel nodes in it equal its
+    launches per request, and its batch equals the eager route's and
+    build_sample_fn's to the bit."""
     from audiogan_tpu_torch.models import build_generator
     from audiogan_tpu_torch.models.init import init_params
-    from audiogan_tpu_torch.serve import (export_sampler, load_sampler,
-                                          make_server)
-    from audiogan_tpu_torch.train.sample import generate
+    from audiogan_tpu_torch.serve import (ServedSampler, export_sampler,
+                                          load_sampler, make_server)
+    from audiogan_tpu_torch.train.sample import build_sample_fn, generate
     art = ROOT / "build" / f"chip_smoke_artifact_{cfg.name}"
-    shutil.rmtree(art, ignore_errors=True)
+    art_small = ROOT / "build" / f"chip_smoke_artifact_{cfg.name}_{SMALL}"
+    for d in (art, art_small):
+        shutil.rmtree(d, ignore_errors=True)
     g = init_params(build_generator(cfg, device=dev), seed=0)
     params = g.state_dict()
     export_sampler(cfg, params, num=BATCH, out_dir=art)
+    export_sampler(cfg, params, num=SMALL, out_dir=art_small)
     sampler = load_sampler(art)
+    graph = sampler_graph(sampler)
     srv = make_server(sampler, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -1570,6 +1615,26 @@ def serve_phase(cfg, dev, counters: dict, per_request: dict):
     want16 = np.round(np.clip(waves, -1, 1) * 32767).astype(np.int16)
     if not np.array_equal(pcm, want16):
         raise AssertionError("served wav bytes differ from the sampler")
+    # the graph's kernel nodes against the launches each request counted
+    for name, c in counters.items():
+        if isinstance(c, PathCounter):
+            continue
+        rec = graph["port_kernels"].get(hooks.label(c.__name__), {})
+        if rec.get("kernel_nodes", 0) != per_request.get(name, 0):
+            raise AssertionError(f"{name}: {rec} in the served graph, "
+                                 f"{per_request.get(name, 0)} launches a "
+                                 f"request")
+    # the replayed batch against the eager route and build_sample_fn
+    eager = ServedSampler(art, replay=False)
+    lab_t = None if lab is None else torch.from_numpy(lab)
+    direct = build_sample_fn(cfg, dev)(params, 1, lab_t,
+                                       num=BATCH).cpu().numpy()
+    for route, other in (("eager route", eager.generate(1, lab)),
+                         ("build_sample_fn", direct)):
+        if not np.array_equal(waves, other):
+            raise AssertionError(f"the replayed batch differs from the "
+                                 f"{route}'s")
+    del eager
     # the card's output against the port on the CPU (plain forms), same z
     z = torch.randn(BATCH, cfg.model.latent_dim,
                     generator=torch.Generator(dev).manual_seed(1),
@@ -1594,6 +1659,9 @@ def serve_phase(cfg, dev, counters: dict, per_request: dict):
             raise AssertionError(f"served {dname} G vs CPU reference: "
                                  f"{err} > {tol} * {peak}")
     return sampler, dict(preset=cfg.name, requests=n_generate + 3,
+                         route=sampler.route, graph=graph,
+                         replay_equals_eager=True,
+                         artifacts={BATCH: str(art), SMALL: str(art_small)},
                          generate_requests=n_generate, launches=launches,
                          launches_per_request={
                              k: v / n_generate for k, v in launches.items()},
@@ -2179,7 +2247,9 @@ def serve_workdir(cfg, workdir: Path) -> dict:
                             stderr=subprocess.STDOUT, text=True)
     try:
         line = proc.stdout.readline()
-        if not line.startswith("[serve] "):
+        # the card's sampler replays one captured CUDA graph per request
+        if not line.startswith("[serve] ") or \
+                not line.rstrip().endswith(", replay)"):
             raise AssertionError(f"serve --workdir: {line}"
                                  f"{proc.stdout.read()[-3000:]}")
         url = line.split(" on ", 1)[1].split()[0]
@@ -2839,18 +2909,135 @@ def kernel_entry(name, source, replaces, function, launches, rows, per,
 def sampler_rate(sampler, cfg, iters: int = 10) -> dict:
     """Host clock around `iters` seeded batches, each ending in a copy to
     the host (generate returns numpy)."""
-    lab = (np.arange(BATCH) % cfg.data.num_classes
+    return batch_rate(sampler.generate, sampler.num, cfg, iters)
+
+
+def batch_rate(generate, batch: int, cfg, iters: int) -> dict:
+    """sampler_rate of generate(seed, labels) -> numpy [batch, clip_len]."""
+    lab = (np.arange(batch) % cfg.data.num_classes
            if cfg.data.num_classes else None)
-    sampler.generate(0, lab)
+    generate(0, lab)
     torch.cuda.synchronize()
     ts = time.perf_counter()
     for i in range(iters):
-        sampler.generate(i, lab)
+        generate(i, lab)
     per_batch = (time.perf_counter() - ts) / iters
-    clips_s = BATCH / per_batch
-    return {"batch": BATCH, "ms": per_batch * 1e3, "clips_per_s": clips_s,
+    clips_s = batch / per_batch
+    return {"batch": batch, "ms": per_batch * 1e3, "clips_per_s": clips_s,
             "audio_s_per_s": clips_s * cfg.data.clip_len
             / cfg.data.sample_rate}
+
+
+def parent_route(cfg, dev, art: str, batch: int):
+    """The served route before the replayed graph, as a callable
+    (seed, labels) -> numpy: build_sample_fn op by op on the artifact's
+    weights, then .cpu().numpy() (a pageable copy)."""
+    from audiogan_tpu_torch.train.sample import build_sample_fn
+    fn = build_sample_fn(cfg, dev)
+    params = torch.load(Path(art) / "generator.pt", map_location=dev,
+                        weights_only=True)
+
+    def generate(seed, labels):
+        lab = None if labels is None else torch.from_numpy(labels)
+        return fn(params, seed, lab, num=batch).cpu().numpy()
+    return generate
+
+
+def http_generate_ms(sampler, cfg, requests: int = SAMPLER_HTTP) -> float:
+    """The median wall time of one HTTP /generate at num = the sampler's
+    batch (labels with it for a conditional model), through make_server
+    on 127.0.0.1, the answer read and parsed."""
+    from audiogan_tpu_torch.serve import make_server
+    srv = make_server(sampler, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d/generate" % srv.server_address[:2]
+    n_cls = cfg.data.num_classes
+    times = []
+    try:
+        for seed in range(requests + 1):
+            body = {"seed": seed, "num": sampler.num}
+            if n_cls:
+                body["labels"] = [i % n_cls for i in range(sampler.num)]
+            t0 = time.perf_counter()
+            code, out = http_json(url, body)
+            times.append(time.perf_counter() - t0)
+            if code != 200 or len(out["wavs"]) != sampler.num:
+                raise AssertionError(f"/generate: {code}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    return float(np.median(times[1:])) * 1e3
+
+
+def sampler_timing(cfg, dev, sampler, served: dict) -> dict:
+    """cfg's samplers at BATCH (the serve phase's) and at SMALL: the
+    replay route against the eager route (replay=False) and the route
+    before the replayed graph (parent_route) in one process, in rounds
+    replay, eager, parent, parent, eager, replay of SAMPLER_ITERS batches
+    each (batch_rate; medians); CUDA events around each replay of those
+    rounds for its device ms, and the idle share of a replayed request
+    (1 - device ms / ms per batch); the median wall time of one HTTP
+    /generate at num = batch on the replay and eager routes; the capture
+    of each replaying sampler."""
+    from audiogan_tpu_torch.serve import ServedSampler, load_sampler
+    from audiogan_tpu_torch.serve.sample_graph import SampleGraph
+    out = {}
+    replay = SampleGraph.replay
+    for batch in (BATCH, SMALL):
+        art = served["artifacts"][batch]
+        rep = sampler if batch == BATCH else load_sampler(art)
+        eag = ServedSampler(art, replay=False)
+        events = []
+
+        def timed_replay(self):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            y = replay(self)
+            pair[1].record()
+            events.append(pair)
+            return y
+        routes = {"replay": rep.generate, "eager": eag.generate,
+                  "parent": parent_route(cfg, dev, art, batch)}
+        rounds = {k: [] for k in routes}
+        SampleGraph.replay = timed_replay
+        try:
+            for route in ("replay", "eager", "parent", "parent", "eager",
+                          "replay"):
+                rounds[route].append(batch_rate(routes[route], batch, cfg,
+                                                SAMPLER_ITERS))
+        finally:
+            SampleGraph.replay = replay
+        torch.cuda.synchronize(dev)
+        device = [a.elapsed_time(b) for a, b in events]
+        ms = {k: float(np.median([r["ms"] for r in v]))
+              for k, v in rounds.items()}
+        device_ms = float(np.mean(device))
+        out[batch] = {
+            "batch": batch, "replay_ms": ms["replay"],
+            "eager_ms": ms["eager"], "parent_route_ms": ms["parent"],
+            "rounds_ms": {k: [r["ms"] for r in v]
+                          for k, v in rounds.items()},
+            "eager_over_replay": ms["eager"] / ms["replay"],
+            "parent_over_replay": ms["parent"] / ms["replay"],
+            "clips_per_s": batch / ms["replay"] * 1e3,
+            "audio_s_per_s": (batch / ms["replay"] * 1e3 * cfg.data.clip_len
+                              / cfg.data.sample_rate),
+            "replay_device_ms": device_ms,
+            "replay_device_ms_min": min(device),
+            "replay_device_ms_max": max(device),
+            "idle_share": max(1.0 - device_ms / ms["replay"], 0.0),
+            "http_ms": {"replay": http_generate_ms(rep, cfg),
+                        "eager": http_generate_ms(eag, cfg)},
+            "graph": served["graph"] if batch == BATCH
+            else sampler_graph(rep)}
+        del rep, eag, routes
+    print(json.dumps({"timing": "sampler", "preset": cfg.name,
+                      **{str(b): v for b, v in out.items()}}), flush=True)
+    return out
 
 
 def main() -> int:
@@ -3188,11 +3375,10 @@ def main() -> int:
             "sconvt1d": time_sconv(True, s_dx, dev, errs["sconvt1d"]),
             "gru_cell": time_gru_cell(gcfg, dev, errs["gru_cell"]),
             "adam": time_adam(dev, errs["adam"])}
-    samplers = {cfg.name: sampler_rate(sampler, cfg),
-                gcfg.name: sampler_rate(gsampler, gcfg),
-                dcfg.name: sampler_rate(dsampler, dcfg),
-                mcfg.name: sampler_rate(msampler, mcfg),
-                rcfg.name: sampler_rate(rsampler, rcfg)}
+    samplers = {c.name: sampler_timing(c, dev, smp, srv) for c, smp, srv in (
+        (cfg, sampler, served), (gcfg, gsampler, gserved),
+        (dcfg, dsampler, dserved), (mcfg, msampler, mserved),
+        (rcfg, rsampler, rserved))}
     phase("timing", t0, samplers=samplers,
           train_steps_per_s={cfg.name: trained["steps_per_s"],
                              cfg.name + " fused_shuffle_sites=-1":
@@ -3265,6 +3451,10 @@ def main() -> int:
             launches_per_train_step_dual=dper_step["convt1d"],
             launches_serve=served["launches"]["convt1d"],
             launches_serve_gru=gserved["launches"]["convt1d"],
+            kernel_nodes_served_graph=served["graph"]["port_kernels"][
+                "K1 conv_transpose1d_ba"]["kernel_nodes"],
+            kernel_nodes_served_graph_gru=gserved["graph"]["port_kernels"][
+                "K1 conv_transpose1d_ba"]["kernel_nodes"],
             launches_tensor_core=trained["launches"]["convt1d_tc"],
             launches_tensor_core_per_train_step=per_step["convt1d_tc"],
             launches_tensor_core_per_train_step_gru=gper_step["convt1d_tc"],
@@ -3317,6 +3507,8 @@ def main() -> int:
             gru_per + ", without h_seq", card,
             launches_per_train_step=gper_step["gru_scan"],
             launches_serve=gserved["launches"]["gru_scan"],
+            kernel_nodes_served_graph=gserved["graph"]["port_kernels"][
+                "K4 gru_scan_fwd"]["kernel_nodes"],
             launches_persistent=gtrained["launches"]["gru_scan_persistent"],
             launches_persistent_serve=gserved["launches"][
                 "gru_scan_persistent"],

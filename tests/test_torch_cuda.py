@@ -19,6 +19,7 @@ torch and the port only, so they also run on a machine without JAX:
 """
 
 import json
+import re
 
 import pytest
 import torch
@@ -1456,3 +1457,233 @@ def test_adam_kernel_equals_torch_foreach_ops(cuda_device, preset):
     assert cases
     for case in cases:
         assert step_checks.hold_adam(case)["counts"] == 400
+
+
+# -- the served graph (serve/sample_graph.py) --------------------------------
+
+SERVE_PRESETS = {"wgan_gp_b64": [], "cond_gru_sc09": [], "dual_stft": [],
+                 "music_44k_dp16": ["mesh.dp=1"], "resample_22k": []}
+SERVE_CASES = [(p, b) for p in SERVE_PRESETS for b in (64, 8)] + [
+    ("cond_gru_sc09", 128)]
+SERVE_SEEDS = (0, 1, 7, 2 ** 40, -3)
+
+
+def _served(preset: str, batch: int, device, art, init_seed: int = 0):
+    """(config, G's weights on the card, artifact dir) of a preset at its
+    published widths, random weights from ``init_seed``, exported at
+    ``batch``."""
+    from audiogan_tpu_torch.cli import apply_overrides
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.models import build_generator
+    from audiogan_tpu_torch.models.init import init_params
+    from audiogan_tpu_torch.serve import export_sampler
+    cfg = apply_overrides(get_preset(preset),
+                          SERVE_PRESETS[preset]).validate()
+    params = init_params(build_generator(cfg, device=device),
+                         seed=init_seed).state_dict()
+    export_sampler(cfg, params, num=batch, out_dir=art)
+    return cfg, params, art
+
+
+def _serve_labels(cfg, batch: int, seed: int):
+    import numpy as np
+    n_cls = cfg.data.num_classes
+    return (np.random.default_rng(abs(seed) % 2 ** 32).integers(
+        0, n_cls, batch) if n_cls else None)
+
+
+def _eager_waves(cfg, params, seed: int, labels, batch: int, device):
+    from audiogan_tpu_torch.train.sample import build_sample_fn
+    lab = None if labels is None else torch.from_numpy(labels)
+    return build_sample_fn(cfg, device)(params, seed, lab,
+                                        num=batch).cpu().numpy()
+
+
+@pytest.mark.parametrize("preset,batch", SERVE_CASES, ids=str)
+def test_served_graph_equals_eager_sampling_to_the_bit(cuda_device, tmp_path,
+                                                       preset, batch):
+    """ServedSampler on the card replays one CUDA graph captured at load:
+    over five seeds (random labels for the GRU) its batch equals eager
+    build_sample_fn's for the same weights to the bit, and so does the
+    eager route's (replay=False). A request launches each port kernel as
+    often as the graph holds its kernel nodes: K1 5 a WaveGAN request, 3 a
+    GRU request with K4 1, K4 on its persistent launch at batch <= 64 and
+    on the host loop (no node of its own) at 128."""
+    import numpy as np
+    from audiogan_tpu_torch.kernels import hooks
+    from audiogan_tpu_torch.serve import ServedSampler, load_sampler
+    cfg, params, art = _served(preset, batch, cuda_device, tmp_path)
+    s = load_sampler(art)
+    assert s.route == "replay"
+    for seed in SERVE_SEEDS:
+        labels = _serve_labels(cfg, batch, seed)
+        np.testing.assert_array_equal(
+            s.generate(seed, labels),
+            _eager_waves(cfg, params, seed, labels, batch, cuda_device))
+    eager = ServedSampler(art, replay=False)
+    assert eager.route == "eager"
+    labels = _serve_labels(cfg, batch, 3)
+    np.testing.assert_array_equal(eager.generate(3, labels),
+                                  s.generate(3, labels))
+    before = hooks.launch_counts()
+    s.generate(1, _serve_labels(cfg, batch, 1))
+    delta = {k: v - before.get(k, 0) for k, v in hooks.launch_counts().items()
+             if v != before.get(k, 0)}
+    port = s.summary()["port_kernels"]
+    gru = preset == "cond_gru_sc09"
+    want = {"K1 conv_transpose1d_ba": 3 if gru else 5}
+    if gru:
+        want["K4 gru_scan_fwd"] = 1
+    assert {k: r["calls"] for k, r in port.items()} == want
+    assert {w for w, _ in delta} == {k.split()[-1] for k in want}
+    for name, rec in port.items():
+        w = name.split()[-1]
+        assert delta[(w, "launches")] == rec["calls"]
+        assert rec["kernel_nodes"] == rec["calls"] - delta.get(
+            (w, "launches_loop"), 0)
+    if gru:
+        loop = batch > 64
+        assert delta.get(("gru_scan_fwd", "launches_loop"), 0) == loop
+        assert delta.get(("gru_scan_fwd", "launches_persistent"), 0) == \
+            (not loop)
+        assert port["K4 gru_scan_fwd"]["kernel_nodes"] == (not loop)
+
+
+@pytest.mark.parametrize("preset", ["wgan_gp_b64", "cond_gru_sc09"])
+def test_two_hundred_sampler_replays_with_changing_seeds_equal_eager(
+        cuda_device, tmp_path, preset):
+    import numpy as np
+    from audiogan_tpu_torch.serve import load_sampler
+    cfg, params, art = _served(preset, 64, cuda_device, tmp_path)
+    s = load_sampler(art)
+    for seed in range(200):
+        labels = _serve_labels(cfg, 64, seed)
+        np.testing.assert_array_equal(
+            s.generate(seed, labels),
+            _eager_waves(cfg, params, seed, labels, 64, cuda_device))
+
+
+def test_two_samplers_in_one_process_keep_to_their_own(cuda_device,
+                                                       tmp_path):
+    """The flagship from two weight seeds and the GRU, loaded side by
+    side (each capture its own pool), their requests interleaved: each
+    batch equals its own eager sampling."""
+    import numpy as np
+    from audiogan_tpu_torch.serve import load_sampler
+    cases = [_served("wgan_gp_b64", 64, cuda_device, tmp_path / "a", 0),
+             _served("wgan_gp_b64", 8, cuda_device, tmp_path / "b", 1),
+             _served("cond_gru_sc09", 64, cuda_device, tmp_path / "c", 2)]
+    samplers = [load_sampler(art) for _, _, art in cases]
+    for seed in range(4):
+        for (cfg, params, _), s in zip(cases, samplers):
+            labels = _serve_labels(cfg, s.num, seed)
+            np.testing.assert_array_equal(
+                s.generate(seed, labels),
+                _eager_waves(cfg, params, seed, labels, s.num, cuda_device))
+    a, b = (s.generate(5) for s in samplers[:2])
+    assert not np.array_equal(a[:8], b)
+
+
+def test_concurrent_served_requests_get_their_own_seeds_bytes(cuda_device,
+                                                              tmp_path):
+    """Eight /generate requests with different seeds started together on
+    the GRU sampler through make_server (one thread each): every answer
+    holds the WAVs of its own seed and labels, as eager sampling gives
+    them."""
+    import base64
+    import threading
+    import urllib.request
+    from audiogan_tpu_torch.data.wavio import wav_bytes
+    from audiogan_tpu_torch.serve import load_sampler, make_server
+    cfg, params, art = _served("cond_gru_sc09", 8, cuda_device, tmp_path)
+    s = load_sampler(art)
+    seeds = [13 * i + 1 for i in range(8)]
+    want = {seed: [base64.b64encode(wav_bytes(s.sample_rate, w)).decode()
+                   for w in _eager_waves(cfg, params, seed,
+                                         _serve_labels(cfg, 8, seed), 8,
+                                         cuda_device)]
+            for seed in seeds}
+    srv = make_server(s, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d/generate" % srv.server_address[:2]
+    got, errors = {}, []
+    start = threading.Barrier(len(seeds))
+
+    def ask(seed):
+        try:
+            body = json.dumps({"seed": seed, "labels": _serve_labels(
+                cfg, 8, seed).tolist()}).encode()
+            req = urllib.request.Request(
+                url, data=body, headers={"Content-Type": "application/json"})
+            start.wait(timeout=60)
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got[seed] = json.loads(r.read())["wavs"]
+        except Exception as err:  # reported below
+            errors.append(err)
+    try:
+        workers = [threading.Thread(target=ask, args=(seed,))
+                   for seed in seeds]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=180)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors, errors
+    assert got == want
+
+
+def test_a_sampler_whose_capture_or_warm_up_fails_raises_at_load(
+        cuda_device, tmp_path, monkeypatch):
+    """No fallback: a host sync inside the body (a monkeypatched mu-law
+    expand reading the peak) passes the eager warm-up and breaks the
+    capture, and the load raises naming the op and the last kernel call;
+    a body that fails eagerly raises from the warm-up. Then a sampler of
+    the same artifact loads and serves eager sampling's bytes."""
+    import numpy as np
+    from audiogan_tpu_torch.serve import load_sampler
+    from audiogan_tpu_torch.train import sample
+    cfg, params, art = _served("wgan_gp_b64", 8, cuda_device, tmp_path)
+    expand = sample.mu_law_expand
+
+    def syncing(y, mu):
+        float(y.abs().max())
+        return expand(y, mu)
+    monkeypatch.setattr(sample, "mu_law_expand", syncing)
+    with pytest.raises(RuntimeError) as err:
+        load_sampler(art)
+    msg = str(err.value)
+    assert "capture of the sampler failed at" in msg
+    assert re.search(r"aten op aten\.(item|_local_scalar_dense)", msg), msg
+    assert "the last kernel call: K1 conv_transpose1d_ba" in msg
+
+    def failing(y, mu):
+        raise ValueError("no expand")
+    monkeypatch.setattr(sample, "mu_law_expand", failing)
+    with pytest.raises(RuntimeError, match="warm-up failed at .*no expand"):
+        load_sampler(art)
+    monkeypatch.setattr(sample, "mu_law_expand", expand)
+    s = load_sampler(art)
+    np.testing.assert_array_equal(
+        s.generate(9), _eager_waves(cfg, params, 9, None, 8, cuda_device))
+
+
+def test_captured_f32_gru_step_takes_the_host_loop(cuda_device, tmp_path):
+    """cond_gru_sc09 in f32 at batch 4: K4 and K5 run their host loops
+    (f32 has no persistent path), captured as they are: the replay
+    equals the eager step to the bit, and the scans' calls hold no node
+    of their own, only the loop's kernels."""
+    from audiogan_tpu_torch.train.step_graph import dump_step
+    cfg, state, step, args = _graph_case(
+        "cond_gru_sc09", ["train.dtype=float32"], cuda_device)
+    summary = dump_step(cfg, state, step, args, tmp_path, cuda_device,
+                        say=lambda _: None)
+    assert summary["replay_equals_eager"], summary["replay_differs_in"]
+    port = summary["port_kernels"]
+    for name in ("K4 gru_scan_fwd", "K5 gru_scan_bwd"):
+        assert port[name]["kernel_nodes"] == 0 < port[name]["other_nodes"]
+    assert port["K4 gru_scan_fwd"]["calls"] == 6
