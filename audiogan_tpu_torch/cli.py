@@ -48,6 +48,8 @@ Usage:
     python -m audiogan_tpu_torch.cli build-corpus --wav_dir data/sc09 \\
         --out_dir data/packed --store_len 16384
     python -m audiogan_tpu_torch.cli info --preset dual_stft
+    python -m audiogan_tpu_torch.cli bench --preset wgan_gp_b64
+    python -m audiogan_tpu_torch.cli bench --preset all --steps 2
 
 ``train`` runs WGAN-GP steps on the synthetic SC09 fixture (or
 --data_dir) up to --total_steps (alias --steps; default the preset's
@@ -81,7 +83,10 @@ torch.save, e.g. converted with convert.params_from_jax) or
 ``sample`` and ``"labels"`` in a ``/generate`` request. ``eval`` restores
 ``--workdir``'s latest checkpoint (or ``--step``) and prints one JSON line
 of train/evaluate.py's metrics and the ``step``. ``build-corpus`` packs a
-wav tree into clips.npy, labels.npy and meta.json. Everything runs on
+wav tree into clips.npy, labels.npy and meta.json. ``bench`` prints the
+reference's headline line per preset (train steps/s of the replayed step
+on staged clips, audio-seconds/s of the replayed sampler at an HBM-sized
+batch; bench.py in this package, run in this process). Everything runs on
 the card unless ``--device cpu``.
 """
 
@@ -277,7 +282,14 @@ def main(argv: list[str] | None = None) -> int:
     i = sub.add_parser("info", help="print the resolved config")
     _add_cfg_flags(i)
 
+    from audiogan_tpu_torch import bench
+    bench.add_flags(sub.add_parser("bench",
+                                   help="run the headline benchmark"))
+
     args = p.parse_args(argv)
+
+    if args.cmd == "bench":
+        return bench.run(args)
 
     if args.cmd == "info":
         print(_load_cfg(args).validate().to_json())

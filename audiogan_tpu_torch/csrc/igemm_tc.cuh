@@ -95,6 +95,7 @@ struct Plan {
   int batch, cin, cout;
   int rows, nb;    // A box: rows x nb batch elements, rows * nb <= M
   int n_mt;        // m tiles per element (1 when nb > 1)
+  int n_m;         // M blocks: ceil(batch / nb), or batch * n_mt
   int t_lim;       // output rows per element and phase
   int s_out;       // output row = t * s_out + phase
   int y_len;       // output rows per element
@@ -272,15 +273,19 @@ igemm_kernel(const __grid_constant__ AViews<NV> a_views,
   const uint32_t bars = base + kStages * STAGE;
   // full[s] at bars + 8 s, empty[s] at bars + 8 (kStages + s)
 
+  // M block mb: grid y, continued in grid z past y's 65535 blocks
+  // (launch_tile); the few blocks past n_m exit before any barrier
+  const int mb = blockIdx.y + gridDim.y * blockIdx.z;
+  if (mb >= g.n_m) return;
   const int ot = blockIdx.x % g.n_ot, phase = blockIdx.x / g.n_ot;
   const int o0 = ot * BN;
   int b0, t0;
   if (g.nb > 1) {
-    b0 = blockIdx.y * g.nb;
+    b0 = mb * g.nb;
     t0 = 0;
   } else {
-    b0 = blockIdx.y / g.n_mt;
-    t0 = (blockIdx.y % g.n_mt) * BM;
+    b0 = mb / g.n_mt;
+    t0 = (mb % g.n_mt) * BM;
   }
   const int k0 = ks.start[phase];
   const int n_iter = (ks.start[phase + 1] - k0) * g.n_chunks;
@@ -500,8 +505,15 @@ cudaError_t launch_tile(const AView& av, const void* w, int k,
   g.n_chunks = (g.cin + kChunk - 1) / kChunk;
   const long long n_m = g.nb > 1 ? (g.batch + g.nb - 1) / g.nb
                                  : (long long)g.batch * g.n_mt;
-  if (n_m > 65535 || (long long)g.n_ot * g.n_phase > 0x7fffffffLL)
+  // the M blocks over grid y (at most 65535) and, beyond it, grid z: nz
+  // rows of ny blocks, ny * nz - n_m < nz of them past the end. Up to
+  // 65535 M blocks the grid is [x, n_m, 1], as before the split.
+  const long long nz = (n_m + 65534) / 65535;
+  const long long ny = (n_m + nz - 1) / nz;
+  if (n_m > 0x7fffffffLL || nz > 65535 ||
+      (long long)g.n_ot * g.n_phase > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
+  g.n_m = (int)n_m;
   AViews<NV> a_views = {};
   CUtensorMap b_map;
   const cuuint64_t cin = g.cin;
@@ -528,7 +540,7 @@ cudaError_t launch_tile(const AView& av, const void* w, int k,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(g.n_ot * g.n_phase, (unsigned)n_m);
+  dim3 grid(g.n_ot * g.n_phase, (unsigned)ny, (unsigned)nz);
   kern<<<grid, NWG * 128 + 32, smem, stream>>>(
       a_views, b_map, ks, g, static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(y));

@@ -9,7 +9,8 @@ once per request (:82-88, 102-117).
 and G's output after the expand. Its body is train/sample.py's
 ``build_waves`` on those buffers: the function ``build_sample_fn`` runs.
 
-On the card, at load (``replay``), on the sampler's own stream:
+On the card, at load (``replay``), on the sampler's own stream, once it
+has waited for the caller's (the weights and buffers were made there):
   warm-up  one eager run of the body under a watch of every op and kernel
            call of the port (train/step_graph.py::_Watch). It builds
            every cache G makes at first use: the kernels' libraries, the
@@ -106,6 +107,11 @@ class SampleGraph:
 
     @torch.inference_mode()
     def _capture(self) -> None:
+        # the weights and the fixed buffers were made on the caller's
+        # stream, maybe just now (a fresh init's kernels still queued, a
+        # buffer on memory whose last kernel has not run): the sampler's
+        # stream waits for it
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
             self.fill(0, None if self.inputs["labels"] is None
                       else np.zeros(self.num, np.int64))

@@ -170,6 +170,10 @@ class _Driver:
     def nodes(self, graph: int) -> list[int]:
         n = ctypes.c_size_t()
         self._call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+        if n.value == 0:
+            # nothing captured yet (a step whose first op is a kernel
+            # call): cuGraphGetNodes refuses an array for no nodes
+            return []
         out = (ctypes.c_void_p * n.value)()
         self._call("cuGraphGetNodes", graph, out, ctypes.byref(n))
         return [int(v or 0) for v in out[:n.value]]

@@ -16,7 +16,9 @@ time axis split over two ranks (context parallelism, `--set
 mesh.cp=2`), and the flagship and cond_gru_sc09 with the critic's
 channels split over two ranks (tensor parallelism, `--set mesh.tp=2`);
 beside them the fused GRU cell
-(`ops/gru.py::gru_cell`, impl="pallas") as a 256-frame recurrence. Phases, each printing one JSON
+(`ops/gru.py::gru_cell`, impl="pallas") as a 256-frame recurrence, and
+`cli bench`, the reference's headline harness, over every preset.
+Phases, each printing one JSON
 line with its own ``seconds``; any failure raises and the script exits
 non-zero:
 
@@ -224,6 +226,23 @@ non-zero:
             critic, forward, reading D.conv_0_kernel. Then one healthy
             flagship step under the check mode (every aten op and kernel
             call tested): no NaN.
+6h. bench   `cli bench`, the reference's headline harness
+            (audiogan_tpu_torch/bench.py): with its defaults (the
+            flagship, 10 steps a round, bf16), one JSON line with exactly
+            the reference's keys but its proxy fields, and the card's name
+            and power limit, steps/s and audio-seconds/s above 0, batch
+            4096; then `--preset all --steps 2`, one such line per preset
+            in the reference's order. In this process, the launch counts
+            zeroed just before: three bench steps of the flagship on its
+            staged clips (eager, captured and replayed, replayed) equal
+            to three eager steps from a fresh state of the same seed, to
+            the bit; each preset's replayed sampler at its
+            default_sample_num (4096, 16384 for tiny_sc09 and
+            resample_22k in bf16, 380 for music_44k_dp16), its first and
+            last 8 clips against the port on the CPU on the same z and
+            labels (the serve phase's tolerances), its capture, graph
+            pool and peak memory; K1, K1', K2, Adam's kernel and K4 (the
+            GRU sampler's host loop) launched.
 7. timing   per geometry: kernel (its path; on the tensor cores its tile
             and the time of each other tile), plain form and, where one
             exists, one library call (F.conv_transpose1d / F.conv1d,
@@ -267,6 +286,7 @@ from __future__ import annotations
 import base64
 import concurrent.futures
 import dataclasses
+import gc
 import io
 import json
 import shutil
@@ -288,6 +308,7 @@ import torch.nn.functional as F
 # the step checks this script shares with tools/dp_check.py (parity bounds,
 # random batches, conv geometries and launch counts, states to the bit);
 # without the package beside it the script stops here
+from audiogan_tpu_torch.bench import graph_pool_bytes
 from audiogan_tpu_torch.kernels import hooks
 from audiogan_tpu_torch.tools.step_checks import (
     PARITY_PARAM_FINE, PARITY_PARAM_TOL, PARITY_REL_TOL, PARITY_SEEDS,
@@ -348,6 +369,17 @@ CLI_TIMEOUT_S = 600
 # the dp phase: two ranks on this card; its f32 steps at this batch
 DP_RANKS, DP_F32_BATCH, DP_STEPS = 2, 8, 2
 DP_TIMEOUT_S = 600
+# the bench phase: `cli bench`'s runs (the flagship with the defaults,
+# then every preset at 2 steps a round) and the clips of each preset's
+# replayed sampler held against the port on the CPU: this many first and
+# last; three bench steps of the flagship against three eager ones
+BENCH_TIMEOUT_S = 600
+BENCH_CLIPS, BENCH_STEPS = 8, 3
+BENCH_LINE_KEYS = {"metric", "value", "unit", "rounds_steps_per_sec",
+                   "stabilize_rounds", "rounds_spread_pct",
+                   "audio_sec_per_sec", "sample_batch", "preset", "batch",
+                   "n_critic", "kernels", "kernels_g", "kernels_d", "dtype",
+                   "device"}
 # the cp and tp phases: two ranks on this card, f32 at this batch; the
 # per-rank conv geometries of music_44k_dp16 at cp=4 and of the
 # flagship's critic at tp=2 (compare, timing)
@@ -1503,18 +1535,6 @@ def decode_wav(b64: str) -> tuple[int, np.ndarray]:
     return rate, pcm
 
 
-def graph_pool_bytes(graph) -> int | None:
-    """The bytes of the segments a captured graph's private memory pool
-    holds (the allocator's snapshot), or None where the snapshot does not
-    name its segments' pools."""
-    snap = torch.cuda.memory_snapshot()
-    if any("segment_pool_id" not in seg for seg in snap):
-        return None
-    pool = tuple(graph.pool())
-    return sum(seg["total_size"] for seg in snap
-               if tuple(seg["segment_pool_id"]) == pool)
-
-
 def sampler_graph(sampler) -> dict:
     """A replaying sampler's capture: its summary and its pool's bytes."""
     if sampler.route != "replay":
@@ -2503,6 +2523,147 @@ def trace_phase(cfg, dev) -> dict:
             "healthy_step_under_check_s": time.time() - t0}
 
 
+# -- bench: `cli bench` ---------------------------------------------------------
+
+def bench_run(card: str, *args) -> tuple[list[dict], list[dict], float]:
+    """`cli bench` with ``args`` to its end: its stdout lines (every one a
+    JSON line with exactly the reference's keys but the proxy fields and
+    the card's name), its stderr summaries and its seconds."""
+    t0 = time.time()
+    proc = subprocess.run(cli_cmd("bench", *args), cwd=ROOT,
+                          capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    if proc.returncode:
+        raise RuntimeError(f"cli bench {' '.join(map(str, args))} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    for line in lines:
+        if set(line) != BENCH_LINE_KEYS or not line["value"] > 0 or \
+                not line["audio_sec_per_sec"] > 0 or line["device"] != card \
+                or {line[k] for k in ("kernels", "kernels_g",
+                                      "kernels_d")} != {"cuda"}:
+            raise AssertionError(f"cli bench line: {line}")
+    summaries = [json.loads(ln) for ln in proc.stderr.splitlines()
+                 if ln.startswith('{"bench"')]
+    return lines, summaries, time.time() - t0
+
+
+def bench_sampler_clips(preset: str, dev) -> dict:
+    """The bench's replayed sampler of ``preset`` at its
+    default_sample_num: its first and last BENCH_CLIPS clips for seed 1
+    against the port on the CPU (the plain forms) on the same z and labels,
+    under the serve phase's tolerance of the compute dtype; the capture,
+    its pool and the peak memory."""
+    from audiogan_tpu_torch import bench
+    from audiogan_tpu_torch.train.sample import generate
+    cfg = bench.bench_config(preset)
+    num = bench.default_sample_num(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = bench.generator_params(cfg, dev)
+    labels = bench.sample_labels(cfg, num)
+    sampler = bench.BenchSampler(cfg, params, num, dev, labels)
+    rows = np.r_[0:BENCH_CLIPS, num - BENCH_CLIPS:num]
+    with torch.cuda.stream(sampler.graph.stream):
+        out = sampler(1)[rows].cpu()
+        z = sampler.graph.inputs["z"][rows].cpu()
+    peak = torch.cuda.max_memory_allocated()
+    summary = sampler.summary()
+    del sampler
+    ref = generate(cfg, {k: v.cpu() for k, v in params.items()},
+                   len(rows), 1, None if labels is None else labels[rows],
+                   device="cpu", z=z)
+    tol = SERVE_BF16_REL_TOL if cfg.train.dtype == "bfloat16" \
+        else F32_REL_TOL
+    got = out.numpy()
+    err = float(np.abs(got - ref).max())
+    peak_ref = float(np.abs(ref).max())
+    if got.shape != (len(rows), cfg.data.clip_len) or \
+            not np.isfinite(got).all() or not err <= tol * peak_ref:
+        raise AssertionError(f"{preset}: the bench sampler at {num} vs the "
+                             f"CPU: {got.shape}, {err} > {tol} * {peak_ref}")
+    if dev.type == "cuda" and summary["route"] != "replay":
+        raise AssertionError(f"{preset}: the bench sampler runs "
+                             f"{summary['route']}")
+    return {"sample_batch": num, "clips_checked": len(rows),
+            "max_abs_err": err, "max_abs_ref": peak_ref, "tol_rel": tol,
+            **{k: summary.get(k) for k in ("route", "capture_seconds",
+                                           "nodes", "pool_bytes",
+                                           "port_kernels")},
+            "peak_memory_bytes": peak}
+
+
+def bench_steps_bits(dev) -> dict:
+    """Three bench steps of the flagship (eager, captured and replayed,
+    replayed) on the staged clips against three eager steps from a fresh
+    state of the same seed on the same clips: parameters, both Adams'
+    moments and the last metrics to the bit."""
+    from audiogan_tpu_torch import bench
+    from audiogan_tpu_torch.train.state import (create_train_state,
+                                                state_tensors)
+    from audiogan_tpu_torch.train.step import build_train_step
+    from audiogan_tpu_torch.train.step_graph import StepGraph, differing
+    cfg = bench.bench_config("wgan_gp_b64")
+    staged = bench.StagedStep(cfg, dev)
+    for _ in range(BENCH_STEPS):
+        got = staged()
+    got = {k: v.clone() for k, v in got.items()}
+    state = create_train_state(cfg, device=dev)
+    eager = StepGraph(cfg, build_train_step(cfg, dev), dev, resident=(0, 1))
+    for _ in range(BENCH_STEPS):
+        eager.fill(state, staged.inputs)
+        want = eager.eager(state)
+    torch.cuda.synchronize()
+    differ = differing({**state_tensors(staged.state), **got},
+                       {**state_tensors(state), **want})
+    if differ or staged.graph.replays != BENCH_STEPS - 1:
+        raise AssertionError(f"the bench's replayed steps differ from the "
+                             f"eager ones in {differ[:10]} "
+                             f"({staged.graph.replays} replays)")
+    return {"steps": BENCH_STEPS, "replays": staged.graph.replays,
+            "tensors_equal": len(want) + len(state_tensors(state)),
+            **staged.summary()}
+
+
+def bench_phase(card: str, dev) -> dict:
+    """Phase 6h (the module docstring): `cli bench` and its checks."""
+    from audiogan_tpu_torch import bench
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.time()
+    (flagship,), summ, secs = bench_run(card, "--preset", "wgan_gp_b64")
+    if flagship["preset"] != "wgan_gp_b64" or \
+            flagship["sample_batch"] != 4096:
+        raise AssertionError(f"cli bench: {flagship}")
+    out["flagship"] = {"line": flagship, "summary": summ[0],
+                       "seconds": secs}
+    lines, summ, secs = bench_run(card, "--preset", "all", "--steps", 2)
+    if [ln["preset"] for ln in lines] != list(bench.PRESETS):
+        raise AssertionError(f"cli bench --preset all: {lines}")
+    out["all_steps_2"] = {"lines": lines, "summaries": summ,
+                          "seconds": secs}
+    # the in-process part, the launch counts zeroed just before it
+    hooks.add_launches({k: -v for k, v in hooks.launch_counts().items()})
+    t1 = time.time()
+    out["steps_bits"] = bench_steps_bits(dev)
+    out["samplers"] = {p: bench_sampler_clips(p, dev) for p in bench.PRESETS}
+    launches = {w: n for (w, attr), n in hooks.launch_counts().items()
+                if attr == "launches" and n}
+    need = ("conv_transpose1d_ba", "conv1d_ba", "ingest_fused",
+            "adam_update", "gru_scan_fwd")
+    if any(not launches.get(w) for w in need):
+        raise AssertionError(f"the bench path launched {launches}, want "
+                             f"every one of {need}")
+    out["in_process_seconds"] = time.time() - t1
+    out["launches"] = launches
+    out["seconds"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- timing ---------------------------------------------------------------------
 
 def dp_phase(cfg, dcfg, dev) -> dict:
@@ -3351,6 +3512,10 @@ def main() -> int:
     # 6g. the loop's trace and NaN check -------------------------------------
     t0 = time.time()
     phase("trace", t0, card=card, **trace_phase(cfg, dev))
+
+    # 6h. `cli bench`: the reference's headline harness ---------------------
+    t0 = time.time()
+    phase("bench", t0, card=card, **bench_phase(card, dev))
 
     # 7. timing ---------------------------------------------------------------
     t0 = time.time()

@@ -1687,3 +1687,83 @@ def test_captured_f32_gru_step_takes_the_host_loop(cuda_device, tmp_path):
     for name in ("K4 gru_scan_fwd", "K5 gru_scan_bwd"):
         assert port[name]["kernel_nodes"] == 0 < port[name]["other_nodes"]
     assert port["K4 gru_scan_fwd"]["calls"] == 6
+
+
+# -- the bench's batches (audiogan_tpu_torch/bench.py) --------------------------
+
+def test_flagship_g3_at_batch_8192_runs_past_the_grid_y_limit(cuda_device):
+    """The flagship generator's G3 convT at batch 8192 needs 65536 M
+    blocks, one more than grid y holds: csrc/igemm_tc.cuh continues them
+    in grid z. The first 8 and the last 8 elements against the plain form
+    (the bf16 tolerance of the convT tests), and the first 8 equal to the
+    same tile's launch at batch 4096 (32768 M blocks, grid y alone) to the
+    bit."""
+    from audiogan_tpu_torch.config import get_preset
+    from audiogan_tpu_torch.tools.step_checks import generator_layers
+    L = generator_layers(get_preset("wgan_gp_b64"), 8192)[3]
+    assert (L["cin"], L["cout"], L["t_in"], L["s"]) == (128, 64, 1024, 4)
+    plans = {b: tconv.convt_tc_plan(b, L["cout"], L["k"], L["s"],
+                                    L["pad_lo"], L["out_len"])
+             for b in (8192, 4096)}
+    assert plans[8192][0] == plans[4096][0]            # the same tile
+    _, _, _, blocks = tconv.tc_tile_shape(8192, L["t_in"], 1, L["cout"],
+                                          int(plans[8192][0]))
+    assert blocks > 65535
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    x = torch.randn(8192, L["t_in"], L["cin"], generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(L["k"], L["cin"], L["cout"], generator=gen,
+                     device=cuda_device) / (L["k"] * L["cin"] / 4) ** 0.5
+         ).to(torch.bfloat16)
+    b = (torch.randn(L["cout"], generator=gen, device=cuda_device) * 0.5
+         ).to(torch.bfloat16)
+    args = (L["s"], L["pad_lo"], L["out_len"], L["act"])
+    before = tconv.conv_transpose1d_ba.launches_tc
+    y = tconv.conv_transpose1d_ba(x, w, b, *args)
+    half = tconv.conv_transpose1d_ba(x[:4096], w, b, *args)
+    torch.cuda.synchronize()
+    assert tconv.conv_transpose1d_ba.launches_tc == before + 2
+    assert torch.equal(y[:8], half[:8])
+    for rows in (slice(0, 8), slice(8192 - 8, 8192)):
+        want = tconv.conv_transpose1d_ba_plain(
+            x[rows].float(), w.float(), b.float(), *args, 0.2)
+        err = (y[rows].float() - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item(), (rows, err)
+
+
+def test_gru_sampler_at_4096_replays_its_host_loop(cuda_device):
+    """cond_gru_sc09's sampler at the bench's batch 4096: K4 on its host
+    loop (B > 64) inside the captured graph. Two replays equal the eager
+    body on the same buffers to the bit, and the last 8 clips equal the
+    port on the CPU (plain forms, bf16, the same z and labels) within the
+    serve phase's tolerance (5e-2 of the peak)."""
+    import numpy as np
+    from audiogan_tpu_torch import bench
+    from audiogan_tpu_torch.serve.sample_graph import SampleGraph
+    from audiogan_tpu_torch.train.sample import generate
+    cfg = bench.bench_config("cond_gru_sc09")
+    num = bench.default_sample_num(cfg)
+    assert num == 4096
+    params = bench.generator_params(cfg, cuda_device)
+    labels = bench.sample_labels(cfg, num)
+    sampler = bench.BenchSampler(cfg, params, num, cuda_device, labels)
+    graph = sampler.graph
+    assert graph.route == "replay"
+    port = graph.port_kernels()
+    assert port["K4 gru_scan_fwd"]["kernel_nodes"] == 0      # the host loop
+    assert port["K4 gru_scan_fwd"]["other_nodes"] > 0
+    eager = SampleGraph(cfg, params, num, cuda_device, replay=False)
+    for seed in (5, 6):
+        with torch.cuda.stream(sampler.graph.stream):
+            got = sampler(seed).clone()
+        sampler.graph.stream.synchronize()
+        with torch.inference_mode():
+            eager.fill(seed, labels)
+            want = eager.body()
+        assert torch.equal(got, want), seed
+    z = graph.inputs["z"][-8:].cpu()
+    cpu = {k: v.cpu() for k, v in params.items()}
+    ref = generate(cfg, cpu, 8, 6, labels[-8:], device="cpu", z=z)
+    err = float(np.abs(got[-8:].cpu().numpy() - ref).max())
+    assert np.isfinite(ref).all()
+    assert err <= 5e-2 * float(np.abs(ref).max()), err

@@ -68,6 +68,8 @@ def test_entry_points_raise_without_a_card():
         main(["sample", "--init-seed", "0", "--out_dir", "unused"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["serve", "--artifact", "unused"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["bench", "--preset", "tiny_sc09"])
 
 
 def test_gru_entry_points_raise_without_a_card(tmp_path):
